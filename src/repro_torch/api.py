@@ -24,6 +24,11 @@ organized around the portable decision artifact — the
     y = P @ x                      # SpMV
     Y = P @ X                      # SpMM, X: (n_cols, B)
 
+    # the batched path, launch geometry searched on the card
+    tuner = api.KernelTuner(db)
+    P = api.Planner(db, tuner=tuner).plan(csr, batch=128).bind(csr)
+    Y = P @ X                      # X: (n_cols, 128)
+
 Names match ``repro.api`` for everything the port holds so far.
 """
 from repro_torch.core.autotune import (Decision, MachineModel, OfflineRecord,
@@ -33,7 +38,9 @@ from repro_torch.core.autotune import (Decision, MachineModel, OfflineRecord,
 from repro_torch.core.formats import (BucketedELL, COO, CSR, ELL, MatrixStats,
                                       MatrixValidationError, from_numpy,
                                       memory_bytes, to_numpy)
-from repro_torch.core.kernel_tune import (GeometryRecord, TileGeometry,
+from repro_torch.core.kernel_tune import (GRID_FORMATS, GeometryRecord,
+                                          KernelTuner, TileGeometry,
+                                          candidate_geometries,
                                           nearest_geometry)
 from repro_torch.core.plan import (SCHEMA_VERSION, BlockPlan, ExecutionPlan,
                                    PlanError, PlanFingerprint,
@@ -53,8 +60,10 @@ __all__ = [
     "PlanSchemaError", "apply_transform",
     # offline phase + persistence
     "offline_phase", "TuningDB", "OfflineRecord", "MachineModel",
-    # kernel launch geometry (records; the tuner is not ported yet)
-    "TileGeometry", "GeometryRecord", "nearest_geometry",
+    # kernel launch-geometry tuning (GRID_FORMATS is importable here too,
+    # but kept out of __all__ as the reference keeps it)
+    "KernelTuner", "TileGeometry", "GeometryRecord",
+    "candidate_geometries", "nearest_geometry",
     # formats + construction
     "CSR", "COO", "ELL", "BucketedELL", "MatrixStats",
     "MatrixValidationError", "memory_bytes", "csr_from_dense",

@@ -90,6 +90,44 @@ def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 2) -> float:
     return best
 
 
+#: cycles the card spins before a timed call (~0.5 ms on an H100), so that
+#: the host has enqueued the call by the time the start event fires and the
+#: events bracket device work, not the host's launch path
+HEAD_START_CYCLES = 1_000_000
+#: the longest spin :func:`time_device` grows to (~65 ms on an H100)
+MAX_HEAD_START_CYCLES = 128 * HEAD_START_CYCLES
+
+
+def time_device(thunk: Callable[[], Any],
+                before: Optional[Callable[[], Any]] = None) -> float:
+    """Device seconds of one call of ``thunk`` on the current CUDA device's
+    current stream.
+
+    The card first spins (``torch.cuda._sleep``) so that the host has
+    enqueued the call before the start event fires: the events then bracket
+    device work only, however many host operations the call enqueues.
+    If the start event has already fired when the host is done enqueuing,
+    the spin was too short and the host's pace leaked into the time; the
+    measurement is then repeated with twice the spin, up to
+    ``MAX_HEAD_START_CYCLES``.  ``before`` runs ahead of the spin on every
+    attempt (for example to flush the L2)."""
+    spin = HEAD_START_CYCLES
+    while True:
+        if before is not None:
+            before()
+        torch.cuda._sleep(spin)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        thunk()
+        late = start.query()
+        end.record()
+        end.synchronize()
+        if not late or spin >= MAX_HEAD_START_CYCLES:
+            return start.elapsed_time(end) * 1e-3
+        spin *= 2
+
+
 def time_host(fn: Callable, *args, iters: int = 3) -> float:
     best = float("inf")
     for _ in range(iters):

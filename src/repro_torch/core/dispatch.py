@@ -12,8 +12,8 @@ One registry, keyed by ``(format, op)`` with two implementation tiers:
 ``op`` is ``"spmv"`` (single right-hand side, ``x: (n_cols,)``) or
 ``"spmm"`` (multi-RHS panel, ``x: (n_cols, B)``) — the batch-parallel form
 that strengthens the paper's amortization rule to
-``k * B * (t_crs - t_f) > t_trans``.  No ``spmm`` is registered at the
-kernel tier yet; :func:`resolve_impl` then reports ``found == "reference"``.
+``k * B * (t_crs - t_f) > t_trans``.  Both ops are registered at the
+kernel tier for every format the port holds.
 
 Registration happens at import time of the providing modules; lookups lazily
 import them, so this module itself has no dependency on any format or kernel

@@ -1,29 +1,43 @@
-"""Kernel launch-geometry records: the data half of launch-geometry tuning.
+"""Kernel launch-geometry auto-tuning: the paper's auto-tuner stops at format
+selection; this module extends it down to the launch of each CUDA kernel.
 
   * :class:`TileGeometry` — the knobs every kernel wrapper in
     ``kernels/ops.py`` accepts per call (``tuning=``).  The fields are
     exactly the JAX package's, because plan and TuningDB JSON interchange
     both ways and that package's loader rejects unknown fields.  The CUDA
-    wrappers read ``block_rows`` (rows per CUDA block) and ``block_nnz``
-    (entries per CUDA block); the others ride along for the schema.
-  * :class:`GeometryRecord` / :func:`nearest_geometry` — recorded winners
-    and the D_mat-keyed nearest-neighbour lookup the planner uses.
+    wrappers read ``block_rows`` (rows per CUDA block), ``block_nnz``
+    (entries per CUDA block) and ``block_k`` (right-hand-side columns per
+    CUDA block, SpMM); ``block_w`` and ``slabs_per_block`` ride along for
+    the schema.
+  * :func:`candidate_geometries` — the bounded per-(format, op) search grid
+    over those three knobs, de-duplicated on the launch each candidate
+    actually makes (threads per block, rows or entries per block, column
+    tile), so the tuner never times the same launch twice.
+  * :class:`KernelTuner` — times real launches per candidate (CUDA events
+    on the card), memoizes the winner per ``(format, op, batch, matrix
+    profile)``, records into a :class:`~repro_torch.core.autotune.TuningDB`
+    and answers unseen matrices with the D_mat-keyed
+    :func:`nearest_geometry`.
 
-The search itself (candidate grids and the timing ``KernelTuner``) is not
-ported yet; ``Planner(tuner=...)`` is duck-typed on ``.tune(...)`` and
-``.records``.
+The timing loop is injectable (``timer=``) so tests tune deterministically
+without a clock or a card.
 """
 from __future__ import annotations
 
+import time
 import zlib
 from dataclasses import asdict, dataclass, replace
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from .formats import _np
+from .. import obs as _obs
+from . import dispatch as _dispatch
+from .formats import CSR, MatrixStats, _np
 
-__all__ = ["TileGeometry", "GeometryRecord", "nearest_geometry"]
+__all__ = ["TileGeometry", "GeometryRecord", "GRID_FORMATS",
+           "candidate_geometries", "nearest_geometry", "KernelTuner"]
 
 
 # ---------------------------------------------------------------------------
@@ -42,7 +56,7 @@ class TileGeometry:
     absent from the table fall back to the top-level knobs."""
     block_rows: Optional[int] = None   # ELL/CSR rows per block
     block_w: Optional[int] = None      # ELL band tile (schema only)
-    block_k: Optional[int] = None      # SpMM right-hand-side tile (schema only)
+    block_k: Optional[int] = None      # SpMM right-hand-side columns per block
     block_nnz: Optional[int] = None    # COO entries per block
     slabs_per_block: Optional[int] = None  # CSR static coverage bound (schema only)
     buckets: Optional[Tuple[Tuple[int, "TileGeometry"], ...]] = None  # SELL
@@ -156,3 +170,367 @@ def _structure_sig(obj: Any) -> int:
     if ip is None:
         return 0
     return zlib.crc32(np.ascontiguousarray(_np(ip)).tobytes()) or 1
+
+
+# ---------------------------------------------------------------------------
+# the bounded search grid (CUDA launches)
+# ---------------------------------------------------------------------------
+#: rows per CUDA block (ELL, SELL buckets, CSR); the block holds that many
+#: rows times the lanes the wrapper gives a row, clamped to 1024 threads
+GPU_ROW_TILES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+#: entries per CUDA block (COO)
+GPU_NNZ_TILES = (256, 1024, 4096, 16384)
+#: right-hand-side columns per CUDA block (SpMM), clamped to the batch
+GPU_K_TILES = (8, 32, 128)
+
+#: every format with a CUDA kernel and a candidate grid below — the kernel
+#: tier's tunable surface (ccs and bcsr join with their kernels)
+GRID_FORMATS = ("ell_row", "ell_col", "sell", "coo_row", "coo_col", "csr")
+
+
+def _lanes_per_row(fmt: str, op: str, n_rows: int, width: int,
+                   nnz_pad: int, batch: int,
+                   block_k: Optional[int]) -> int:
+    """Threads the wrapper gives one row (ELL, SELL bucket, CSR), from the
+    same helpers the wrappers call."""
+    from ..kernels import _common as C
+    if op == "spmm":
+        return C.rhs_tile(batch, block_k)[1]
+    if fmt == "csr":
+        return C.csr_spmv_lanes(nnz_pad, n_rows)
+    # ELL-Row and SELL buckets are row-major (a one-slot band has strides
+    # (1, 1) and is not); ELL-Col is column-major
+    return C.ell_spmv_lanes(width, row_major=fmt != "ell_col" and width > 1)
+
+
+def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
+                         width: int = 0, nnz_pad: int = 0,
+                         batch: int = 1) -> List[TileGeometry]:
+    """The bounded launch-geometry grid for one (format, op).
+
+    Only knobs a CUDA wrapper reads are searched: ``block_rows`` (ELL, SELL,
+    CSR), ``block_nnz`` (COO) and, for SpMM, ``block_k``.  Each candidate
+    holds the values its launch actually takes — rows per block as the
+    whole warps the wrapper rounds to at its lane count (at most 1024
+    threads, at most the matrix's rows), entries per block at most
+    ``nnz_pad``, columns per block at most the batch — so de-duplicating
+    the candidates de-duplicates the launches and the tuner never times the
+    same launch twice."""
+    from ..kernels._common import rhs_tile, rows_per_block
+    if fmt not in GRID_FORMATS:
+        return []
+    batch = max(int(batch), 1)
+    ks = ([rhs_tile(batch, k)[0] for k in GPU_K_TILES] if op == "spmm"
+          else [None])
+    geoms: List[TileGeometry] = []
+    for k in ks:
+        if fmt.startswith("coo"):
+            geoms.extend(TileGeometry(block_nnz=min(bn, nnz_pad or bn),
+                                      block_k=k) for bn in GPU_NNZ_TILES)
+            continue
+        lanes = _lanes_per_row(fmt, op, n_rows, width, nnz_pad, batch, k)
+        cap = 1024 // lanes
+        if n_rows:
+            cap = min(cap, n_rows)
+        geoms.extend(
+            TileGeometry(block_rows=rows_per_block(lanes, min(r, cap)),
+                         block_k=k) for r in GPU_ROW_TILES)
+    return list(dict.fromkeys(geoms))
+
+
+# ---------------------------------------------------------------------------
+# matrix profiling (best effort per format)
+# ---------------------------------------------------------------------------
+def _profile_of(obj: Any, stats: Optional[MatrixStats] = None
+                ) -> Tuple[int, int, float, int]:
+    sig = _structure_sig(obj)
+    if stats is not None:
+        return int(stats.n), int(stats.nnz), float(stats.d_mat), sig
+    n = int(getattr(obj, "n_rows", 0))
+    nnz = int(getattr(obj, "nnz", 0))
+    d_mat = float(MatrixStats.of(obj).d_mat) if isinstance(obj, CSR) else 0.0
+    return n, nnz, d_mat, sig
+
+
+def _width_of(obj: Any) -> int:
+    w = getattr(obj, "width", None)
+    if w is not None:
+        return int(w)
+    widths = getattr(obj, "widths", None)   # BucketedELL
+    if widths:
+        return int(max(widths))
+    return 0
+
+
+def _slab_bound_for(obj: Any, g: TileGeometry) -> Optional[int]:
+    """The reference's slab-coverage bound for a CSR candidate, recorded
+    in the winner for plan-JSON parity (no CUDA kernel reads it)."""
+    ip = getattr(obj, "indptr", None)
+    if ip is None:
+        return None
+    from ..kernels.csr_spmv import slabs_needed
+    return slabs_needed(_np(ip), g.block_rows or 256, g.block_nnz or 2048)
+
+
+# ---------------------------------------------------------------------------
+# the tuner
+# ---------------------------------------------------------------------------
+def _real_timer(iters: int, warmup: int) -> Callable:
+    """Best of ``iters`` of one launch: CUDA events behind a head start
+    that outlasts the host's enqueue (:func:`~.autotune.time_device`) when
+    the launch ran on a card, ``perf_counter`` on the host otherwise."""
+    from .autotune import time_device
+
+    def timer(thunk: Callable[[], Any], geometry: Optional[TileGeometry]
+              ) -> float:
+        out = thunk()            # first warm-up call; says where it ran
+        for _ in range(warmup - 1):
+            thunk()
+        dev = getattr(out, "device", torch.device("cpu"))
+        if dev.type != "cuda":
+            best = float("inf")
+            for _ in range(max(iters, 1)):
+                t0 = time.perf_counter()
+                thunk()
+                best = min(best, time.perf_counter() - t0)
+            return best
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize()
+            return min(time_device(thunk) for _ in range(max(iters, 1)))
+    return timer
+
+
+class KernelTuner:
+    """Searches :func:`candidate_geometries` by timing real launches.
+
+    ``db``: an :class:`~repro_torch.core.autotune.TuningDB` to read and
+    record geometry winners in (its ``geometries`` list is shared, so
+    saving the db persists the tuner's work).  ``timer(thunk, geometry) ->
+    seconds`` is injectable for deterministic tests.  ``interpret`` is
+    accepted for signature parity with the JAX package and ignored: a CUDA
+    kernel has no interpret mode.
+    """
+
+    def __init__(self, db: Optional[Any] = None,
+                 interpret: Optional[bool] = None,
+                 iters: int = 3, warmup: int = 1,
+                 timer: Optional[Callable] = None,
+                 max_candidates: Optional[int] = None):
+        self.db = db
+        self.interpret = interpret
+        self.records: List[GeometryRecord] = (
+            db.geometries if db is not None
+            and getattr(db, "geometries", None) is not None else [])
+        if db is not None and getattr(db, "geometries", None) is None:
+            db.geometries = self.records
+        self._timer = timer or _real_timer(iters, warmup)
+        self.max_candidates = max_candidates
+        # memo maps key -> *index* into self.records, so a forced re-tune
+        # replaces the superseded record in place instead of accumulating
+        # duplicates in the shared (persisted) list
+        self._memo: Dict[Tuple, int] = self._build_memo()
+
+    def _build_memo(self) -> Dict[Tuple, int]:
+        memo = {
+            self._key(r.fmt, r.op, r.batch, (r.n, r.nnz, r.d_mat, r.sig),
+                      getattr(r, "bucket_w", None)): i
+            for i, r in enumerate(self.records)}
+        if len(memo) != len(self.records):
+            # a db persisted before re-tunes replaced in place can carry
+            # stale duplicates; keep the last record per key (the freshest
+            # winner) — compact through the slice so the db's list alias
+            # heals too
+            self.records[:] = [self.records[i] for i in sorted(memo.values())]
+            return self._build_memo()
+        return memo
+
+    @staticmethod
+    def _key(fmt: str, op: str, batch: int,
+             profile: Tuple[int, int, float, int],
+             bucket_w: Optional[int] = None):
+        return (fmt, op, batch, profile[0], profile[1],
+                round(profile[2], 6), profile[3], bucket_w)
+
+    def _record(self, key: Tuple, rec: GeometryRecord) -> GeometryRecord:
+        """Memoize ``rec`` under ``key``, replacing any superseded record
+        in place (one record per key across forced re-tunes; ``records``
+        stays aliased with the db's list)."""
+        idx = self._memo.get(key)
+        if idx is None:
+            self._memo[key] = len(self.records)
+            self.records.append(rec)
+        else:
+            self.records[idx] = rec
+        tel = _obs.get()
+        if tel.enabled:
+            attrs = dict(fmt=rec.fmt, op=rec.op, batch=rec.batch,
+                         t_best=rec.t_best, t_default=rec.t_default,
+                         speedup=rec.speedup,
+                         geometry=rec.geometry.to_dict())
+            if rec.bucket_w is not None:
+                attrs["bucket_w"] = rec.bucket_w
+            tel.event("tune.winner", **attrs)
+        return rec
+
+    # -- search --------------------------------------------------------------
+    def tune(self, obj: Any, op: str = "spmv", batch: int = 1,
+             impl: Optional[Callable] = None, x: Optional[torch.Tensor] = None,
+             stats: Optional[MatrixStats] = None,
+             force: bool = False) -> GeometryRecord:
+        """Time every candidate launch of ``obj``'s kernel and return (and
+        memoize) the winner.  The default launch is always a candidate, so
+        ``t_best <= t_default`` by construction.  ``x`` defaults to ones on
+        ``obj``'s device.
+
+        SELL containers are tuned *per bucket*: each bucket width gets its
+        own candidate sweep (timed on that bucket's ELL launch alone), the
+        per-width winners are memoized as component records, and the
+        returned aggregate's geometry composes them into a
+        ``TileGeometry.buckets`` table."""
+        fmt = _dispatch.format_of(obj)
+        profile = _profile_of(obj, stats)
+        batch = max(batch, 1)
+        key = self._key(fmt, op, batch, profile)
+        idx = self._memo.get(key)
+        if not force and idx is not None:
+            tel = _obs.get()
+            if tel.enabled:
+                tel.counter("tune.memo_hit", fmt=fmt, op=op).inc()
+            return self.records[idx]
+
+        if impl is None:
+            impl = _dispatch.get_impl(fmt, op, tier="kernel", fallback=False)
+        if x is None:
+            shape = (obj.n_cols,) if op == "spmv" else (obj.n_cols, batch)
+            x = torch.ones(shape, dtype=torch.float32, device=obj.device)
+
+        if fmt == "sell":
+            with _obs.span("tune.sweep", fmt=fmt, op=op, batch=batch,
+                           d_mat=profile[2]):
+                return self._tune_sell(obj, op, batch, impl, x, profile,
+                                       key, force)
+
+        cands: List[Optional[TileGeometry]] = [None]
+        grid = candidate_geometries(
+            fmt, op, n_rows=profile[0], width=_width_of(obj),
+            nnz_pad=int(getattr(obj, "nnz_pad", 0) or 0), batch=batch)
+        if self.max_candidates is not None:
+            grid = grid[: self.max_candidates]
+        cands.extend(grid)
+
+        with _obs.span("tune.sweep", fmt=fmt, op=op, batch=batch,
+                       d_mat=profile[2]) as sweep:
+            times: List[Tuple[float, Optional[TileGeometry]]] = []
+            for g in cands:
+                gg = g
+                if g is not None and fmt == "csr":
+                    spb = _slab_bound_for(obj, g)
+                    if spb is not None:
+                        gg = replace(g, slabs_per_block=spb)
+                times.append((self._time_launch(impl, obj, x, gg,
+                                                fmt=fmt, op=op), gg))
+
+            t_default = times[0][0]
+            t_best, best_g = min(times, key=lambda tg: tg[0])
+            sweep.set(candidates=len(cands), t_best=t_best,
+                      t_default=t_default)
+        rec = GeometryRecord(
+            fmt=fmt, op=op, batch=batch, n=profile[0],
+            nnz=profile[1], d_mat=profile[2], sig=profile[3],
+            geometry=best_g if best_g is not None else TileGeometry(),
+            t_best=t_best, t_default=t_default)
+        return self._record(key, rec)
+
+    def _time_launch(self, impl: Callable, obj: Any, x: torch.Tensor,
+                     g: Optional[TileGeometry], **span_attrs: Any) -> float:
+        thunk = lambda: impl(obj, x, tuning=g)
+        with _obs.span("tune.candidate",
+                       geometry=g.to_dict() if g is not None else {},
+                       **span_attrs) as sp:
+            t = float(self._timer(thunk, g))
+            sp.set(t=t)
+        return t
+
+    def _tune_sell(self, obj: Any, op: str, batch: int, impl: Callable,
+                   x: torch.Tensor, profile: Tuple[int, int, float, int],
+                   key: Tuple, force: bool) -> GeometryRecord:
+        """Per-bucket SELL search (SELL-C-sigma's per-chunk geometry).
+
+        Bucket widths are distinct by construction, so each width is
+        searched once on its own bucket — an ELL launch over (bucket_rows,
+        width) — and memoized as a component record keyed by ``bucket_w``.
+        The aggregate then times the composed per-bucket table against the
+        all-defaults launch, so its ``t_best <= t_default`` stays true by
+        construction."""
+        ell_impl = _dispatch.get_impl("ell_row", op, tier="kernel",
+                                      fallback=False)
+        table: List[Tuple[int, TileGeometry]] = []
+        for b in obj.buckets:
+            bkey = self._key("sell", op, batch, profile,
+                             bucket_w=int(b.width))
+            bidx = self._memo.get(bkey)
+            if not force and bidx is not None:
+                table.append((int(b.width), self.records[bidx].geometry))
+                continue
+            grid = candidate_geometries("sell", op, n_rows=b.n_rows,
+                                        width=b.width, batch=batch)
+            if self.max_candidates is not None:
+                grid = grid[: self.max_candidates]
+            times = [(self._time_launch(ell_impl, b, x, g, fmt="sell",
+                                        op=op, bucket_w=int(b.width)), g)
+                     for g in [None] + grid]
+            t_default = times[0][0]
+            t_best, best_g = min(times, key=lambda tg: tg[0])
+            brec = GeometryRecord(
+                fmt="sell", op=op, batch=batch, n=profile[0],
+                nnz=profile[1], d_mat=profile[2], sig=profile[3],
+                bucket_w=int(b.width),
+                geometry=best_g if best_g is not None else TileGeometry(),
+                t_best=t_best, t_default=t_default)
+            self._record(bkey, brec)
+            table.append((int(b.width), brec.geometry))
+
+        cands: List[Optional[TileGeometry]] = [None]
+        if table:
+            cands.append(TileGeometry(buckets=tuple(table)))
+        times = [(self._time_launch(impl, obj, x, g, fmt="sell", op=op), g)
+                 for g in cands]
+        t_default = times[0][0]
+        t_best, best_g = min(times, key=lambda tg: tg[0])
+        rec = GeometryRecord(
+            fmt="sell", op=op, batch=batch, n=profile[0], nnz=profile[1],
+            d_mat=profile[2], sig=profile[3],
+            geometry=best_g if best_g is not None else TileGeometry(),
+            t_best=t_best, t_default=t_default)
+        return self._record(key, rec)
+
+    # -- lookup --------------------------------------------------------------
+    def best(self, obj: Any = None, op: str = "spmv", batch: int = 1,
+             fmt: Optional[str] = None, d_mat: Optional[float] = None,
+             stats: Optional[MatrixStats] = None
+             ) -> Optional[TileGeometry]:
+        """Memoized winner for this exact profile, else the D_mat-keyed
+        nearest-neighbour among recorded winners (slab bound stripped),
+        else ``None`` (caller uses the default launch)."""
+        if obj is not None:
+            fmt = fmt or _dispatch.format_of(obj)
+            profile = _profile_of(obj, stats)
+            idx = self._memo.get(self._key(fmt, op, max(batch, 1), profile))
+            if idx is not None:
+                return self.records[idx].geometry
+            if d_mat is None:
+                d_mat = profile[2]
+        if fmt is None:
+            raise ValueError("best() needs a matrix object or a format name")
+        return nearest_geometry(self.records, fmt, op,
+                                d_mat=d_mat or 0.0, batch=max(batch, 1))
+
+    # -- binding helpers -----------------------------------------------------
+    def bind(self, impls: Dict[str, Callable],
+             tunings: Dict[str, TileGeometry]) -> Dict[str, Callable]:
+        """``{fmt: impl}`` with each format's tuned geometry partially
+        applied (formats without a tuned geometry — or whose impl doesn't
+        accept ``tuning=`` — pass through).  Delegates to
+        :func:`repro_torch.core.plan.bind_tunings`."""
+        from .plan import bind_tunings
+        return bind_tunings(impls, tunings)

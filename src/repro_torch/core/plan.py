@@ -396,14 +396,38 @@ class ExecutionPlan:
                              fingerprint_matched=matched, jit=jit)
 
 
+def _accepts_tuning(fn: Callable) -> bool:
+    """Whether ``fn`` takes a ``tuning=`` kwarg (kernel-tier wrappers do;
+    user-supplied reference impls typically don't)."""
+    import inspect
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return True
+    return ("tuning" in sig.parameters
+            or any(p.kind == p.VAR_KEYWORD
+                   for p in sig.parameters.values()))
+
+
+def bind_tunings(impls: Dict[str, Callable],
+                 tunings: Dict[str, TileGeometry]) -> Dict[str, Callable]:
+    """``{fmt: impl}`` with each format's tuned geometry partially applied.
+    Impls that don't accept ``tuning=`` (custom overrides) pass through
+    untouched."""
+    return {f: (functools.partial(fn, tuning=tunings[f])
+                if f in tunings and _accepts_tuning(fn) else fn)
+            for f, fn in impls.items()}
+
+
 # ---------------------------------------------------------------------------
 # the bound operator
 # ---------------------------------------------------------------------------
 class PlannedMatrix:
     """A plan applied to a concrete matrix.  ``y = P @ x`` dispatches on
     x's rank: 1-D serves SpMV, ``(n_cols, B)`` serves SpMM.  ``x`` is moved
-    to the matrix's device if it lies elsewhere.  ``jit`` is accepted and
-    ignored (eager execution)."""
+    to the matrix's device if it lies elsewhere, and made contiguous (the
+    kernels read it row-major).  ``jit`` is accepted and ignored (eager
+    execution)."""
 
     def __init__(self, plan: ExecutionPlan, source: CSR, matrix: Any,
                  fns: Dict[str, Callable], tunings: Dict[str, Any],
@@ -438,7 +462,7 @@ class PlannedMatrix:
         return self.matrix.device
 
     def _x(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self.device)
+        return torch.as_tensor(x, device=self.device).contiguous()
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         x = self._x(x)
@@ -504,10 +528,13 @@ class Planner:
     launch-geometry source — a tuner or a TuningDB with recorded
     geometries — is at hand, else reference).
 
-    ``tuner``: duck-typed — any object with ``.tune(obj, op=, batch=,
-    stats=)`` returning a record with ``.geometry``, and ``.records``.
+    ``tuner``: a :class:`~repro_torch.core.kernel_tune.KernelTuner`, or
+    any object with ``.tune(obj, op=, batch=, stats=)`` returning a record
+    with ``.geometry``, and ``.records``.  It is handed the transformed
+    matrix on the planner's device.
 
-    ``device``: where :meth:`build` binds (``None`` = the CUDA device).
+    ``device``: where the tuner times launches and :meth:`build` binds
+    (``None`` = the CUDA device).
 
     ``lint``: the static plan lint is not ported; ``lint=True`` raises
     :class:`PlanError` (ROADMAP.md item A12), so the default here is
@@ -652,7 +679,9 @@ class Planner:
         winner."""
         geometry: Dict[str, TileGeometry] = {}
         if self.tuner is not None:
-            obj = plan.transform.apply(csr)
+            # the host recipe builds CPU tensors: tune where the plan will
+            # serve, or the tuner times launches that never happen
+            obj = plan.transform.apply(csr).to(resolve_device(self.device))
             # bind(csr) on the same source object reuses this instead of
             # paying the host transform a second time
             plan._mat_cache = (csr, obj)
@@ -677,5 +706,5 @@ __all__ = [
     "SCHEMA_VERSION", "DEFAULT_RECIPE_PARAMS",
     "PlanError", "PlanSchemaError", "PlanFingerprint", "TransformRecipe",
     "apply_transform", "BlockPlan", "ExecutionPlan", "PlannedMatrix",
-    "Planner", "leaf_plan",
+    "Planner", "bind_tunings", "leaf_plan",
 ]

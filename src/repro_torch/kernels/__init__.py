@@ -1,7 +1,8 @@
-"""Hand-written CUDA kernels for the compute hot path (SpMV in ELL, CSR and
-COO) + wrappers.  Each kernel module holds the wrapper, its plain PyTorch
-version and a launch counter; ``ops`` holds the format-level entry points
-and registers the kernel tier of :mod:`repro_torch.core.dispatch`."""
+"""Hand-written CUDA kernels for the compute hot path (SpMV and SpMM in ELL,
+CSR and COO) + wrappers.  Each kernel module holds the wrappers, their plain
+PyTorch versions and a launch counter per kernel; ``ops`` holds the
+format-level entry points and registers the kernel tier of
+:mod:`repro_torch.core.dispatch`."""
 from typing import Dict
 
 from . import coo_spmv as _coo
@@ -9,7 +10,8 @@ from . import csr_spmv as _csr
 from . import ell_spmv as _ell
 
 _WRAPPERS = {"ell_spmv": _ell.ell_spmv, "csr_spmv": _csr.csr_spmv,
-             "coo_spmv": _coo.coo_spmv}
+             "coo_spmv": _coo.coo_spmv, "ell_spmm": _ell.ell_spmm,
+             "csr_spmm": _csr.csr_spmm, "coo_spmm": _coo.coo_spmm}
 
 
 def launch_counts() -> Dict[str, int]:

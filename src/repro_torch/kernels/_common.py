@@ -1,4 +1,10 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and launch shapes shared by the kernel wrappers.
+
+Every launch shape (lanes per row, rows or entries per block, the
+right-hand-side tile) is chosen here, on the host, and handed to the C entry
+points, which only check it; the tuner's candidate grid
+(``core/kernel_tune.py``) calls the same helpers, so a candidate is exactly
+the launch a wrapper makes."""
 from __future__ import annotations
 
 import torch
@@ -50,3 +56,93 @@ def check_current_device(t: torch.Tensor) -> None:
 
 def current_stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# launch shapes (host ints only: nothing is read back from the device)
+# ---------------------------------------------------------------------------
+#: widest right-hand-side tile one CUDA block owns (32 lanes x 4 columns)
+MAX_BLOCK_K = 128
+#: threads per block when no ``block_rows`` / ``block_nnz`` is given
+DEFAULT_THREADS = 256
+#: entries per CUDA block (COO) when no ``block_nnz`` is given
+DEFAULT_BLOCK_NNZ = 1024
+#: grid.y limit of a CUDA launch
+MAX_GRID_Y = 65535
+#: elements of the largest ``(entries, B)`` temporary a plain SpMM version
+#: builds (256 MiB of float32): it walks the entries in chunks of this size
+PLAIN_CHUNK_ELEMS = 1 << 26
+
+
+def clamp_threads(threads: int) -> int:
+    """A requested thread count as a whole number of warps in [32, 1024]."""
+    return (min(max(int(threads), 32), 1024) + 31) // 32 * 32
+
+
+def rows_per_block(lanes: int, block_rows=None) -> int:
+    """Row groups of ``lanes`` threads one CUDA block holds: ``block_rows``
+    of them (default ``DEFAULT_THREADS`` threads in all), rounded so the
+    block is a whole number of warps, at most 1024 threads."""
+    threads = clamp_threads(int(block_rows) * lanes if block_rows
+                            else DEFAULT_THREADS)
+    return threads // lanes
+
+
+def ell_spmv_lanes(width: int, row_major: bool) -> int:
+    """Threads ``ell_spmv`` gives one row: for a row-major panel a group
+    that strides along the band (32 lanes from a band of 128, else 8); for
+    any other layout one thread per row (column-major storage then
+    coalesces across consecutive rows)."""
+    if not row_major:
+        return 1
+    return 32 if width >= 128 else 8
+
+
+def csr_spmv_lanes(nnz: int, n_rows: int) -> int:
+    """Lanes ``csr_spmv`` gives one row: the smallest power of two covering
+    the mean row length, within [2, 32]."""
+    mean = nnz / max(n_rows, 1)
+    lanes = 2
+    while lanes < 32 and lanes < mean:
+        lanes *= 2
+    return lanes
+
+
+def coo_launch(block_nnz=None):
+    """``(threads, block_nnz)`` of a COO launch: ``block_nnz`` entries per
+    CUDA block (default ``DEFAULT_BLOCK_NNZ``) walked by
+    ``min(block_nnz, DEFAULT_THREADS)`` threads, rounded to whole warps."""
+    bn = int(block_nnz) if block_nnz else DEFAULT_BLOCK_NNZ
+    return clamp_threads(min(bn, DEFAULT_THREADS)), bn
+
+
+def rhs_tile(batch: int, block_k=None):
+    """``(kt, lanes, per_lane)`` of an SpMM launch: ``kt`` right-hand-side
+    columns per CUDA block (``block_k`` clamped to ``[1, min(B, 128)]``,
+    default ``min(B, 128)``), ``lanes`` threads per row group (the smallest
+    power of two covering ``min(kt, 32)``) and ``per_lane`` columns each
+    thread keeps in registers (1, 2 or 4)."""
+    top = max(1, min(int(batch), MAX_BLOCK_K))
+    kt = top if block_k is None else max(1, min(int(block_k), top))
+    lanes = 1
+    while lanes < min(kt, 32):
+        lanes *= 2
+    per = -(-kt // lanes)
+    return kt, lanes, (per if per <= 2 else 4)
+
+
+def row_group_launch(batch: int, block_rows=None, block_k=None):
+    """``(kt, lanes, per_lane, rows_per_block)`` of a row-grouped SpMM launch
+    (ELL, CSR): ``block_rows`` row groups per CUDA block, as many as fit in
+    a block of at most 1024 threads.  Raises when ``B`` needs more column
+    tiles than ``grid.y`` allows."""
+    kt, lanes, per_lane = rhs_tile(batch, block_k)
+    check_grid_y(batch, kt)
+    return kt, lanes, per_lane, rows_per_block(lanes, block_rows)
+
+
+def check_grid_y(batch: int, kt: int) -> None:
+    if -(-int(batch) // kt) > MAX_GRID_Y:
+        raise ValueError(f"B = {batch} in tiles of {kt} columns needs more "
+                         f"than {MAX_GRID_Y} blocks along grid.y; raise "
+                         f"block_k")

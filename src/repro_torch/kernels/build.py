@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("ell_spmv", "csr_spmv", "coo_spmv")
+KERNELS = ("ell_spmv", "csr_spmv", "coo_spmv", "ell_spmm", "csr_spmm",
+           "coo_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -30,14 +31,26 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signature of each library's entry point (every pointer and the stream
 #: are ``c_void_p`` — ctypes would otherwise cut a pointer to 32 bits)
 SIGNATURES: Dict[str, Sequence] = {
-    # data, cols, x, y, n_rows, width, row_stride, col_stride,
-    # data_bf16, x_bf16, block_rows, stream
-    "ell_spmv": (_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _P),
-    # data, cols, indptr, x, y, n_rows, lanes, data_bf16, x_bf16,
-    # block_rows, stream
+    # data, cols, x, y, n_rows, width, row_stride, col_stride, lanes,
+    # rows_per_block, data_bf16, x_bf16, stream
+    "ell_spmv": (_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _P),
+    # data, cols, indptr, x, y, n_rows, lanes, rows_per_block, data_bf16,
+    # x_bf16, stream
     "csr_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # data, rows, cols, x, y, nnz, data_bf16, x_bf16, block_nnz, stream
-    "coo_spmv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # data, rows, cols, x, y, nnz, threads, block_nnz, data_bf16, x_bf16,
+    # stream
+    "coo_spmv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # data, cols, x, y, n_rows, width, row_stride, col_stride, B, kt, lanes,
+    # per_lane, rows_per_block, data_bf16, x_bf16, stream
+    "ell_spmm": (_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I,
+                 _P),
+    # data, cols, indptr, x, y, n_rows, B, kt, lanes, per_lane,
+    # rows_per_block, data_bf16, x_bf16, stream
+    "csr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # data, rows, cols, x, y, nnz, B, kt, lanes, per_lane, threads,
+    # block_nnz, data_bf16, x_bf16, stream
+    "coo_spmm": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _P),
 }
 
 _lock = threading.Lock()

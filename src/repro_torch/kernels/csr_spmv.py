@@ -1,5 +1,5 @@
-"""CSR SpMV — hand-written CUDA kernel (``csrc/csr_spmv.cu``) and its plain
-PyTorch version.
+"""CSR SpMV and SpMM — hand-written CUDA kernels (``csrc/csr_spmv.cu``,
+``csrc/csr_spmm.cu``) and their plain PyTorch versions.
 
 Replaces the TPU kernel ``repro/kernels/csr_spmv.py:csr_spmv``
 (``_csr_spmv_kernel`` with its slab schedule): ``y[r] = sum_{k in [IRP[r],
@@ -14,6 +14,13 @@ not idle most of a warp), reads each row's bounds from IRP at run time —
 there is no static bound on a row's length, so a heavy-tail row is just a
 longer loop for its group — and reduces with warp shuffles.
 
+:func:`csr_spmm` replaces ``repro/kernels/csr_spmv.py:csr_spmm``: the same
+sum against an ``(n_cols, B)`` panel.  Bound on an H100: memory — A once,
+``val * n_cols * B`` for X and ``4 * n_rows * B`` for Y, against
+``2 * nnz * B`` flops.  A row group sits along the right-hand-side columns
+(coalesced X gathers and Y stores), reads its bounds from IRP and shares
+VAL/ICOL by shuffle (``csrc/csr_spmm.cu``).
+
 :func:`slabs_needed` is kept from the reference only so that plan JSON and
 ``PlannedMatrix.tunings`` carry the same ``slabs_per_block`` value in both
 packages; this kernel does not read it.
@@ -26,9 +33,10 @@ import numpy as np
 import torch
 
 from . import build as _build
-from ._common import (INT32_MAX, check_contiguous, check_current_device,
-                      check_index, check_same_device, check_values,
-                      current_stream_ptr)
+from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, check_contiguous,
+                      check_current_device, check_index, check_same_device,
+                      check_values, csr_spmv_lanes, current_stream_ptr,
+                      row_group_launch, rows_per_block)
 
 
 def slabs_needed(indptr, block_rows: int, block_nnz: int) -> int:
@@ -63,16 +71,6 @@ def csr_spmv_plain(data: torch.Tensor, cols: torch.Tensor,
     return y.index_add_(0, rows, contrib)
 
 
-def lanes_for(nnz: int, n_rows: int) -> int:
-    """Lanes per row: the smallest power of two covering the mean row
-    length, within [2, 32]."""
-    mean = nnz / max(n_rows, 1)
-    lanes = 2
-    while lanes < 32 and lanes < mean:
-        lanes *= 2
-    return lanes
-
-
 def csr_spmv(data: torch.Tensor, cols: torch.Tensor, indptr: torch.Tensor,
              x: torch.Tensor, *,
              block_rows: Optional[int] = None) -> torch.Tensor:
@@ -103,13 +101,14 @@ def csr_spmv(data: torch.Tensor, cols: torch.Tensor, indptr: torch.Tensor,
     if n_rows == 0:
         # no row to write: no launch, none counted
         return torch.zeros(0, dtype=torch.float32, device=data.device)
-    lanes = lanes_for(data.shape[0], n_rows)
+    lanes = csr_spmv_lanes(data.shape[0], n_rows)
     y = torch.empty(n_rows, dtype=torch.float32, device=data.device)
     code = _build.launcher("csr_spmv")(
         data.data_ptr(), cols.data_ptr(), indptr.data_ptr(),
         x.data_ptr(), y.data_ptr(), n_rows, lanes,
+        rows_per_block(lanes, block_rows),
         int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
-        int(block_rows or 0), current_stream_ptr())
+        current_stream_ptr())
     _build.check_launch("csr_spmv", code)
     csr_spmv.launches += 1
     return y
@@ -118,4 +117,73 @@ def csr_spmv(data: torch.Tensor, cols: torch.Tensor, indptr: torch.Tensor,
 #: number of kernel launches made by :func:`csr_spmv` in this process
 csr_spmv.launches = 0
 
-__all__ = ["csr_spmv", "csr_spmv_plain", "lanes_for", "slabs_needed"]
+
+def csr_spmm_plain(data: torch.Tensor, cols: torch.Tensor,
+                   indptr: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: row id per stored slot by binary search over
+    IRP, float32 scatter-add of ``data[k] * x[cols[k], :]`` in chunks of
+    entries (no temporary above ``PLAIN_CHUNK_ELEMS``); slots past
+    ``IRP[-1]`` are never read."""
+    n_rows = indptr.shape[0] - 1
+    batch = x.shape[1]
+    nnz = int(indptr[-1]) if n_rows > 0 else 0
+    xf = x.float()
+    y = torch.zeros((n_rows, batch), dtype=torch.float32, device=data.device)
+    step = max(1, PLAIN_CHUNK_ELEMS // max(batch, 1))
+    for k0 in range(0, nnz, step):
+        k = torch.arange(k0, min(k0 + step, nnz), dtype=indptr.dtype,
+                         device=indptr.device)
+        rows = torch.searchsorted(indptr, k, right=True) - 1
+        y.index_add_(0, rows, data[k].float()[:, None] * xf[cols[k]])
+    return y
+
+
+def csr_spmm(data: torch.Tensor, cols: torch.Tensor, indptr: torch.Tensor,
+             x: torch.Tensor, *, block_rows: Optional[int] = None,
+             block_k: Optional[int] = None) -> torch.Tensor:
+    """``Y = A @ X`` for CSR arrays and a contiguous ``(n_cols, B)`` panel;
+    returns float32 ``(n_rows, B)``.  ``block_rows`` is the number of rows
+    and ``block_k`` the number of right-hand-side columns a CUDA block owns.
+    CPU tensors run :func:`csr_spmm_plain`; CUDA tensors launch the kernel
+    or raise."""
+    check_values("data", data, 1)
+    check_values("x", x, 2)
+    check_index("cols", cols, data)
+    if indptr.dtype != torch.int32 or indptr.ndim != 1 or indptr.shape[0] < 1:
+        raise TypeError(f"indptr must be a 1-D int32 tensor of n_rows + 1 "
+                        f"entries; got {indptr.dtype} {tuple(indptr.shape)}")
+    check_same_device(data, cols=cols, indptr=indptr, x=x)
+    if data.device.type == "cpu":
+        return csr_spmm_plain(data, cols, indptr, x)
+    if data.device.type != "cuda":
+        raise ValueError(f"csr_spmm takes CPU or CUDA tensors; got "
+                         f"{data.device}")
+    check_current_device(data)
+    check_contiguous(data=data, cols=cols, indptr=indptr, x=x)
+    if data.numel() > INT32_MAX:
+        raise ValueError("nnz_pad exceeds 2^31 - 1: int32 indices cannot "
+                         "address it")
+    n_rows = indptr.shape[0] - 1
+    batch = x.shape[1]
+    if n_rows == 0 or batch == 0:
+        # no output element to write: no launch, none counted
+        return torch.zeros((n_rows, batch), dtype=torch.float32,
+                           device=data.device)
+    kt, lanes, per_lane, groups = row_group_launch(
+        batch, block_rows, block_k)
+    y = torch.empty((n_rows, batch), dtype=torch.float32, device=data.device)
+    code = _build.launcher("csr_spmm")(
+        data.data_ptr(), cols.data_ptr(), indptr.data_ptr(), x.data_ptr(),
+        y.data_ptr(), n_rows, batch, kt, lanes, per_lane, groups,
+        int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
+        current_stream_ptr())
+    _build.check_launch("csr_spmm", code)
+    csr_spmm.launches += 1
+    return y
+
+
+#: number of kernel launches made by :func:`csr_spmm` in this process
+csr_spmm.launches = 0
+
+__all__ = ["csr_spmv", "csr_spmv_plain", "csr_spmm", "csr_spmm_plain",
+           "slabs_needed"]

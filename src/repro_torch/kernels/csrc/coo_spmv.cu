@@ -25,16 +25,18 @@ __global__ void coo_spmv_atomic(const TD* __restrict__ data,
   }
 }
 
-// block_nnz: entries per CUDA block (0 = default).  y must be zero-filled by
-// the caller.  Returns cudaGetLastError().
+// threads: threads per block (a whole number of warps, <= 1024); block_nnz:
+// entries per block.  The wrapper (kernels/coo_spmv.py) picks them.  y must
+// be zero-filled by the caller.  Returns cudaGetLastError().
 extern "C" int coo_spmv_launch(const void* data, const void* rows,
                                const void* cols, const void* x, void* y,
-                               long long nnz, int data_bf16, int x_bf16,
-                               int block_nnz, void* stream) {
+                               long long nnz, int threads, int block_nnz,
+                               int data_bf16, int x_bf16, void* stream) {
   if (nnz <= 0) return 0;
+  if (!valid_block(1, threads) || block_nnz < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  if (block_nnz <= 0) block_nnz = 1024;
-  const int threads = clamp_threads(block_nnz < 256 ? block_nnz : 256);
   const unsigned grid = (unsigned)((nnz + block_nnz - 1) / block_nnz);
 #define CALL(TD, TX)                                                      \
   coo_spmv_atomic<TD, TX><<<grid, threads, 0, s>>>(                       \

@@ -34,34 +34,26 @@ __global__ void csr_spmv_vector(const TD* __restrict__ data,
   if (r < n_rows && lane == 0) y[r] = acc;
 }
 
-// lanes: lanes per row, one of 2, 4, 8, 16, 32.  block_rows: rows per CUDA
-// block (0 = default).  Returns cudaGetLastError().
+// lanes: lanes per row, one of 2, 4, 8, 16, 32; rows_per_block * lanes:
+// threads per block (a whole number of warps, <= 1024).  The wrapper
+// (kernels/csr_spmv.py) picks them.  Returns cudaGetLastError().
 extern "C" int csr_spmv_launch(const void* data, const void* cols,
                                const void* indptr, const void* x, void* y,
-                               int n_rows, int lanes, int data_bf16,
-                               int x_bf16, int block_rows, void* stream) {
+                               int n_rows, int lanes, int rows_per_block,
+                               int data_bf16, int x_bf16, void* stream) {
   if (n_rows <= 0) return 0;
-  if (lanes != 2 && lanes != 4 && lanes != 8 && lanes != 16 && lanes != 32) {
+  const long long threads = (long long)rows_per_block * lanes;
+  if (!valid_block(lanes, threads) || lanes < 2) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const int threads =
-      clamp_threads(block_rows > 0 ? (long long)block_rows * lanes : 256);
-  const int rows_per_block = threads / lanes;
   const unsigned grid =
       (unsigned)(((long long)n_rows + rows_per_block - 1) / rows_per_block);
 #define LAUNCH(TD, TX, L)                                                  \
-  csr_spmv_vector<TD, TX, L><<<grid, threads, 0, s>>>(                     \
+  csr_spmv_vector<TD, TX, L><<<grid, (unsigned)threads, 0, s>>>(           \
       (const TD*)data, (const int*)cols, (const int*)indptr, (const TX*)x, \
       (float*)y, n_rows)
-#define CALL(TD, TX)                  \
-  switch (lanes) {                    \
-    case 2: LAUNCH(TD, TX, 2); break; \
-    case 4: LAUNCH(TD, TX, 4); break; \
-    case 8: LAUNCH(TD, TX, 8); break; \
-    case 16: LAUNCH(TD, TX, 16); break; \
-    default: LAUNCH(TD, TX, 32); break; \
-  }
+#define CALL(TD, TX) DISPATCH_LANES(lanes, LAUNCH, TD, TX)
   DISPATCH_VALUE_TYPES(data_bf16, x_bf16, CALL);
 #undef CALL
 #undef LAUNCH

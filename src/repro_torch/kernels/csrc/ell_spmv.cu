@@ -7,11 +7,14 @@
 // register; one store per row.  Memory-bound: each panel byte is read once,
 // x is gathered through L2.
 //
-//  * row_stride == 1 (ELL-Col): one thread per row.  Consecutive threads read
-//    consecutive addresses at every band step, so panel loads coalesce.
-//  * col_stride == 1 (ELL-Row): LANES lanes per row stride along the band so
-//    that a group reads one contiguous run, then a shuffle reduction.
-//  * anything else: one thread per row, correct for any strides.
+//  * lanes == 1: one thread per row, correct for any strides.  For
+//    row_stride == 1 (ELL-Col) consecutive threads read consecutive addresses
+//    at every band step, so panel loads coalesce.
+//  * lanes > 1 (col_stride == 1, ELL-Row): LANES lanes per row stride along
+//    the band so that a group reads one contiguous run, then a shuffle
+//    reduction.
+// The wrapper (kernels/ell_spmv.py, through kernels/_common.py) picks the
+// lanes from the strides and the band width.
 #include "common.cuh"
 
 template <typename TD, typename TX>
@@ -57,43 +60,38 @@ __global__ void ell_spmv_lanes_per_row(const TD* __restrict__ data,
   if (r < n_rows && lane == 0) y[r] = acc;
 }
 
-// block_rows: rows per CUDA block (0 = default).  Returns cudaGetLastError().
+// lanes: threads per row, 1 or a power of two in [2, 32] (then col_stride
+// must be 1); rows_per_block * lanes: threads per block (a whole number of
+// warps, <= 1024).  Returns cudaGetLastError().
 extern "C" int ell_spmv_launch(const void* data, const void* cols,
                                const void* x, void* y, int n_rows, int width,
                                long long row_stride, long long col_stride,
-                               int data_bf16, int x_bf16, int block_rows,
-                               void* stream) {
+                               int lanes, int rows_per_block, int data_bf16,
+                               int x_bf16, void* stream) {
   if (n_rows <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (col_stride == 1 && row_stride != 1) {
-    const int lanes = width >= 128 ? 32 : 8;
-    const int threads =
-        clamp_threads(block_rows > 0 ? (long long)block_rows * lanes : 256);
-    const int rows_per_block = threads / lanes;
-    const unsigned grid =
-        (unsigned)(((long long)n_rows + rows_per_block - 1) / rows_per_block);
-#define CALL(TD, TX)                                                        \
-  if (lanes == 32) {                                                        \
-    ell_spmv_lanes_per_row<TD, TX, 32><<<grid, threads, 0, s>>>(            \
-        (const TD*)data, (const int*)cols, (const TX*)x, (float*)y, n_rows, \
-        width, row_stride);                                                 \
-  } else {                                                                  \
-    ell_spmv_lanes_per_row<TD, TX, 8><<<grid, threads, 0, s>>>(             \
-        (const TD*)data, (const int*)cols, (const TX*)x, (float*)y, n_rows, \
-        width, row_stride);                                                 \
+  const long long threads = (long long)rows_per_block * lanes;
+  if (!valid_block(lanes, threads) || (lanes > 1 && col_stride != 1)) {
+    return (int)cudaErrorInvalidValue;
   }
-    DISPATCH_VALUE_TYPES(data_bf16, x_bf16, CALL);
-#undef CALL
-  } else {
-    const int threads = clamp_threads(block_rows > 0 ? block_rows : 256);
-    const unsigned grid =
-        (unsigned)(((long long)n_rows + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned grid =
+      (unsigned)(((long long)n_rows + rows_per_block - 1) / rows_per_block);
+  if (lanes == 1) {
 #define CALL(TD, TX)                                                        \
-  ell_spmv_thread_per_row<TD, TX><<<grid, threads, 0, s>>>(                 \
+  ell_spmv_thread_per_row<TD, TX><<<grid, (unsigned)threads, 0, s>>>(       \
       (const TD*)data, (const int*)cols, (const TX*)x, (float*)y, n_rows,   \
       width, row_stride, col_stride)
     DISPATCH_VALUE_TYPES(data_bf16, x_bf16, CALL);
 #undef CALL
+  } else {
+#define LAUNCH(TD, TX, L)                                                   \
+  ell_spmv_lanes_per_row<TD, TX, L><<<grid, (unsigned)threads, 0, s>>>(     \
+      (const TD*)data, (const int*)cols, (const TX*)x, (float*)y, n_rows,   \
+      width, row_stride)
+#define CALL(TD, TX) DISPATCH_LANES(lanes, LAUNCH, TD, TX)
+    DISPATCH_VALUE_TYPES(data_bf16, x_bf16, CALL);
+#undef CALL
+#undef LAUNCH
   }
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,10 @@ Responsibilities:
   * cast the kernels' float32 result to ``promote_types(data, x)``;
   * accept a per-call launch geometry (``tuning=`` — a
     ``core.kernel_tune.TileGeometry``): ``block_rows`` is the number of rows
-    a CUDA block owns (ELL, CSR) and ``block_nnz`` the number of entries a
-    CUDA block owns (COO); every other field is ignored by these kernels;
+    a CUDA block owns (ELL, CSR), ``block_nnz`` the number of entries a
+    CUDA block owns (COO) and ``block_k`` the number of right-hand-side
+    columns a CUDA block owns (SpMM); ``block_w`` and ``slabs_per_block``
+    are ignored by these kernels;
   * provide a differentiable ELL SpMV (``ell_spmv_ad``: y = A@x  =>
     dx = A^T dy via a COO scatter; dA = dy_r * x_c at the stored positions);
   * register every format-level wrapper in the ``repro_torch.core.dispatch``
@@ -18,8 +20,9 @@ Every wrapper here reaches a kernel wrapper of this package, which launches
 its CUDA kernel for CUDA tensors (or raises) and runs the kernel's plain
 PyTorch version for CPU tensors.  CSR is served by the native row-segmented
 kernel; the CSR-via-COO detour survives only as ``spmv_csr_via_coo`` so a
-benchmark can measure what the native kernel buys.  SELL launches the ELL
-kernel once per bucket and accepts a *per-bucket* launch geometry.
+benchmark can measure what the native kernel buys (``spmm_csr_via_coo`` is
+its SpMM twin).  SELL launches the ELL kernel once per bucket and accepts a
+*per-bucket* launch geometry.
 """
 from __future__ import annotations
 
@@ -61,11 +64,29 @@ def ell_spmv_raw(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     return y.to(result_dtype(data.dtype, x.dtype))
 
 
+def ell_spmm_raw(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                 tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    """ELL SpMM on a ``(n_rows, width)`` panel (any strides) and an
+    ``(n_cols, B)`` right-hand side."""
+    y = _ell.ell_spmm(data, cols, x, block_rows=_knob(tuning, "block_rows"),
+                      block_k=_knob(tuning, "block_k"))
+    return y.to(result_dtype(data.dtype, x.dtype))
+
+
 def coo_spmv_raw(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
                  x: torch.Tensor, n_rows: int,
                  tuning: Optional[TileGeometry] = None) -> torch.Tensor:
     y = _coo.coo_spmv(data, rows, cols, x, n_rows,
                       block_nnz=_knob(tuning, "block_nnz"))
+    return y.to(result_dtype(data.dtype, x.dtype))
+
+
+def coo_spmm_raw(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                 x: torch.Tensor, n_rows: int,
+                 tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    y = _coo.coo_spmm(data, rows, cols, x, n_rows,
+                      block_nnz=_knob(tuning, "block_nnz"),
+                      block_k=_knob(tuning, "block_k"))
     return y.to(result_dtype(data.dtype, x.dtype))
 
 
@@ -115,9 +136,20 @@ def spmv_ell(m: ELL, x: torch.Tensor,
     return ell_spmv_raw(data, cols, x, tuning)
 
 
+def spmm_ell(m: ELL, x: torch.Tensor,
+             tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    data, cols = _ell_arrays(m)
+    return ell_spmm_raw(data, cols, x, tuning)
+
+
 def spmv_coo(m: COO, x: torch.Tensor,
              tuning: Optional[TileGeometry] = None) -> torch.Tensor:
     return coo_spmv_raw(m.data, m.rows, m.cols, x, m.n_rows, tuning)
+
+
+def spmm_coo(m: COO, x: torch.Tensor,
+             tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    return coo_spmm_raw(m.data, m.rows, m.cols, x, m.n_rows, tuning)
 
 
 def spmv_csr(m: CSR, x: torch.Tensor,
@@ -125,6 +157,15 @@ def spmv_csr(m: CSR, x: torch.Tensor,
     """CSR through the native row-segmented kernel (no COO detour)."""
     y = _csr.csr_spmv(m.data, m.cols, m.indptr, x,
                       block_rows=_knob(tuning, "block_rows"))
+    return y.to(result_dtype(m.data.dtype, x.dtype))
+
+
+def spmm_csr(m: CSR, x: torch.Tensor,
+             tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    """CSR SpMM through the native row-segmented kernel."""
+    y = _csr.csr_spmm(m.data, m.cols, m.indptr, x,
+                      block_rows=_knob(tuning, "block_rows"),
+                      block_k=_knob(tuning, "block_k"))
     return y.to(result_dtype(m.data.dtype, x.dtype))
 
 
@@ -148,6 +189,12 @@ def spmv_csr_via_coo(m: CSR, x: torch.Tensor,
     — the registry serves :func:`spmv_csr`)."""
     data, rows, cols = _csr_as_coo_arrays(m)
     return coo_spmv_raw(data, rows, cols, x, m.n_rows, tuning)
+
+
+def spmm_csr_via_coo(m: CSR, x: torch.Tensor,
+                     tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    data, rows, cols = _csr_as_coo_arrays(m)
+    return coo_spmm_raw(data, rows, cols, x, m.n_rows, tuning)
 
 
 def exact_slab_bound(m, tuning: Optional[TileGeometry] = None) -> int:
@@ -211,30 +258,46 @@ def spmv_sell(m: BucketedELL, x: torch.Tensor,
     return y
 
 
+def spmm_sell(m: BucketedELL, x: torch.Tensor,
+              tuning: Optional[SellTuning] = None) -> torch.Tensor:
+    """The ELL SpMM kernel once per bucket, rows stored through ``perm``.
+    As in the reference, the result takes ``x``'s dtype (not the promoted
+    type), and an all-zero matrix gives zeros of ``(n_rows, B)``."""
+    y = torch.zeros((m.n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    for off, b, g in zip(m.row_offsets, m.buckets, _sell_tunings(m, tuning)):
+        yb = ell_spmm_raw(b.data, b.cols, x, g)
+        y[m.perm[off:off + b.n_rows]] = yb.to(y.dtype)
+    return y
+
+
 # ---------------------------------------------------------------------------
-# registry: the kernel tier of repro_torch.core.dispatch (always registered;
-# no spmm kernel yet, so spmm lookups resolve to the reference tier)
+# registry: the kernel tier of repro_torch.core.dispatch (always registered)
 # ---------------------------------------------------------------------------
-for _fmt, _spmv_fn in (
-    ("csr", spmv_csr),
-    ("coo_row", spmv_coo),
-    ("coo_col", spmv_coo),
-    ("ell_row", spmv_ell),
-    ("ell_col", spmv_ell),
-    ("sell", spmv_sell),
+for _fmt, _spmv_fn, _spmm_fn in (
+    ("csr", spmv_csr, spmm_csr),
+    ("coo_row", spmv_coo, spmm_coo),
+    ("coo_col", spmv_coo, spmm_coo),
+    ("ell_row", spmv_ell, spmm_ell),
+    ("ell_col", spmv_ell, spmm_ell),
+    ("sell", spmv_sell, spmm_sell),
 ):
     _dispatch.register_impl(_fmt, "spmv", _spmv_fn, tier="kernel")
+    _dispatch.register_impl(_fmt, "spmm", _spmm_fn, tier="kernel")
 
 
-# read-only dict view of the registry, recomputed on access so later
+# read-only dict views of the registry, recomputed on access so later
 # registrations are never missed — the single source of truth stays in
 # core/dispatch.
 def __getattr__(name: str):
     if name == "KERNEL_SPMV_IMPLS":
         return _dispatch.impl_table("spmv", "kernel")
+    if name == "KERNEL_SPMM_IMPLS":
+        return _dispatch.impl_table("spmm", "kernel")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["ell_spmv_raw", "coo_spmv_raw", "ell_spmv_ad", "spmv_ell",
-           "spmv_coo", "spmv_csr", "spmv_csr_via_coo", "exact_slab_bound",
-           "spmv_sell", "KERNEL_SPMV_IMPLS"]
+__all__ = ["ell_spmv_raw", "ell_spmm_raw", "coo_spmv_raw", "coo_spmm_raw",
+           "ell_spmv_ad", "spmv_ell", "spmm_ell", "spmv_coo", "spmm_coo",
+           "spmv_csr", "spmm_csr", "spmv_csr_via_coo", "spmm_csr_via_coo",
+           "exact_slab_bound", "spmv_sell", "spmm_sell", "KERNEL_SPMV_IMPLS",
+           "KERNEL_SPMM_IMPLS"]

@@ -333,14 +333,13 @@ def test_plans_are_equal_and_bind_in_either_package(both_dbs, matrix, case,
     # each package serves its own plan
     P_t = tplan.bind(tcsr, db=port_db, device="cpu")
     P_r = rplan.bind(rcsr, db=ref_db)
-    # SpMV resolves to the same tier with the same bound geometry; SpMM has
-    # no hand-written kernel in the port yet and lands on the reference tier
-    assert P_t.tiers["spmv"] == P_r.tiers["spmv"] == tier
-    assert P_t.tiers["spmm"] == "reference"
+    # both ops resolve to the same tier with the same bound geometry
+    assert P_t.tiers == P_r.tiers == {"spmv": tier, "spmm": tier}
     assert P_t.fingerprint_matched and P_r.fingerprint_matched
-    g_t, g_r = P_t.tunings["spmv"], P_r.tunings["spmv"]
-    assert (g_t.to_dict() if g_t is not None else None) == \
-        (g_r.to_dict() if g_r is not None else None)
+    for op in ("spmv", "spmm"):
+        g_t, g_r = P_t.tunings[op], P_r.tunings[op]
+        assert (g_t.to_dict() if g_t is not None else None) == \
+            (g_r.to_dict() if g_r is not None else None)
     np.testing.assert_allclose(f32(P_t @ torch.from_numpy(x)), dense @ x,
                                **TOL)
     np.testing.assert_allclose(f32(P_r @ jnp.asarray(x)), dense @ x, **TOL)
@@ -366,7 +365,7 @@ def test_planned_matrix_serves_spmm_takes_numpy_and_ignores_jit(matrix):
     for jit in (True, False):
         P = TPL.Planner(tier="kernel", device="cpu").plan(
             tcsr, fmt="ell_col").bind(tcsr, device="cpu", jit=jit)
-        assert P.tiers == {"spmv": "kernel", "spmm": "reference"}
+        assert P.tiers == {"spmv": "kernel", "spmm": "kernel"}
         assert P.fmt == "ell_col" and P.shape == (160, 120)
         assert (P.n_rows, P.n_cols) == (160, 120)
         assert P.device.type == "cpu" and "ell_col" in repr(P)

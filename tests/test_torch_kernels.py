@@ -238,11 +238,34 @@ def test_slabs_needed_matches_reference():
 
 
 def test_csr_lane_group_follows_mean_row_length():
-    assert K2.lanes_for(100, 100) == 2
-    assert K2.lanes_for(700, 100) == 8
-    assert K2.lanes_for(2500, 100) == 32
-    assert K2.lanes_for(10 ** 6, 100) == 32
-    assert K2.lanes_for(0, 0) == 2
+    from repro_torch.kernels._common import csr_spmv_lanes
+    assert csr_spmv_lanes(100, 100) == 2
+    assert csr_spmv_lanes(700, 100) == 8
+    assert csr_spmv_lanes(2500, 100) == 32
+    assert csr_spmv_lanes(10 ** 6, 100) == 32
+    assert csr_spmv_lanes(0, 0) == 2
+
+
+def test_spmv_launch_shapes_are_chosen_on_the_host():
+    """The SpMV wrappers pick lanes and rows per block in Python, as the
+    SpMM wrappers do, and the tuner's grid reads the same helpers."""
+    from repro_torch.core.kernel_tune import candidate_geometries
+    from repro_torch.kernels import _common as C
+    assert C.ell_spmv_lanes(200, row_major=True) == 32
+    assert C.ell_spmv_lanes(127, row_major=True) == 8
+    assert C.ell_spmv_lanes(500, row_major=False) == 1
+    assert C.rows_per_block(1) == 256 and C.rows_per_block(32) == 8
+    assert C.rows_per_block(8, block_rows=5) == 8     # 40 -> 64 threads
+    assert C.rows_per_block(32, block_rows=1024) == 32
+    assert C.coo_launch() == (256, 1024)
+    assert C.coo_launch(100) == (128, 100)
+    for fmt, width, lanes in (("ell_row", 40, 8), ("ell_row", 300, 32),
+                              ("sell", 40, 8), ("ell_col", 300, 1),
+                              ("ell_row", 1, 1)):
+        rows = [g.block_rows for g in candidate_geometries(
+            fmt, "spmv", n_rows=10 ** 6, width=width)]
+        assert max(rows) * lanes == 1024 and min(rows) * lanes == 32
+        assert rows == sorted(set(rows))
 
 
 # ---------------------------------------------------------------------------
@@ -397,16 +420,23 @@ def test_ell_spmv_ad_grads_match_jax_grad(rng):
 # the registry and the wrappers' contract
 # ---------------------------------------------------------------------------
 def test_kernel_tier_is_always_registered_for_spmv_only():
-    assert set(TD.registered_formats("spmv", tier="kernel")) == set(FORMATS)
-    assert TD.registered_formats("spmm", tier="kernel") == ()
-    assert set(T_ops.KERNEL_SPMV_IMPLS) == set(FORMATS)
-    for fmt in FORMATS:
-        assert TD.resolve_impl(fmt, "spmv", tier="kernel")[1] == "kernel"
-        assert TD.resolve_impl(fmt, "spmm", tier="kernel")[1] == "reference"
-        with pytest.raises(KeyError):
-            TD.resolve_impl(fmt, "spmm", tier="kernel", fallback=False)
+    """Both ops are registered at the kernel tier for every format (the
+    name predates the SpMM kernels; spmv and spmm now resolve alike)."""
+    for op, table in (("spmv", T_ops.KERNEL_SPMV_IMPLS),
+                      ("spmm", T_ops.KERNEL_SPMM_IMPLS)):
+        assert set(TD.registered_formats(op, tier="kernel")) == set(FORMATS)
+        assert set(table) == set(FORMATS)
+        assert table == TD.impl_table(op, "kernel")
+        for fmt in FORMATS:
+            assert TD.resolve_impl(fmt, op, tier="kernel")[1] == "kernel"
+            assert TD.resolve_impl(fmt, op, tier="kernel",
+                                   fallback=False)[1] == "kernel"
+            assert TD.get_impl(fmt, op, tier="kernel") is not \
+                TD.get_impl(fmt, op, tier="reference")
     assert TD.get_impl("csr", "spmv", tier="kernel") is T_ops.spmv_csr
     assert TD.get_impl("ell_col", "spmv", tier="kernel") is T_ops.spmv_ell
+    assert TD.get_impl("csr", "spmm", tier="kernel") is T_ops.spmm_csr
+    assert TD.get_impl("sell", "spmm", tier="kernel") is T_ops.spmm_sell
     with pytest.raises(KeyError):
         TD.register_impl("csr", "nope", lambda m, x: x)
     with pytest.raises(ValueError):
@@ -421,9 +451,14 @@ def test_tuning_reaches_only_the_kernel_tier(rng):
     np.testing.assert_allclose(
         f32(TD.dispatch(tm, x, tier="kernel", tuning=g)),
         f32(TD.dispatch(tm, x, tier="reference", tuning=g)), **TOL)
-    X = torch.ones(20, 2)
-    assert TD.dispatch(tm, X, op="spmm", tier="kernel",
-                       tuning=g).shape == (30, 2)
+    X = t_(rng.normal(size=(20, 2)).astype(np.float32))
+    gk = TileGeometry(block_rows=16, block_k=8)
+    got = TD.dispatch(tm, X, op="spmm", tier="kernel", tuning=gk)
+    assert got.shape == (30, 2)
+    np.testing.assert_allclose(
+        f32(got), f32(TD.dispatch(tm, X, op="spmm", tier="reference",
+                                  tuning=gk)), **TOL)
+    np.testing.assert_allclose(f32(got), dense @ f32(X), **TOL)
 
 
 @pytest.mark.parametrize("bad", ["data_dtype", "cols_dtype", "cols_shape",
@@ -468,10 +503,13 @@ def test_cpu_calls_launch_no_kernel(rng):
     dense = random_dense(rng, 30, 20, 0.2)
     tm = TT.csr_from_dense(dense, pad=8, device="cpu")
     x = t_(rng.normal(size=20).astype(np.float32))
+    X = torch.stack([x, 2 * x], dim=1)
     for fmt in FORMATS:
         TD.spmv(TT.TRANSFORMS_HOST[fmt](tm), x, tier="kernel")
+        TD.spmm(TT.TRANSFORMS_HOST[fmt](tm), X, tier="kernel")
     assert TK.launch_counts() == {"ell_spmv": 0, "csr_spmv": 0,
-                                  "coo_spmv": 0}
+                                  "coo_spmv": 0, "ell_spmm": 0,
+                                  "csr_spmm": 0, "coo_spmm": 0}
 
 
 def test_build_is_keyed_by_source_hash_and_needs_nvcc(tmp_path, monkeypatch):
@@ -483,7 +521,8 @@ def test_build_is_keyed_by_source_hash_and_needs_nvcc(tmp_path, monkeypatch):
         assert T_build.library_path(name) == \
             T_build.build_dir() / f"{name}-{h}.so"
         assert len(T_build.SIGNATURES[name]) >= 10
-    assert len({T_build.source_hash(n) for n in T_build.KERNELS}) == 3
+    assert len({T_build.source_hash(n) for n in T_build.KERNELS}) == \
+        len(T_build.KERNELS) == 6
     with pytest.raises(RuntimeError):
         T_build.check_launch("ell_spmv", 9)
     T_build.check_launch("ell_spmv", 0)
