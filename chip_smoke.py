@@ -2,15 +2,16 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's two paths — the paper's loop: matrix statistics -> D_mat
-rule -> run-time transform CRS -> ELL / COO / SELL -> SpMV, and the same loop
-with a batch axis, where each call carries B products (SpMM, ``X: (n_cols,
-B)``) — through the entry points a user calls (``offline_phase``,
-``Planner().plan(csr, batch=B).bind(csr) @ X``) at the published sizes of the
-paper's Table 1, plus one matrix scaled past the card's L2 cache.  On the way
-it builds the six CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, times it beside its bound,
-checks every served product against an independent float64 oracle, and runs
-the launch-geometry tuner (``KernelTuner``) on the card.
+rule -> run-time transform CRS -> ELL / COO / SELL / CCS / BCSR -> SpMV, and
+the same loop with a batch axis, where each call carries B products (SpMM,
+``X: (n_cols, B)``) — through the entry points a user calls
+(``offline_phase``, ``Planner().plan(csr, batch=B).bind(csr) @ X``) at the
+published sizes of the paper's Table 1, plus one matrix scaled past the
+card's L2 cache.  On the way it builds the ten CUDA kernels from the sources
+in this checkout, holds each against its plain PyTorch version on the card,
+times it beside its bound, checks every served product against an
+independent float64 oracle, and runs the launch-geometry tuner
+(``KernelTuner``) on the card.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
@@ -54,7 +55,7 @@ KERNEL_REL_TOL = 1e-4
 
 OFFLINE_MATRICES = ("chem_master1", "torso2", "xenon2", "torso3",
                     "poisson3Db", "epb2", "viscoplastic2", "memplus")
-OFFLINE_FORMATS = ("ell_row", "ell_col", "coo_row", "sell")
+OFFLINE_FORMATS = ("ell_row", "ell_col", "coo_row", "sell", "ccs", "bcsr")
 #: (matrix, scale) each kernel is timed at (it is held against its plain
 #: version on every matrix of the offline and serve phases).  The last
 #: exceeds the 50 MB L2, so its times are the ones a bound stated against
@@ -63,7 +64,8 @@ KERNEL_MATRICES = (("xenon2", 1.0), ("memplus", 1.0), ("xenon2", 4.0))
 #: (matrix, scale) served through the planner; the last exceeds the 50 MB L2
 SERVED = (("xenon2", 1.0), ("torso3", 1.0), ("memplus", 1.0), ("xenon2", 4.0))
 #: formats forced through the planner so every kernel serves at least once
-FORCED_FORMATS = ("ell_row", "ell_col", "coo_row", "coo_col", "sell", "csr")
+FORCED_FORMATS = ("ell_row", "ell_col", "coo_row", "coo_col", "sell", "csr",
+                  "ccs", "bcsr")
 #: right-hand sides the SpMM kernels are timed at (on xenon2 at scale 4)
 SPMM_TIMED = (8, 128)
 #: batches of the off-line phase's SpMM runs (the per-B D* table)
@@ -95,11 +97,24 @@ KERNEL_INFO = {
     "coo_spmm": {"route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/coo_spmm.cu",
                  "replaces": "src/repro/kernels/coo_spmv.py:92"},
+    "ccs_spmv": {"route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ccs_spmv.cu",
+                 "replaces": "src/repro/kernels/ccs_spmv.py:115"},
+    "ccs_spmm": {"route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ccs_spmm.cu",
+                 "replaces": "src/repro/kernels/ccs_spmv.py:176"},
+    "bcsr_spmv": {"route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/bcsr_spmv.cu",
+                  "replaces": "src/repro/kernels/bcsr_spmv.py:106"},
+    "bcsr_spmm": {"route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
+                  "replaces": "src/repro/kernels/bcsr_spmv.py:175"},
 }
 #: the SpMM kernel each format's batched product launches
 SPMM_KERNEL_OF = {"csr": "csr_spmm", "coo_row": "coo_spmm",
                   "coo_col": "coo_spmm", "ell_row": "ell_spmm",
-                  "ell_col": "ell_spmm", "sell": "ell_spmm"}
+                  "ell_col": "ell_spmm", "sell": "ell_spmm",
+                  "ccs": "ccs_spmm", "bcsr": "bcsr_spmm"}
 
 
 def matrix_label(name: str, scale: float) -> str:
@@ -147,6 +162,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3, cold: bool = False) -> float:
         for _ in range(reps))
 
 
+def time_events_ms(fn, reps: int = 20, warmup: int = 1) -> float:
+    """Median over ``reps`` of one call between two CUDA events recorded on
+    either side of it, the host's launch path included — for the plain
+    versions: they read a count back from the card mid-call, so no head
+    start can run ahead of them (:func:`time_ms` would double its spin up
+    to its cap on every repetition), and their host path is part of what
+    they cost."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def bound(bytes_moved: int, flops: int):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -167,7 +204,9 @@ def matrix_layouts(csr):
             "ell_col": T.host_csr_to_ell(csr, order="col").to(dev),
             "sell": T.host_csr_to_sell(csr).to(dev),
             "coo_row": T.host_csr_to_coo_row(csr).to(dev),
-            "coo_col": T.host_csr_to_coo_col(csr).to(dev)}
+            "coo_col": T.host_csr_to_coo_col(csr).to(dev),
+            "ccs": T.host_csr_to_ccs(csr).to(dev),
+            "bcsr": T.host_csr_to_bcsr(csr).to(dev)}
 
 
 def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
@@ -180,10 +219,14 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
     per CUDA block (``None``: the wrapper's default).  ``mag`` is the plain
     version on |data|, |x|: the per-element magnitude the error is held
     against.  ``bytes`` counts A once, x once (``val * n_cols * B``) and y
-    once (``4 * n_rows * B``); ``flops`` is ``2 * nnz * B``.  Every format
-    the offline and serve phases run is here, each SELL bucket as the ELL
-    panel it is launched on.  Also returns the library call (a sparse CSR
-    product, float32 only)."""
+    once (``4 * n_rows * B``); ``flops`` is ``2 * nnz * B`` (BCSR:
+    ``2 * nblocks * b * b * B``, the block products it computes, explicit
+    zeros included).  Every format the offline and serve phases run is
+    here, each SELL bucket as the ELL panel it is launched on.  Also returns
+    the library call (a sparse CSR product, float32 only)."""
+    from repro_torch.core.formats import bcsr_fill_ratio
+    from repro_torch.kernels import bcsr_spmv as K9
+    from repro_torch.kernels import ccs_spmv as K7
     from repro_torch.kernels import coo_spmv as K3
     from repro_torch.kernels import csr_spmv as K2
     from repro_torch.kernels import ell_spmv as K1
@@ -193,6 +236,9 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
     ell, ell_plain = getattr(K1, f"ell_{op}"), getattr(K1, f"ell_{op}_plain")
     csr_k, csr_plain = getattr(K2, f"csr_{op}"), getattr(K2, f"csr_{op}_plain")
     coo_k, coo_plain = getattr(K3, f"coo_{op}"), getattr(K3, f"coo_{op}_plain")
+    ccs_k, ccs_plain = getattr(K7, f"ccs_{op}"), getattr(K7, f"ccs_{op}_plain")
+    bcsr_k = getattr(K9, f"bcsr_{op}")
+    bcsr_plain = getattr(K9, f"bcsr_{op}_plain")
     kw = {} if block_k is None else {"block_k": block_k}
     dev = torch.device("cuda")
     rng = np.random.default_rng(1234 + b)
@@ -246,6 +292,30 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
                                                  xa, n),
             "bytes": coo.nnz_pad * (val + 8) + xy_bytes, "flops": flops})
 
+    ccs = layouts["ccs"]
+    sd = ccs.data.to(dtype)
+    cases.append({
+        "name": f"ccs_{op}", "layout": "ccs",
+        "kernel": lambda: ccs_k(sd, ccs.rows, ccs.indptr, x, n, **kw),
+        "plain": lambda: ccs_plain(sd, ccs.rows, ccs.indptr, x, n),
+        "mag": lambda: ccs_plain(sd.abs(), ccs.rows, ccs.indptr, xa, n),
+        "bytes": nnz * (val + 4) + 4 * (csr.n_cols + 1) + xy_bytes,
+        "flops": flops})
+
+    bm = layouts["bcsr"]
+    bd = bm.data.to(dtype)
+    nblocks, blk = int(bm.indptr[-1]), bm.block
+    cases.append({
+        "name": f"bcsr_{op}", "layout": "bcsr",
+        "kernel": lambda: bcsr_k(bd, bm.block_cols, bm.indptr, x, n, **kw),
+        "plain": lambda: bcsr_plain(bd, bm.block_cols, bm.indptr, x, n),
+        "mag": lambda: bcsr_plain(bd.abs(), bm.block_cols, bm.indptr, xa, n),
+        "bytes": nblocks * (blk * blk * val + 4) + 4 * (bm.n_block_rows + 1)
+        + xy_bytes,
+        "flops": 2 * nblocks * blk * blk * b,
+        "info": {"block": blk, "nblocks": nblocks,
+                 "fill_ratio": bcsr_fill_ratio(bm)}})
+
     library = None
     if dtype == torch.float32:
         a = torch.sparse_csr_tensor(m.indptr, m.cols[:nnz], m.data[:nnz],
@@ -281,14 +351,14 @@ def check_cases(cases, library, label, nnz, dtype, timed, reps, **extra):
             "dtype": str(dtype).replace("torch.", ""),
             "n_rows": int(y_k.shape[0]), "nnz": nnz,
             "max_abs_err": float(err.max()), "max_rel_err": rel,
-            "tolerance": tol}
+            "tolerance": tol, **case.get("info", {})}
         del y_k, y_p, mag, err
         if timed and not layout.startswith("sell"):
             b_ms, b_by = bound(case["bytes"], case["flops"])
             result.update({
                 "ms": time_ms(case["kernel"], reps),
                 "ms_cold_l2": time_ms(case["kernel"], reps, cold=True),
-                "plain_ms": time_ms(case["plain"], reps),
+                "plain_ms": time_events_ms(case["plain"], reps),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bytes": case["bytes"], "library_ms": library_ms})
         results.append(result)
@@ -301,7 +371,8 @@ def phase_kernels(reps: int):
     B of ``SPMM_CHECKED``, and on ``BIG`` at B = ``SERVE_BATCH`` also at
     each column tile the tuner's grid launches); time the SpMV cases of
     ``KERNEL_MATRICES`` and the SpMM cases of ``BIG`` at each B of
-    ``SPMM_TIMED``."""
+    ``SPMM_TIMED``.  The phase line also gives the seconds spent on each
+    matrix."""
     from repro_torch.core import suite
     from repro_torch.core.kernel_tune import GPU_K_TILES
 
@@ -310,8 +381,9 @@ def phase_kernels(reps: int):
     for matrix in SERVED + KERNEL_MATRICES:
         if matrix not in todo:
             todo.append(matrix)
-    results = []
+    results, seconds = [], {}
     for name, scale in todo:
+        t0 = time.perf_counter()
         csr = suite.synthesize(specs[name], scale=scale)
         layouts = matrix_layouts(csr)
         label = matrix_label(name, scale)
@@ -335,7 +407,8 @@ def phase_kernels(reps: int):
                     del cases
         del csr, layouts
         torch.cuda.empty_cache()
-    emit("kernels", cases=results)
+        seconds[label] = time.perf_counter() - t0
+    emit("kernels", seconds=seconds, cases=results)
     return results
 
 
@@ -353,9 +426,11 @@ def kernels_line(cases, launches):
                     and c["dtype"] == "float32"
                     and c.get("batch", SERVE_BATCH) == SERVE_BATCH
                     and "block_k" not in c
-                    and c["layout"] in ("ell_row", "csr", "coo_row"))
+                    and c["layout"] in ("ell_row", "csr", "coo_row", "ccs",
+                                        "bcsr"))
         shape = {k: head[k] for k in ("matrix", "layout", "dtype", "n_rows",
-                                      "nnz", "batch") if k in head}
+                                      "nnz", "batch", "block", "nblocks",
+                                      "fill_ratio") if k in head}
         out.append({
             "name": kname, **info, "launches": launches[kname],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
@@ -470,9 +545,26 @@ def oracle_f64(csr, x):
     return y, s
 
 
+#: host seconds of each (matrix, recipe) transform, timed once for both
+#: serve phases
+_T_TRANS = {}
+
+
+def trans_seconds(plan, csr, label):
+    """Host seconds of ``plan``'s transform of ``csr`` (0 for CSR), timed
+    once per matrix and recipe."""
+    from repro_torch.core.autotune import time_host
+    if plan.fmt == "csr":
+        return 0.0
+    key = (label, json.dumps(plan.transform.to_dict(), sort_keys=True))
+    if key not in _T_TRANS:
+        _T_TRANS[key] = time_host(plan.transform.apply, csr, iters=1)
+    return _T_TRANS[key]
+
+
 def serve_one(api, planner, csr, label, plan_kw, iters):
     from repro_torch import kernels
-    from repro_torch.core.autotune import time_fn, time_host
+    from repro_torch.core.autotune import time_fn
 
     rng = np.random.default_rng(99)
     x = torch.from_numpy(
@@ -508,8 +600,7 @@ def serve_one(api, planner, csr, label, plan_kw, iters):
     rel2 = float(((y2.double() - want).abs() / (scale + 1e-30)).max())
     if rel2 > F32_REL_TOL:
         raise AssertionError(f"{label}: re-bound plan off the oracle")
-    t_trans = time_host(plan.transform.apply, csr, iters=1) \
-        if plan.fmt != "csr" else 0.0
+    t_trans = trans_seconds(plan, csr, label)
     t_spmv = time_fn(P.spmv, x, iters=iters)
     return {"matrix": label, "n": csr.n_rows, "nnz": csr.nnz,
             "rule": plan.rule, "fmt": plan.fmt, "d_mat": plan.d_mat,
@@ -563,7 +654,7 @@ def serve_spmm_one(api, planner, csr, label, batch, plan_kw, iters):
     must resolve to the kernel tier, launch the format's SpMM kernel and
     match the oracle; the plan must survive its JSON and re-bind."""
     from repro_torch import kernels
-    from repro_torch.core.autotune import time_fn, time_host
+    from repro_torch.core.autotune import time_fn
 
     rng = np.random.default_rng(98)
     x = torch.from_numpy(rng.normal(size=(csr.n_cols, batch)).astype(
@@ -592,8 +683,7 @@ def serve_spmm_one(api, planner, csr, label, batch, plan_kw, iters):
         raise AssertionError(f"{label}: plan JSON round trip changed it")
     check_product(f"{label} re-bound", plan2.bind(csr, db=planner.db) @ x,
                   csr, x)
-    t_trans = time_host(plan.transform.apply, csr, iters=1) \
-        if plan.fmt != "csr" else 0.0
+    t_trans = trans_seconds(plan, csr, label)
     t_spmm = time_fn(P.spmm, x, iters=iters)
     return {"matrix": label, "n": csr.n_rows, "nnz": csr.nnz, "batch": batch,
             "rule": plan.rule, "fmt": plan.fmt, "d_mat": plan.d_mat,

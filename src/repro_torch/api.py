@@ -24,6 +24,9 @@ organized around the portable decision artifact — the
     y = P @ x                      # SpMV
     Y = P @ X                      # SpMM, X: (n_cols, B)
 
+    # a format forced by name: CCS, or BCSR in 8 x 8 blocks
+    P = api.Planner(db=db, tier="kernel").plan(csr, fmt="bcsr").bind(csr)
+
     # the batched path, launch geometry searched on the card
     tuner = api.KernelTuner(db)
     P = api.Planner(db, tuner=tuner).plan(csr, batch=128).bind(csr)
@@ -35,9 +38,9 @@ from repro_torch.core.autotune import (Decision, MachineModel, OfflineRecord,
                                        TuningDB, decide_cost_model,
                                        decide_generalized, decide_paper,
                                        offline_phase)
-from repro_torch.core.formats import (BucketedELL, COO, CSR, ELL, MatrixStats,
-                                      MatrixValidationError, from_numpy,
-                                      memory_bytes, to_numpy)
+from repro_torch.core.formats import (BCSR, BucketedELL, CCS, COO, CSR, ELL,
+                                      MatrixStats, MatrixValidationError,
+                                      from_numpy, memory_bytes, to_numpy)
 from repro_torch.core.kernel_tune import (GRID_FORMATS, GeometryRecord,
                                           KernelTuner, TileGeometry,
                                           candidate_geometries,
@@ -65,7 +68,7 @@ __all__ = [
     "KernelTuner", "TileGeometry", "GeometryRecord",
     "candidate_geometries", "nearest_geometry",
     # formats + construction
-    "CSR", "COO", "ELL", "BucketedELL", "MatrixStats",
+    "CSR", "CCS", "COO", "ELL", "BCSR", "BucketedELL", "MatrixStats",
     "MatrixValidationError", "memory_bytes", "csr_from_dense",
     "csr_from_rows", "TRANSFORMS_HOST", "from_numpy", "to_numpy",
     "default_device",

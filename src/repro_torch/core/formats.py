@@ -20,7 +20,9 @@ torch raises on an out-of-range gather on the CPU and is undefined on CUDA
 (where JAX clamps), so nothing here relies on clamping: pads are real
 in-range entries, and every transform masks explicitly.
 
-``CCS`` and ``BCSR`` are not ported yet.
+Beyond the paper's three: ``CCS`` (its Phase-I target, CSR's column-space
+mirror) and ``BCSR`` (its named future work, ``b x b`` dense blocks in CSR
+order over block rows).
 """
 from __future__ import annotations
 
@@ -159,6 +161,82 @@ class CSR(_TensorContainer):
             if lo < 0 or hi >= self.n_cols:
                 raise MatrixValidationError(
                     f"column indices must lie in [0, {self.n_cols}); "
+                    f"found range [{lo}, {hi}]")
+        return self
+
+
+# ---------------------------------------------------------------------------
+# CCS — compressed column storage (paper's Phase-I target)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)
+class CCS(_TensorContainer):
+    data: Tensor     # (nnz_pad,)  = VAL_T
+    rows: Tensor     # (nnz_pad,)  row index of each stored value (IROW_T)
+    indptr: Tensor   # (n_cols+1,) = IRP_T
+    shape: Tuple[int, int]
+    nnz: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def nnz_pad(self) -> int:
+        return int(self.data.shape[0])
+
+    def todense(self) -> np.ndarray:
+        data = _vals(self.data)
+        out = np.zeros(self.shape, dtype=data.dtype)
+        ip = _np(self.indptr)
+        cols = np.repeat(np.arange(self.n_cols), ip[1:] - ip[:-1])
+        np.add.at(out, (_np(self.rows)[: self.nnz], cols), data[: self.nnz])
+        return out
+
+    def validate(self) -> "CCS":
+        """CSR's invariants mirrored over columns: ``indptr`` segments the
+        column axis and ``rows`` must stay inside the row space."""
+        ip = _np(self.indptr)
+        rows = _np(self.rows)
+        data = _np(self.data)
+        if ip.ndim != 1 or ip.shape[0] != self.n_cols + 1:
+            raise MatrixValidationError(
+                f"indptr must have shape ({self.n_cols + 1},); "
+                f"got {ip.shape}")
+        if not np.issubdtype(ip.dtype, np.integer):
+            raise MatrixValidationError(
+                f"indptr must be an integer array; got dtype {ip.dtype}")
+        if not np.issubdtype(rows.dtype, np.integer):
+            raise MatrixValidationError(
+                f"rows must be an integer array; got dtype {rows.dtype}")
+        if int(ip[0]) != 0:
+            raise MatrixValidationError(
+                f"indptr[0] must be 0; got {int(ip[0])}")
+        if np.any(ip[1:] < ip[:-1]):
+            j = int(np.argmax(ip[1:] < ip[:-1]))
+            raise MatrixValidationError(
+                f"indptr must be monotone non-decreasing; "
+                f"indptr[{j + 1}]={int(ip[j + 1])} < "
+                f"indptr[{j}]={int(ip[j])}")
+        if int(ip[-1]) != self.nnz:
+            raise MatrixValidationError(
+                f"indptr[-1] must equal nnz={self.nnz}; got {int(ip[-1])}")
+        if self.nnz > self.nnz_pad:
+            raise MatrixValidationError(
+                f"nnz={self.nnz} exceeds storage nnz_pad={self.nnz_pad}")
+        if rows.shape != data.shape:
+            raise MatrixValidationError(
+                f"rows and data must share a shape; "
+                f"got {rows.shape} vs {data.shape}")
+        if self.nnz > 0:
+            live = rows[: self.nnz]
+            lo, hi = int(live.min()), int(live.max())
+            if lo < 0 or hi >= self.n_rows:
+                raise MatrixValidationError(
+                    f"row indices must lie in [0, {self.n_rows}); "
                     f"found range [{lo}, {hi}]")
         return self
 
@@ -404,6 +482,119 @@ class BucketedELL(_TensorContainer):
 
 
 # ---------------------------------------------------------------------------
+# BCSR — the paper's named future work ("evaluating the transformation to
+# other formats, such as BCSR, which enables cache blocking"): b x b dense
+# blocks in CSR order over ceil(n_rows / b) block rows.  Pad blocks (past
+# indptr[-1]) are all-zero with block column 0.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True, eq=False)
+class BCSR(_TensorContainer):
+    data: Tensor        # (nblocks_pad, b, b)
+    block_cols: Tensor  # (nblocks_pad,) block-column indices
+    indptr: Tensor      # (n_block_rows + 1,)
+    shape: Tuple[int, int]
+    nnz: int            # true scalar nnz represented
+    block: int          # b
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def n_block_rows(self) -> int:
+        return int(self.indptr.shape[0]) - 1
+
+    @property
+    def nblocks_pad(self) -> int:
+        return int(self.data.shape[0])
+
+    def todense(self) -> np.ndarray:
+        b = self.block
+        nbr = self.n_block_rows
+        dat = _vals(self.data)
+        out = np.zeros((nbr * b, self.n_cols + (-self.n_cols) % b),
+                       dtype=dat.dtype)
+        ip = _np(self.indptr)
+        nblocks = int(ip[-1]) if ip.size else 0
+        brow = np.repeat(np.arange(nbr), ip[1:] - ip[:-1])
+        bc = _np(self.block_cols)[:nblocks]
+        # entry (p, i, j) lands at (brow[p] * b + i, bc[p] * b + j)
+        r =brow[:, None, None] * b + np.arange(b)[None, :, None]
+        c = bc[:, None, None] * b + np.arange(b)[None, None, :]
+        np.add.at(out, (np.broadcast_to(r, (nblocks, b, b)),
+                        np.broadcast_to(c, (nblocks, b, b))), dat[:nblocks])
+        return out[: self.n_rows, : self.n_cols]
+
+    def validate(self) -> "BCSR":
+        """CSR invariants lifted to the block grid: ``indptr`` segments
+        ``ceil(n_rows / b)`` block rows, stored tiles are dense ``b x b``,
+        and block columns stay inside ``ceil(n_cols / b)``."""
+        b = self.block
+        if not isinstance(b, int) or b < 1:
+            raise MatrixValidationError(
+                f"block size must be a positive int; got {b!r}")
+        ip = _np(self.indptr)
+        bc = _np(self.block_cols)
+        data = _np(self.data)
+        nbr = -(-self.n_rows // b) if self.n_rows else 0
+        if data.ndim != 3 or data.shape[1:] != (b, b):
+            raise MatrixValidationError(
+                f"data must be (nblocks_pad, {b}, {b}) dense tiles; "
+                f"got {data.shape}")
+        if ip.ndim != 1 or ip.shape[0] != nbr + 1:
+            raise MatrixValidationError(
+                f"indptr must have shape ({nbr + 1},) for n_rows="
+                f"{self.n_rows}, block={b}; got {ip.shape}")
+        for name, arr in (("indptr", ip), ("block_cols", bc)):
+            if not np.issubdtype(arr.dtype, np.integer):
+                raise MatrixValidationError(
+                    f"{name} must be an integer array; got dtype "
+                    f"{arr.dtype}")
+        if int(ip[0]) != 0:
+            raise MatrixValidationError(
+                f"indptr[0] must be 0; got {int(ip[0])}")
+        if np.any(ip[1:] < ip[:-1]):
+            i = int(np.argmax(ip[1:] < ip[:-1]))
+            raise MatrixValidationError(
+                f"indptr must be monotone non-decreasing; "
+                f"indptr[{i + 1}]={int(ip[i + 1])} < "
+                f"indptr[{i}]={int(ip[i])}")
+        nblocks = int(ip[-1]) if ip.size else 0
+        if nblocks > self.nblocks_pad:
+            raise MatrixValidationError(
+                f"indptr stores {nblocks} blocks but only "
+                f"{self.nblocks_pad} are allocated")
+        if bc.shape != (self.nblocks_pad,):
+            raise MatrixValidationError(
+                f"block_cols must have shape ({self.nblocks_pad},); "
+                f"got {bc.shape}")
+        if self.nnz > nblocks * b * b:
+            raise MatrixValidationError(
+                f"nnz={self.nnz} cannot fit {nblocks} dense {b}x{b} "
+                f"blocks")
+        if nblocks > 0:
+            nbc = -(-self.n_cols // b)
+            live = bc[:nblocks]
+            lo, hi = int(live.min()), int(live.max())
+            if lo < 0 or hi >= nbc:
+                raise MatrixValidationError(
+                    f"block-column indices must lie in [0, {nbc}); "
+                    f"found range [{lo}, {hi}]")
+        return self
+
+
+def bcsr_fill_ratio(m: "BCSR") -> float:
+    """nnz / stored scalars — the density of the chosen blocks (the BCSR
+    analogue of ELL's padding ratio)."""
+    stored = m.nblocks_pad * m.block * m.block
+    return m.nnz / stored if stored else 0.0
+
+
+# ---------------------------------------------------------------------------
 # Statistics — the paper's D_mat = sigma / mu (eq. 4)
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
@@ -470,11 +661,12 @@ def from_numpy(fmt_name: str, arrays: Dict[str, Any], meta: Dict[str, Any],
                device: DeviceLike = None):
     """Build a container from numpy arrays + static metadata.
 
-    ``fmt_name`` is a registry name (``csr``, ``coo_row``, ``coo_col``,
-    ``ell_row``, ``ell_col``, ``sell``); ``arrays`` maps field name to array
-    (for ``sell``: ``perm`` plus ``buckets``, a list of ``{data, cols}``);
-    ``meta`` holds ``shape``, ``nnz`` and, where the class has them,
-    ``order`` / ``row_offsets`` / per-bucket ``buckets`` metadata."""
+    ``fmt_name`` is a registry name (``csr``, ``ccs``, ``coo_row``,
+    ``coo_col``, ``ell_row``, ``ell_col``, ``sell``, ``bcsr``); ``arrays``
+    maps field name to array (for ``sell``: ``perm`` plus ``buckets``, a
+    list of ``{data, cols}``); ``meta`` holds ``shape``, ``nnz`` and, where
+    the class has them, ``order`` / ``block`` / ``row_offsets`` /
+    per-bucket ``buckets`` metadata."""
     dev = resolve_device(device)
     shape = tuple(int(s) for s in meta["shape"])
     nnz = int(meta["nnz"])
@@ -483,6 +675,16 @@ def from_numpy(fmt_name: str, arrays: Dict[str, Any], meta: Dict[str, Any],
                    cols=_tensor_of(arrays["cols"], dev),
                    indptr=_tensor_of(arrays["indptr"], dev),
                    shape=shape, nnz=nnz)
+    if fmt_name == "ccs":
+        return CCS(data=_tensor_of(arrays["data"], dev),
+                   rows=_tensor_of(arrays["rows"], dev),
+                   indptr=_tensor_of(arrays["indptr"], dev),
+                   shape=shape, nnz=nnz)
+    if fmt_name == "bcsr":
+        return BCSR(data=_tensor_of(arrays["data"], dev),
+                    block_cols=_tensor_of(arrays["block_cols"], dev),
+                    indptr=_tensor_of(arrays["indptr"], dev),
+                    shape=shape, nnz=nnz, block=int(meta["block"]))
     if fmt_name.startswith("coo"):
         order = meta.get("order", fmt_name[4:] or "row")
         return COO(data=_tensor_of(arrays["data"], dev),
@@ -514,6 +716,18 @@ def to_numpy(container) -> Tuple[str, Dict[str, Any], Dict[str, Any]]:
                 {"data": _vals(container.data), "cols": _np(container.cols),
                  "indptr": _np(container.indptr)},
                 {"shape": container.shape, "nnz": container.nnz})
+    if isinstance(container, CCS):
+        return ("ccs",
+                {"data": _vals(container.data), "rows": _np(container.rows),
+                 "indptr": _np(container.indptr)},
+                {"shape": container.shape, "nnz": container.nnz})
+    if isinstance(container, BCSR):
+        return ("bcsr",
+                {"data": _vals(container.data),
+                 "block_cols": _np(container.block_cols),
+                 "indptr": _np(container.indptr)},
+                {"shape": container.shape, "nnz": container.nnz,
+                 "block": container.block})
     if isinstance(container, COO):
         return (f"coo_{container.order or 'row'}",
                 {"data": _vals(container.data), "rows": _np(container.rows),
@@ -546,7 +760,7 @@ def __getattr__(name: str):
 
 
 __all__ = [
-    "CSR", "COO", "ELL", "BucketedELL", "MatrixStats",
-    "MatrixValidationError", "memory_bytes", "validate_container",
-    "from_numpy", "to_numpy", "FORMAT_NAMES",
+    "CSR", "CCS", "COO", "ELL", "BucketedELL", "BCSR", "MatrixStats",
+    "MatrixValidationError", "bcsr_fill_ratio", "memory_bytes",
+    "validate_container", "from_numpy", "to_numpy", "FORMAT_NAMES",
 ]

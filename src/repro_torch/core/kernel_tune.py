@@ -5,10 +5,10 @@ selection; this module extends it down to the launch of each CUDA kernel.
     ``kernels/ops.py`` accepts per call (``tuning=``).  The fields are
     exactly the JAX package's, because plan and TuningDB JSON interchange
     both ways and that package's loader rejects unknown fields.  The CUDA
-    wrappers read ``block_rows`` (rows per CUDA block), ``block_nnz``
-    (entries per CUDA block) and ``block_k`` (right-hand-side columns per
-    CUDA block, SpMM); ``block_w`` and ``slabs_per_block`` ride along for
-    the schema.
+    wrappers read ``block_rows`` (rows, CCS columns or BCSR block rows per
+    CUDA block), ``block_nnz`` (entries per CUDA block) and ``block_k``
+    (right-hand-side columns per CUDA block, SpMM); ``block_w`` and
+    ``slabs_per_block`` ride along for the schema.
   * :func:`candidate_geometries` — the bounded per-(format, op) search grid
     over those three knobs, de-duplicated on the launch each candidate
     actually makes (threads per block, rows or entries per block, column
@@ -34,7 +34,7 @@ import torch
 
 from .. import obs as _obs
 from . import dispatch as _dispatch
-from .formats import CSR, MatrixStats, _np
+from .formats import CCS, CSR, MatrixStats, _np
 
 __all__ = ["TileGeometry", "GeometryRecord", "GRID_FORMATS",
            "candidate_geometries", "nearest_geometry", "KernelTuner"]
@@ -48,17 +48,18 @@ class TileGeometry:
     """Per-call launch geometry; ``None`` fields fall back to the wrapper's
     built-in default.  Hashable.
 
-    ``block_rows`` is the *segmented-axis* tile: rows per block for ELL/CSR.
+    ``block_rows`` is the *segmented-axis* tile: rows per block for
+    ELL/CSR, columns for CCS, block rows for BCSR.
 
     ``buckets`` is the SELL per-bucket table: ``((width, TileGeometry),
     ...)`` pairs keyed by bucket *width*, so one persisted geometry carries
     a different launch for every bucket of the container.  Bucket widths
     absent from the table fall back to the top-level knobs."""
-    block_rows: Optional[int] = None   # ELL/CSR rows per block
+    block_rows: Optional[int] = None   # rows (CCS: columns, BCSR: block rows) per block
     block_w: Optional[int] = None      # ELL band tile (schema only)
     block_k: Optional[int] = None      # SpMM right-hand-side columns per block
     block_nnz: Optional[int] = None    # COO entries per block
-    slabs_per_block: Optional[int] = None  # CSR static coverage bound (schema only)
+    slabs_per_block: Optional[int] = None  # CSR/CCS/BCSR coverage bound (schema only)
     buckets: Optional[Tuple[Tuple[int, "TileGeometry"], ...]] = None  # SELL
 
     _KNOBS = ("block_rows", "block_w", "block_k", "block_nnz",
@@ -175,8 +176,9 @@ def _structure_sig(obj: Any) -> int:
 # ---------------------------------------------------------------------------
 # the bounded search grid (CUDA launches)
 # ---------------------------------------------------------------------------
-#: rows per CUDA block (ELL, SELL buckets, CSR); the block holds that many
-#: rows times the lanes the wrapper gives a row, clamped to 1024 threads
+#: rows per CUDA block (ELL, SELL buckets, CSR; CCS columns, BCSR block
+#: rows); the block holds that many rows times the lanes the wrapper gives
+#: a row (BCSR SpMV: times b), clamped to 1024 threads
 GPU_ROW_TILES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 #: entries per CUDA block (COO)
 GPU_NNZ_TILES = (256, 1024, 4096, 16384)
@@ -184,19 +186,21 @@ GPU_NNZ_TILES = (256, 1024, 4096, 16384)
 GPU_K_TILES = (8, 32, 128)
 
 #: every format with a CUDA kernel and a candidate grid below — the kernel
-#: tier's tunable surface (ccs and bcsr join with their kernels)
-GRID_FORMATS = ("ell_row", "ell_col", "sell", "coo_row", "coo_col", "csr")
+#: tier's tunable surface
+GRID_FORMATS = ("ell_row", "ell_col", "sell", "coo_row", "coo_col", "csr",
+                "ccs", "bcsr")
 
 
 def _lanes_per_row(fmt: str, op: str, n_rows: int, width: int,
                    nnz_pad: int, batch: int,
                    block_k: Optional[int]) -> int:
-    """Threads the wrapper gives one row (ELL, SELL bucket, CSR), from the
-    same helpers the wrappers call."""
+    """Threads the wrapper gives one row (ELL, SELL bucket, CSR; a CCS
+    column, a BCSR block row in SpMM), from the same helpers the wrappers
+    call.  ``n_rows`` is the segmented axis (CCS: the column count)."""
     from ..kernels import _common as C
     if op == "spmm":
         return C.rhs_tile(batch, block_k)[1]
-    if fmt == "csr":
+    if fmt in ("csr", "ccs"):
         return C.csr_spmv_lanes(nnz_pad, n_rows)
     # ELL-Row and SELL buckets are row-major (a one-slot band has strides
     # (1, 1) and is not); ELL-Col is column-major
@@ -209,14 +213,16 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
     """The bounded launch-geometry grid for one (format, op).
 
     Only knobs a CUDA wrapper reads are searched: ``block_rows`` (ELL, SELL,
-    CSR), ``block_nnz`` (COO) and, for SpMM, ``block_k``.  Each candidate
-    holds the values its launch actually takes — rows per block as the
-    whole warps the wrapper rounds to at its lane count (at most 1024
+    CSR, CCS, BCSR), ``block_nnz`` (COO) and, for SpMM, ``block_k``.  Each
+    candidate holds the values its launch actually takes — rows per block as
+    the whole warps the wrapper rounds to at its lane count (at most 1024
     threads, at most the matrix's rows), entries per block at most
     ``nnz_pad``, columns per block at most the batch — so de-duplicating
     the candidates de-duplicates the launches and the tuner never times the
-    same launch twice."""
-    from ..kernels._common import rhs_tile, rows_per_block
+    same launch twice.  ``n_rows`` is the segmented axis: the column count
+    for CCS, the block-row count for BCSR; ``width`` is BCSR's block size
+    b."""
+    from ..kernels._common import bcsr_spmv_launch, rhs_tile, rows_per_block
     if fmt not in GRID_FORMATS:
         return []
     batch = max(int(batch), 1)
@@ -227,6 +233,16 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
         if fmt.startswith("coo"):
             geoms.extend(TileGeometry(block_nnz=min(bn, nnz_pad or bn),
                                       block_k=k) for bn in GPU_NNZ_TILES)
+            continue
+        if fmt == "bcsr" and op == "spmv":
+            # a thread per scalar row: block_rows * b threads per block
+            b = width or 8
+            cap = max(1, 1024 // b)
+            if n_rows:
+                cap = min(cap, n_rows)
+            geoms.extend(
+                TileGeometry(block_rows=bcsr_spmv_launch(b, min(r, cap))[1])
+                for r in GPU_ROW_TILES)
             continue
         lanes = _lanes_per_row(fmt, op, n_rows, width, nnz_pad, batch, k)
         cap = 1024 // lanes
@@ -248,12 +264,21 @@ def _profile_of(obj: Any, stats: Optional[MatrixStats] = None
         return int(stats.n), int(stats.nnz), float(stats.d_mat), sig
     n = int(getattr(obj, "n_rows", 0))
     nnz = int(getattr(obj, "nnz", 0))
-    d_mat = float(MatrixStats.of(obj).d_mat) if isinstance(obj, CSR) else 0.0
+    d_mat = 0.0
+    if isinstance(obj, CSR):
+        d_mat = float(MatrixStats.of(obj).d_mat)
+    elif isinstance(obj, CCS):
+        # the column-space analogue: nnz-per-column variation is what
+        # shapes the column-grouped launch
+        lens = np.diff(_np(obj.indptr)).astype(np.float64)
+        mu = float(lens.mean()) if lens.size else 0.0
+        d_mat = float(lens.std() / mu) if mu > 0 else 0.0
     return n, nnz, d_mat, sig
 
 
 def _width_of(obj: Any) -> int:
-    w = getattr(obj, "width", None)
+    """ELL's band width, SELL's widest bucket, BCSR's block size."""
+    w = getattr(obj, "width", getattr(obj, "block", None))
     if w is not None:
         return int(w)
     widths = getattr(obj, "widths", None)   # BucketedELL
@@ -263,13 +288,18 @@ def _width_of(obj: Any) -> int:
 
 
 def _slab_bound_for(obj: Any, g: TileGeometry) -> Optional[int]:
-    """The reference's slab-coverage bound for a CSR candidate, recorded
-    in the winner for plan-JSON parity (no CUDA kernel reads it)."""
+    """The reference's slab-coverage bound for a CSR/CCS/BCSR candidate
+    (for CCS over the column pointer, for BCSR over the block IRP, with
+    BCSR's own 32/512 defaults), recorded in the winner for plan-JSON
+    parity (no CUDA kernel reads it)."""
     ip = getattr(obj, "indptr", None)
     if ip is None:
         return None
     from ..kernels.csr_spmv import slabs_needed
-    return slabs_needed(_np(ip), g.block_rows or 256, g.block_nnz or 2048)
+    segmented = isinstance(obj, (CSR, CCS))
+    br = g.block_rows or (256 if segmented else 32)
+    bn = g.block_nnz or (2048 if segmented else 512)
+    return slabs_needed(_np(ip), br, bn)
 
 
 # ---------------------------------------------------------------------------
@@ -411,9 +441,17 @@ class KernelTuner:
                                        key, force)
 
         cands: List[Optional[TileGeometry]] = [None]
+        if fmt == "ccs":
+            # the segmented axis is the *column* axis
+            grid_rows = int(getattr(obj, "n_cols", 0) or 0)
+        else:
+            # BCSR row tiles count *block* rows; everything else scalar rows
+            grid_rows = int(getattr(obj, "n_block_rows", profile[0]) or 0)
         grid = candidate_geometries(
-            fmt, op, n_rows=profile[0], width=_width_of(obj),
-            nnz_pad=int(getattr(obj, "nnz_pad", 0) or 0), batch=batch)
+            fmt, op, n_rows=grid_rows, width=_width_of(obj),
+            nnz_pad=int(getattr(obj, "nnz_pad",
+                                getattr(obj, "nblocks_pad", 0)) or 0),
+            batch=batch)
         if self.max_candidates is not None:
             grid = grid[: self.max_candidates]
         cands.extend(grid)
@@ -423,7 +461,7 @@ class KernelTuner:
             times: List[Tuple[float, Optional[TileGeometry]]] = []
             for g in cands:
                 gg = g
-                if g is not None and fmt == "csr":
+                if g is not None and fmt in ("csr", "ccs", "bcsr"):
                     spb = _slab_bound_for(obj, g)
                     if spb is not None:
                         gg = replace(g, slabs_per_block=spb)

@@ -53,11 +53,12 @@ SCHEMA_VERSION = 1
 #: transformation even if the library's defaults later change
 DEFAULT_RECIPE_PARAMS: Dict[str, Dict[str, Any]] = {
     "sell": {"slice_rows": 128, "width_quantum": 8},
+    "bcsr": {"block": 8},
 }
 
 #: formats whose plan geometry carries the reference's data-dependent
 #: slab-coverage bound, (re)derived per concrete matrix for schema parity
-_SLAB_FORMATS = ("csr",)
+_SLAB_FORMATS = ("csr", "ccs", "bcsr")
 
 def _finite_or_none(v: float) -> Optional[float]:
     """Non-finite floats (NaN d_star on cost-model/hybrid plans, inf d_mat
@@ -152,10 +153,14 @@ def apply_transform(name: str, csr: CSR, **params) -> Any:
         return T.host_csr_to_ell(csr, order="col", **params)
     if name == "sell":
         return T.host_csr_to_sell(csr, **params)
+    if name == "bcsr":
+        return T.host_csr_to_bcsr(csr, **params)
     if name == "coo_row":
         return T.host_csr_to_coo_row(csr)
     if name == "coo_col":
         return T.host_csr_to_coo_col(csr)
+    if name == "ccs":
+        return T.host_csr_to_ccs(csr)
     if name in T.TRANSFORMS_HOST:  # future registrations
         return T.TRANSFORMS_HOST[name](csr, **params) if params \
             else T.TRANSFORMS_HOST[name](csr)
@@ -379,12 +384,14 @@ class ExecutionPlan:
                 fn, found = _dispatch.resolve_impl(self.fmt, op, tier=tier)
             if found == "kernel":
                 if self.fmt in _SLAB_FORMATS:
-                    # recorded exactly as the reference records it, so the
-                    # bound tunings compare key for key; the CUDA kernel
-                    # reads row bounds from IRP and does not depend on it
+                    # recorded exactly as the reference records it — on
+                    # the bound matrix (CCS: the column pointer, BCSR: the
+                    # block IRP) — so the bound tunings compare key for
+                    # key; the CUDA kernels read their bounds from the
+                    # pointer and do not depend on it
                     from ..kernels.ops import exact_slab_bound
                     base = g if g is not None else TileGeometry()
-                    spb = exact_slab_bound(csr, base)
+                    spb = exact_slab_bound(matrix, base)
                     g = replace(base.without_slab_bound(),
                                 slabs_per_block=spb)
                 if g is not None:

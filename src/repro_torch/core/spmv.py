@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import dispatch as _dispatch
-from .formats import BucketedELL, COO, CSR, ELL
+from .formats import BCSR, BucketedELL, CCS, COO, CSR, ELL
 
 
 def _scatter_rows(contrib: torch.Tensor, rows: torch.Tensor,
@@ -64,6 +64,27 @@ def spmm_coo(m: COO, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# CCS — column-major scatter (the paper's Phase-I product).  As in the JAX
+# package, the sum is taken in x's dtype.
+# ---------------------------------------------------------------------------
+def _ccs_expanded_cols(m: CCS) -> torch.Tensor:
+    ip = m.indptr
+    k = torch.arange(m.nnz_pad, dtype=ip.dtype, device=ip.device)
+    cols = torch.searchsorted(ip, k, right=True) - 1
+    return cols.clamp_(0, max(m.n_cols - 1, 0))
+
+
+def spmv_ccs(m: CCS, x: torch.Tensor) -> torch.Tensor:
+    contrib = m.data * x[_ccs_expanded_cols(m)]
+    return _scatter_rows(contrib.to(x.dtype), m.rows, m.n_rows)
+
+
+def spmm_ccs(m: CCS, x: torch.Tensor) -> torch.Tensor:
+    contrib = m.data[:, None] * x[_ccs_expanded_cols(m)]
+    return _scatter_rows(contrib.to(x.dtype), m.rows, m.n_rows)
+
+
+# ---------------------------------------------------------------------------
 # ELL — the vector-friendly format (the paper's hero)
 # ---------------------------------------------------------------------------
 def _ell_row_major(m: ELL):
@@ -103,6 +124,43 @@ def spmm_sell(m: BucketedELL, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# BCSR — b x b dense block matvecs (cache blocking)
+# ---------------------------------------------------------------------------
+def _bcsr_gather(m: BCSR, x: torch.Tensor):
+    """Block row of every stored block, and the ``(b,)`` (or ``(b, B)``)
+    slice of x each block multiplies (x zero-padded to whole blocks)."""
+    b = m.block
+    ip = m.indptr
+    k = torch.arange(m.nblocks_pad, dtype=ip.dtype, device=ip.device)
+    brow = (torch.searchsorted(ip, k, right=True) - 1).clamp_(
+        0, max(m.n_block_rows - 1, 0))
+    ncb = -(-m.n_cols // b)
+    x_pad = torch.zeros((ncb * b,) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device=x.device)
+    x_pad[: m.n_cols] = x
+    x_blocks = x_pad.reshape((ncb, b) + tuple(x.shape[1:]))[m.block_cols]
+    return brow, x_blocks
+
+
+def spmv_bcsr(m: BCSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x, A in BCSR: a stream of b x b dense block matvecs,
+    segment-summed per block row."""
+    brow, x_blocks = _bcsr_gather(m, x)                       # (nb, b)
+    dt = torch.promote_types(m.data.dtype, x.dtype)
+    contrib = torch.einsum("kij,kj->ki", m.data.to(dt), x_blocks.to(dt))
+    y = _scatter_rows(contrib, brow, m.n_block_rows)          # (nbr, b)
+    return y.reshape(m.n_block_rows * m.block)[: m.n_rows]
+
+
+def spmm_bcsr(m: BCSR, x: torch.Tensor) -> torch.Tensor:
+    brow, x_blocks = _bcsr_gather(m, x)                       # (nb, b, B)
+    dt = torch.promote_types(m.data.dtype, x.dtype)
+    contrib = torch.einsum("kij,kjc->kic", m.data.to(dt), x_blocks.to(dt))
+    y = _scatter_rows(contrib, brow, m.n_block_rows)          # (nbr, b, B)
+    return y.reshape(m.n_block_rows * m.block, x.shape[1])[: m.n_rows]
+
+
+# ---------------------------------------------------------------------------
 # dispatch — resolved through the core/dispatch registry
 # ---------------------------------------------------------------------------
 def spmv(m, x: torch.Tensor) -> torch.Tensor:
@@ -124,23 +182,28 @@ def spmv_dense(dense: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # names) and the reference-tier implementations defined above.
 # ---------------------------------------------------------------------------
 _dispatch.register_format("csr", CSR)
+_dispatch.register_format("ccs", CCS)
 _dispatch.register_format("coo_col", COO, lambda m: m.order == "col")
 _dispatch.register_format("coo_row", COO)
 _dispatch.register_format("ell_col", ELL, lambda m: m.order == "col")
 _dispatch.register_format("ell_row", ELL)
 _dispatch.register_format("sell", BucketedELL)
+_dispatch.register_format("bcsr", BCSR)
 
 for _fmt, _spmv_fn, _spmm_fn in (
     ("csr", spmv_csr, spmm_csr),
     ("coo_row", spmv_coo, spmm_coo),
     ("coo_col", spmv_coo, spmm_coo),
+    ("ccs", spmv_ccs, spmm_ccs),
     ("ell_row", spmv_ell, spmm_ell),
     ("ell_col", spmv_ell, spmm_ell),
     ("sell", spmv_sell, spmm_sell),
+    ("bcsr", spmv_bcsr, spmm_bcsr),
 ):
     _dispatch.register_impl(_fmt, "spmv", _spmv_fn)
     _dispatch.register_impl(_fmt, "spmm", _spmm_fn)
 
 
 __all__ = ["spmv", "spmm", "spmv_csr", "spmm_csr", "spmv_coo", "spmm_coo",
-           "spmv_ell", "spmm_ell", "spmv_sell", "spmm_sell", "spmv_dense"]
+           "spmv_ccs", "spmm_ccs", "spmv_ell", "spmm_ell", "spmv_sell",
+           "spmm_sell", "spmv_bcsr", "spmm_bcsr", "spmv_dense"]

@@ -25,7 +25,7 @@ import torch
 
 from .. import obs as _obs
 from ..device import DeviceLike, from_host, resolve_device
-from .formats import CSR, COO, ELL, BucketedELL, _np
+from .formats import BCSR, CCS, CSR, COO, ELL, BucketedELL, _np, _vals
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +134,113 @@ def host_csr_to_coo_row(m: CSR) -> COO:
                rows=_t(_pad1(rows, m.nnz_pad)),
                cols=m.cols.detach().cpu().clone(),
                shape=m.shape, nnz=m.nnz, order="row")
+
+
+# ---------------------------------------------------------------------------
+# CRS -> CCS (host): the paper's Phase-I counting algorithm.
+# ---------------------------------------------------------------------------
+def host_csr_to_ccs_paper(m: CSR) -> CCS:
+    """Literal translation of the paper's Fortran (§2.1) — O(n + nnz) loops.
+
+    The oracle for :func:`host_csr_to_ccs`; slow in Python, so tests call it
+    on small matrices only."""
+    n, nnz = m.n_rows, m.nnz
+    VAL = _np(m.data)
+    ICOL = _np(m.cols)
+    IRP = _np(m.indptr)
+    # === Count the number of non-zero columns.
+    NC_IRP = np.zeros(m.n_cols, dtype=np.int64)
+    for i in range(n):
+        for j_ptr in range(IRP[i], IRP[i + 1]):
+            NC_IRP[ICOL[j_ptr]] += 1
+    # === Set IRP.
+    IRP_T = np.zeros(m.n_cols + 1, dtype=np.int64)
+    for j in range(1, m.n_cols + 1):
+        IRP_T[j] = IRP_T[j - 1] + NC_IRP[j - 1]
+    cursor = IRP_T[:-1].copy()
+    # === Set row numbers (the paper stores ICOL_T(K) = I, the row index).
+    VAL_T = np.zeros(nnz, dtype=VAL.dtype)
+    IROW_T = np.zeros(nnz, dtype=np.int32)
+    for i in range(n):
+        for j_ptr in range(IRP[i], IRP[i + 1]):
+            jj = ICOL[j_ptr]
+            k = cursor[jj]
+            cursor[jj] += 1
+            VAL_T[k] = VAL[j_ptr]
+            IROW_T[k] = i
+    return CCS(data=_t(_pad1(VAL_T, m.nnz_pad), m.data),
+               rows=_t(_pad1(IROW_T, m.nnz_pad)),
+               indptr=_t(IRP_T.astype(np.int32)), shape=m.shape, nnz=nnz)
+
+
+@_traced("ccs")
+def host_csr_to_ccs(m: CSR) -> CCS:
+    """Vectorized counting sort — same output order as the paper's algorithm
+    (stable within a column by row index, because CSR scans rows in order)."""
+    nnz = m.nnz
+    cols = _np(m.cols)[:nnz]
+    data = _np(m.data)[:nnz]
+    ip = _np(m.indptr)
+    rows = np.repeat(np.arange(m.n_rows, dtype=np.int32), ip[1:] - ip[:-1])
+    counts = np.bincount(cols, minlength=m.n_cols)
+    indptr = np.zeros(m.n_cols + 1, dtype=np.int32)
+    np.cumsum(counts, out=indptr[1:])
+    order = np.argsort(cols, kind="stable")
+    return CCS(data=_t(_pad1(data[order], m.nnz_pad), m.data),
+               rows=_t(_pad1(rows[order], m.nnz_pad)),
+               indptr=_t(indptr), shape=m.shape, nnz=nnz)
+
+
+# ---------------------------------------------------------------------------
+# CRS -> BCSR (host; the paper's named future work, see formats.BCSR)
+# ---------------------------------------------------------------------------
+@_traced("bcsr")
+def host_csr_to_bcsr(m: CSR, block: int = 8) -> BCSR:
+    """Group nonzeros into ``block x block`` dense blocks, in CSR order over
+    block rows, without a loop over blocks.  A stable sort of the block keys
+    (rows come sorted, so the keys arrive in runs) numbers the blocks; the
+    values land by one scatter when every row's columns are strictly
+    increasing (no cell twice), else by one ``np.add.at`` over all entries
+    in CSR order, which sums a cell's duplicates in the order a per-block
+    loop does — so the blocks equal the JAX package's bit for bit.
+    bfloat16 values are summed in float32 and rounded once (the same unless
+    a cell holds three or more duplicates)."""
+    b = int(block)
+    n_rows, n_cols = m.shape
+    nbr = -(-n_rows // b)
+    nbc = -(-n_cols // b)
+    ip = _np(m.indptr).astype(np.int64)
+    lens = ip[1:] - ip[:-1]
+    cols = _np(m.cols)[: m.nnz]
+    data = _vals(m.data)[: m.nnz]
+    r = np.arange(n_rows, dtype=np.int64)
+    key = np.repeat(r // b * nbc, lens)                # block row * nbc
+    key += cols // b                                   # + block column
+    order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    first = np.ones(sorted_key.shape, dtype=bool)      # a block's first entry
+    np.not_equal(sorted_key[1:], sorted_key[:-1], out=first[1:])
+    uniq = sorted_key[first]
+    nblocks = len(uniq)
+    cell = np.empty_like(order)                        # flat index in blocks
+    cell[order] = (np.cumsum(first) - 1) * (b * b)
+    cell += np.repeat(r % b * b, lens)
+    cell += cols % b
+    blocks = np.zeros((max(nblocks, 1), b, b), dtype=data.dtype)
+    rising = cols[1:] > cols[:-1]
+    rising[ip[1:-1][(ip[1:-1] > 0) & (ip[1:-1] < m.nnz)] - 1] = True
+    if rising.all():                     # no cell twice: one scatter
+        blocks.reshape(-1)[cell] = data
+        blocks += 0.0        # as 0 + v would: a stored -0.0 reads +0.0
+    else:
+        np.add.at(blocks.reshape(-1), cell, data)
+    block_cols = np.zeros(max(nblocks, 1), dtype=np.int32)
+    block_cols[:nblocks] = uniq % nbc
+    indptr = np.zeros(nbr + 1, dtype=np.int32)
+    np.cumsum(np.bincount(uniq // nbc, minlength=nbr), out=indptr[1:])
+    return BCSR(data=from_host(blocks).to(m.data.dtype),
+                block_cols=_t(block_cols), indptr=_t(indptr),
+                shape=m.shape, nnz=m.nnz, block=b)
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +394,22 @@ def device_csr_to_coo_col(m: CSR) -> COO:
                shape=m.shape, nnz=m.nnz, order="col")
 
 
+def device_csr_to_ccs(m: CSR) -> CCS:
+    """CRS->CCS (the paper's Phase I) on ``m``'s device: the column-sorted
+    COO of :func:`device_csr_to_coo_col` plus a column pointer from the
+    per-column counts."""
+    coo = device_csr_to_coo_col(m)
+    counts = torch.bincount(m.cols[: m.nnz].long(), minlength=m.n_cols)
+    indptr = torch.zeros(m.n_cols + 1, dtype=torch.int32,
+                         device=m.indptr.device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    return CCS(data=coo.data, rows=coo.rows, indptr=indptr, shape=m.shape,
+               nnz=m.nnz)
+
+
 TRANSFORMS_HOST = {
+    "bcsr": lambda m: host_csr_to_bcsr(m),
+    "ccs": host_csr_to_ccs,
     "coo_row": host_csr_to_coo_row,
     "coo_col": host_csr_to_coo_col,
     "ell_row": lambda m: host_csr_to_ell(m, order="row"),
@@ -298,8 +420,8 @@ TRANSFORMS_HOST = {
 
 __all__ = [
     "pad_to_multiple", "csr_from_dense", "csr_from_rows",
-    "host_csr_to_coo_row", "host_csr_to_coo_col", "host_csr_to_ell",
-    "host_csr_to_sell",
-    "device_csr_to_ell", "device_csr_to_coo_row", "device_csr_to_coo_col",
-    "TRANSFORMS_HOST",
+    "host_csr_to_coo_row", "host_csr_to_ccs_paper", "host_csr_to_ccs",
+    "host_csr_to_coo_col", "host_csr_to_ell", "host_csr_to_sell",
+    "host_csr_to_bcsr", "device_csr_to_ell", "device_csr_to_coo_row",
+    "device_csr_to_coo_col", "device_csr_to_ccs", "TRANSFORMS_HOST",
 ]

@@ -99,13 +99,26 @@ def ell_spmv_lanes(width: int, row_major: bool) -> int:
 
 
 def csr_spmv_lanes(nnz: int, n_rows: int) -> int:
-    """Lanes ``csr_spmv`` gives one row: the smallest power of two covering
-    the mean row length, within [2, 32]."""
+    """Lanes ``csr_spmv`` gives one row (``ccs_spmv`` one column, called
+    with the column count): the smallest power of two covering the mean
+    segment length, within [2, 32]."""
     mean = nnz / max(n_rows, 1)
     lanes = 2
     while lanes < 32 and lanes < mean:
         lanes *= 2
     return lanes
+
+
+def bcsr_spmv_launch(block: int, block_rows=None):
+    """``(threads, block_rows)`` of a BCSR SpMV launch, one thread per
+    scalar row: ``block_rows`` block rows of ``block`` rows each per CUDA
+    block (default ``DEFAULT_THREADS`` threads), rounded to whole warps
+    within [32, 1024]; the second value is the block rows that many threads
+    hold whole (at least 1), so a candidate carrying it makes the same
+    launch."""
+    threads = clamp_threads(int(block_rows) * block if block_rows
+                            else DEFAULT_THREADS)
+    return threads, max(1, threads // block)
 
 
 def coo_launch(block_nnz=None):
@@ -133,8 +146,8 @@ def rhs_tile(batch: int, block_k=None):
 
 def row_group_launch(batch: int, block_rows=None, block_k=None):
     """``(kt, lanes, per_lane, rows_per_block)`` of a row-grouped SpMM launch
-    (ELL, CSR): ``block_rows`` row groups per CUDA block, as many as fit in
-    a block of at most 1024 threads.  Raises when ``B`` needs more column
+    (ELL, CSR; CCS groups columns, BCSR block rows): ``block_rows`` groups
+    per CUDA block, as many as fit in a block of at most 1024 threads.  Raises when ``B`` needs more column
     tiles than ``grid.y`` allows."""
     kt, lanes, per_lane = rhs_tile(batch, block_k)
     check_grid_y(batch, kt)

@@ -23,7 +23,7 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("ell_spmv", "csr_spmv", "coo_spmv", "ell_spmm", "csr_spmm",
-           "coo_spmm")
+           "coo_spmm", "ccs_spmv", "ccs_spmm", "bcsr_spmv", "bcsr_spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -51,6 +51,19 @@ SIGNATURES: Dict[str, Sequence] = {
     # block_nnz, data_bf16, x_bf16, stream
     "coo_spmm": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P),
+    # data, rows, indptr, x, y, n_cols, lanes, cols_per_block, data_bf16,
+    # x_bf16, stream
+    "ccs_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # data, rows, indptr, x, y, n_cols, B, kt, lanes, per_lane,
+    # cols_per_block, data_bf16, x_bf16, stream
+    "ccs_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # data, block_cols, indptr, x, y, n_rows, n_cols, block, threads,
+    # data_bf16, x_bf16, stream
+    "bcsr_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # data, block_cols, indptr, x, y, n_rows, n_cols, n_block_rows, block,
+    # B, kt, lanes, per_lane, rows_per_block, data_bf16, x_bf16, stream
+    "bcsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,172 @@
+"""CCS SpMV and SpMM — hand-written CUDA kernels (``csrc/ccs_spmv.cu``,
+``csrc/ccs_spmm.cu``) and their plain PyTorch versions.
+
+Replaces the TPU kernel ``repro/kernels/ccs_spmv.py:ccs_spmv``
+(``_ccs_spmv_kernel`` with its slab schedule over the column pointer):
+``y[rows[k]] += data[k] * x[c]`` for ``k in [IRP_T[c], IRP_T[c+1])``, float32
+accumulation; slots past ``IRP_T[-1]`` (pads of ``(0, row 0)``) are never
+read.
+
+Bound on an H100: memory.  The least the card must move is
+``nnz * (val + 4) + 4 * (n_cols + 1) + val * n_cols + 4 * n_rows`` bytes over
+3.35 TB/s.  The design gives each column a group of lanes (as wide as the
+mean column is long, the rule ``csr_spmv`` applies to rows), reads ``x[c]``
+once, walks the column's entries from IRP_T at run time and meets in global
+memory with float32 ``atomicAdd`` (columns scatter to arbitrary rows).  The
+atomics make the order of the sum, and so the last bits, differ from run to
+run: CCS results are compared to a tolerance, never bit for bit.
+
+:func:`ccs_spmm` replaces ``repro/kernels/ccs_spmv.py:ccs_spmm``: the same
+scatter against an ``(n_cols, B)`` panel.  A column group sits along the
+right-hand-side columns, keeps its slice of the column's X row in registers
+and adds each entry's contributions into consecutive addresses of a Y row.
+
+The reference's ``slabs_per_block`` (:func:`~.csr_spmv.slabs_needed` over
+the column pointer) is kept only for plan-schema parity; these kernels do
+not read it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import build as _build
+from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, check_contiguous,
+                      check_current_device, check_index, check_same_device,
+                      check_values, csr_spmv_lanes, current_stream_ptr,
+                      row_group_launch, rows_per_block)
+
+
+def _check(data, rows, indptr, x, ndim: int) -> None:
+    check_values("data", data, 1)
+    check_values("x", x, ndim)
+    check_index("rows", rows, data)
+    if indptr.dtype != torch.int32 or indptr.ndim != 1 or indptr.shape[0] < 1:
+        raise TypeError(f"indptr must be a 1-D int32 tensor of n_cols + 1 "
+                        f"entries; got {indptr.dtype} {tuple(indptr.shape)}")
+    if x.shape[0] != indptr.shape[0] - 1:
+        raise ValueError(f"x has {x.shape[0]} rows for a matrix of "
+                         f"{indptr.shape[0] - 1} columns")
+    check_same_device(data, rows=rows, indptr=indptr, x=x)
+
+
+def _slot_cols(indptr: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Column of each stored slot ``k`` (binary search over IRP_T)."""
+    return (torch.searchsorted(indptr, k, right=True) - 1).clamp_(
+        0, max(indptr.shape[0] - 2, 0))
+
+
+def ccs_spmv_plain(data: torch.Tensor, rows: torch.Tensor,
+                   indptr: torch.Tensor, x: torch.Tensor,
+                   n_rows: int) -> torch.Tensor:
+    """Plain PyTorch version: expand IRP_T to a column id per stored slot,
+    mask the slots past ``IRP_T[-1]``, scatter-add by row in float32."""
+    k = torch.arange(data.shape[0], dtype=indptr.dtype, device=indptr.device)
+    live = k < indptr[-1]
+    contrib = torch.where(live, data.float() * x.float()[_slot_cols(indptr, k)],
+                          0.0)
+    y = torch.zeros(n_rows, dtype=torch.float32, device=data.device)
+    return y.index_add_(0, torch.where(live, rows, 0), contrib)
+
+
+def ccs_spmv(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
+             x: torch.Tensor, n_rows: int, *,
+             block_rows: Optional[int] = None) -> torch.Tensor:
+    """``y = A @ x`` for CCS arrays; returns float32 ``(n_rows,)``.
+
+    ``block_rows`` is the number of *columns* a CUDA block owns (the
+    segmented-axis tile, as the reference reads the knob for CCS).  CPU
+    tensors run :func:`ccs_spmv_plain`; CUDA tensors launch the kernel or
+    raise."""
+    _check(data, rows, indptr, x, 1)
+    if data.device.type == "cpu":
+        return ccs_spmv_plain(data, rows, indptr, x, n_rows)
+    if data.device.type != "cuda":
+        raise ValueError(f"ccs_spmv takes CPU or CUDA tensors; got "
+                         f"{data.device}")
+    check_current_device(data)
+    check_contiguous(data=data, rows=rows, indptr=indptr, x=x)
+    if data.numel() > INT32_MAX:
+        raise ValueError("nnz_pad exceeds 2^31 - 1: int32 indices cannot "
+                         "address it")
+    n_cols = indptr.shape[0] - 1
+    y = torch.zeros(n_rows, dtype=torch.float32, device=data.device)
+    if n_cols == 0 or n_rows == 0 or data.shape[0] == 0:
+        return y                 # nothing stored: no launch, none counted
+    lanes = csr_spmv_lanes(data.shape[0], n_cols)
+    code = _build.launcher("ccs_spmv")(
+        data.data_ptr(), rows.data_ptr(), indptr.data_ptr(), x.data_ptr(),
+        y.data_ptr(), n_cols, lanes, rows_per_block(lanes, block_rows),
+        int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
+        current_stream_ptr())
+    _build.check_launch("ccs_spmv", code)
+    ccs_spmv.launches += 1
+    return y
+
+
+#: number of kernel launches made by :func:`ccs_spmv` in this process
+ccs_spmv.launches = 0
+
+
+def ccs_spmm_plain(data: torch.Tensor, rows: torch.Tensor,
+                   indptr: torch.Tensor, x: torch.Tensor,
+                   n_rows: int) -> torch.Tensor:
+    """Plain PyTorch version: column id per stored slot by binary search
+    over IRP_T, float32 scatter-add of ``data[k] * x[c, :]`` by row in
+    chunks of entries (no temporary above ``PLAIN_CHUNK_ELEMS``); slots past
+    ``IRP_T[-1]`` are never read."""
+    batch = x.shape[1]
+    nnz = int(indptr[-1])
+    xf = x.float()
+    y = torch.zeros((n_rows, batch), dtype=torch.float32, device=data.device)
+    step = max(1, PLAIN_CHUNK_ELEMS // max(batch, 1))
+    for k0 in range(0, nnz, step):
+        k = torch.arange(k0, min(k0 + step, nnz), dtype=indptr.dtype,
+                         device=indptr.device)
+        y.index_add_(0, rows[k],
+                     data[k].float()[:, None] * xf[_slot_cols(indptr, k)])
+    return y
+
+
+def ccs_spmm(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
+             x: torch.Tensor, n_rows: int, *,
+             block_rows: Optional[int] = None,
+             block_k: Optional[int] = None) -> torch.Tensor:
+    """``Y = A @ X`` for CCS arrays and a contiguous ``(n_cols, B)`` panel;
+    returns float32 ``(n_rows, B)``.  ``block_rows`` is the number of
+    columns and ``block_k`` the number of right-hand-side columns a CUDA
+    block owns.  CPU tensors run :func:`ccs_spmm_plain`; CUDA tensors launch
+    the kernel or raise."""
+    _check(data, rows, indptr, x, 2)
+    if data.device.type == "cpu":
+        return ccs_spmm_plain(data, rows, indptr, x, n_rows)
+    if data.device.type != "cuda":
+        raise ValueError(f"ccs_spmm takes CPU or CUDA tensors; got "
+                         f"{data.device}")
+    check_current_device(data)
+    check_contiguous(data=data, rows=rows, indptr=indptr, x=x)
+    if data.numel() > INT32_MAX:
+        raise ValueError("nnz_pad exceeds 2^31 - 1: int32 indices cannot "
+                         "address it")
+    n_cols = indptr.shape[0] - 1
+    batch = x.shape[1]
+    y = torch.zeros((n_rows, batch), dtype=torch.float32, device=data.device)
+    if n_cols == 0 or n_rows == 0 or batch == 0 or data.shape[0] == 0:
+        return y                 # nothing stored: no launch, none counted
+    kt, lanes, per_lane, groups = row_group_launch(batch, block_rows,
+                                                   block_k)
+    code = _build.launcher("ccs_spmm")(
+        data.data_ptr(), rows.data_ptr(), indptr.data_ptr(), x.data_ptr(),
+        y.data_ptr(), n_cols, batch, kt, lanes, per_lane, groups,
+        int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
+        current_stream_ptr())
+    _build.check_launch("ccs_spmm", code)
+    ccs_spmm.launches += 1
+    return y
+
+
+#: number of kernel launches made by :func:`ccs_spmm` in this process
+ccs_spmm.launches = 0
+
+__all__ = ["ccs_spmv", "ccs_spmv_plain", "ccs_spmm", "ccs_spmm_plain"]

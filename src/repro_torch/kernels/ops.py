@@ -7,10 +7,11 @@ Responsibilities:
   * cast the kernels' float32 result to ``promote_types(data, x)``;
   * accept a per-call launch geometry (``tuning=`` — a
     ``core.kernel_tune.TileGeometry``): ``block_rows`` is the number of rows
-    a CUDA block owns (ELL, CSR), ``block_nnz`` the number of entries a
-    CUDA block owns (COO) and ``block_k`` the number of right-hand-side
-    columns a CUDA block owns (SpMM); ``block_w`` and ``slabs_per_block``
-    are ignored by these kernels;
+    (ELL, CSR), columns (CCS) or block rows (BCSR) a CUDA block owns,
+    ``block_nnz`` the number of entries a CUDA block owns (COO) and
+    ``block_k`` the number of right-hand-side columns a CUDA block owns
+    (SpMM); ``block_w`` and ``slabs_per_block`` are ignored by these
+    kernels;
   * provide a differentiable ELL SpMV (``ell_spmv_ad``: y = A@x  =>
     dx = A^T dy via a COO scatter; dA = dy_r * x_c at the stored positions);
   * register every format-level wrapper in the ``repro_torch.core.dispatch``
@@ -32,9 +33,11 @@ import numpy as np
 import torch
 
 from ..core import dispatch as _dispatch
-from ..core.formats import COO, CSR, ELL, BucketedELL, _np
+from ..core.formats import BCSR, CCS, COO, CSR, ELL, BucketedELL, _np
 from ..core.kernel_tune import TileGeometry, _align8
 from ..device import result_dtype
+from . import bcsr_spmv as _bcsr
+from . import ccs_spmv as _ccs
 from . import coo_spmv as _coo
 from . import csr_spmv as _csr
 from . import ell_spmv as _ell
@@ -197,19 +200,76 @@ def spmm_csr_via_coo(m: CSR, x: torch.Tensor,
     return coo_spmm_raw(data, rows, cols, x, m.n_rows, tuning)
 
 
+# ---------------------------------------------------------------------------
+# CCS — column-grouped kernel (kernels/ccs_spmv.py)
+# ---------------------------------------------------------------------------
+def spmv_ccs(m: CCS, x: torch.Tensor,
+             tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    """CCS through the column-grouped kernel.  ``block_rows`` is the
+    segmented-axis tile, so for CCS it counts *columns* per CUDA block."""
+    y = _ccs.ccs_spmv(m.data, m.rows, m.indptr, x, m.n_rows,
+                      block_rows=_knob(tuning, "block_rows"))
+    return y.to(result_dtype(m.data.dtype, x.dtype))
+
+
+def spmm_ccs(m: CCS, x: torch.Tensor,
+             tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    y = _ccs.ccs_spmm(m.data, m.rows, m.indptr, x, m.n_rows,
+                      block_rows=_knob(tuning, "block_rows"),
+                      block_k=_knob(tuning, "block_k"))
+    return y.to(result_dtype(m.data.dtype, x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# BCSR — block-row kernel (kernels/bcsr_spmv.py)
+# ---------------------------------------------------------------------------
+def _bcsr_geometry(m: BCSR, tuning: Optional[TileGeometry]):
+    """The reference's effective ``(rows_per_tile, block_nnz,
+    slabs_per_block)`` of a BCSR launch — used only by
+    :func:`exact_slab_bound`, so plan JSON carries the reference's bound."""
+    rpt = max(1, min(_geom(tuning, "block_rows",
+                           min(32, m.n_block_rows or 1)),
+                     m.n_block_rows or 1))
+    bnb = max(1, min(_geom(tuning, "block_nnz",
+                           min(512, _align8(m.nblocks_pad))),
+                     _align8(m.nblocks_pad)))
+    return rpt, bnb, _csr.slabs_needed(np.asarray(_np(m.indptr)), rpt, bnb)
+
+
+def spmv_bcsr(m: BCSR, x: torch.Tensor,
+              tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    """BCSR through the block-row kernel; ``block_rows`` counts block rows
+    per CUDA block."""
+    y = _bcsr.bcsr_spmv(m.data, m.block_cols, m.indptr, x, m.n_rows,
+                        block_rows=_knob(tuning, "block_rows"))
+    return y.to(result_dtype(m.data.dtype, x.dtype))
+
+
+def spmm_bcsr(m: BCSR, x: torch.Tensor,
+              tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    y = _bcsr.bcsr_spmm(m.data, m.block_cols, m.indptr, x, m.n_rows,
+                        block_rows=_knob(tuning, "block_rows"),
+                        block_k=_knob(tuning, "block_k"))
+    return y.to(result_dtype(m.data.dtype, x.dtype))
+
+
 def exact_slab_bound(m, tuning: Optional[TileGeometry] = None) -> int:
-    """The reference's slab-coverage bound for a CSR instance at *its*
-    effective launch geometry (pure numpy).  Recorded so that
+    """The reference's slab-coverage bound for a CSR, CCS or BCSR instance
+    at *its* effective launch geometry (pure numpy; for CCS over the column
+    pointer, for BCSR over the block IRP).  Recorded so that
     ``PlannedMatrix.tunings`` and plan JSON match the reference key for key;
-    the CUDA CSR kernel reads row bounds from IRP at run time and does not
-    use it."""
+    the CUDA kernels read their bounds from the pointer at run time and do
+    not use it."""
     t = tuning.without_slab_bound() if tuning is not None else None
-    if isinstance(m, CSR):
-        br = _geom(t, "block_rows", min(256, _align8(m.n_rows)),
-                   cap=_align8(m.n_rows))
+    if isinstance(m, (CSR, CCS)):
+        n_seg = m.n_rows if isinstance(m, CSR) else m.n_cols
+        br = _geom(t, "block_rows", min(256, _align8(n_seg)),
+                   cap=_align8(n_seg))
         bn = _geom(t, "block_nnz", min(2048, _align8(m.nnz_pad)),
                    cap=_align8(m.nnz_pad))
         return _csr.slabs_needed(np.asarray(_np(m.indptr)), br, bn)
+    if isinstance(m, BCSR):
+        return _bcsr_geometry(m, t)[2]
     raise TypeError(f"no slab-coverage bound for {type(m)}")
 
 
@@ -275,11 +335,13 @@ def spmm_sell(m: BucketedELL, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 for _fmt, _spmv_fn, _spmm_fn in (
     ("csr", spmv_csr, spmm_csr),
+    ("ccs", spmv_ccs, spmm_ccs),
     ("coo_row", spmv_coo, spmm_coo),
     ("coo_col", spmv_coo, spmm_coo),
     ("ell_row", spmv_ell, spmm_ell),
     ("ell_col", spmv_ell, spmm_ell),
     ("sell", spmv_sell, spmm_sell),
+    ("bcsr", spmv_bcsr, spmm_bcsr),
 ):
     _dispatch.register_impl(_fmt, "spmv", _spmv_fn, tier="kernel")
     _dispatch.register_impl(_fmt, "spmm", _spmm_fn, tier="kernel")
@@ -299,5 +361,6 @@ def __getattr__(name: str):
 __all__ = ["ell_spmv_raw", "ell_spmm_raw", "coo_spmv_raw", "coo_spmm_raw",
            "ell_spmv_ad", "spmv_ell", "spmm_ell", "spmv_coo", "spmm_coo",
            "spmv_csr", "spmm_csr", "spmv_csr_via_coo", "spmm_csr_via_coo",
+           "spmv_ccs", "spmm_ccs", "spmv_bcsr", "spmm_bcsr",
            "exact_slab_bound", "spmv_sell", "spmm_sell", "KERNEL_SPMV_IMPLS",
            "KERNEL_SPMM_IMPLS"]

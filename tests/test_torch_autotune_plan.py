@@ -34,7 +34,8 @@ from repro_torch.core import suite as TS
 from repro_torch.core import transform as TT
 
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "plan_good.json"
-FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell")
+FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell", "ccs",
+           "bcsr")
 TOL = dict(rtol=2e-4, atol=2e-4)
 SPEC_NAMES = [s.name for s in RS.TABLE1]
 

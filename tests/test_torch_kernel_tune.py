@@ -28,7 +28,8 @@ from repro_torch.core.kernel_tune import (GRID_FORMATS, GeometryRecord,
                                           nearest_geometry)
 from repro_torch.kernels import _common as C
 
-FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell")
+FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell", "ccs",
+           "bcsr")
 
 
 @pytest.fixture(scope="module")
@@ -67,8 +68,7 @@ def empty_db(db_mod):
 # candidate grids
 # ---------------------------------------------------------------------------
 def test_candidates_bounded_and_deduped():
-    assert set(GRID_FORMATS) == set(FORMATS) == \
-        set(RKT.GRID_FORMATS) - {"ccs", "bcsr"}
+    assert set(GRID_FORMATS) == set(FORMATS) == set(RKT.GRID_FORMATS)
     assert T_api.GRID_FORMATS is GRID_FORMATS
     for fmt in GRID_FORMATS:
         for op in ("spmv", "spmm"):
@@ -79,11 +79,25 @@ def test_candidates_bounded_and_deduped():
             for g in cands:
                 assert g.block_w is None and g.slabs_per_block is None
                 assert (g.block_k is not None) == (op == "spmm")
-    # the formats whose kernels are not ported yet (A11) have no grid, and
-    # neither does a container without a kernel of its own
-    for fmt in ("ccs", "bcsr", "hybrid"):
-        assert candidate_geometries(fmt, "spmv") == []
-        assert candidate_geometries(fmt, "spmm", batch=8) == []
+    # CCS searches columns per block at its lane count (1800 entries over
+    # 150 columns: 16 lanes a column), BCSR SpMV block rows of b = 8 rows
+    # (whole warps: at least 4), BCSR SpMM block-row groups at the RHS
+    # tile's lanes; a container without a kernel of its own has no grid
+    def rows(fmt, op, **kw):
+        return [g.block_rows for g in candidate_geometries(
+            fmt, op, n_rows=150, nnz_pad=1800, **kw)]
+    assert rows("ccs", "spmv") == [2, 4, 8, 16, 32, 64]
+    assert rows("bcsr", "spmv", width=8) == [4, 8, 16, 32, 64, 128]
+    assert rows("bcsr", "spmv", width=16) == [2, 4, 8, 16, 32, 64]
+    assert [(g.block_rows, g.block_k) for g in candidate_geometries(
+        "bcsr", "spmm", n_rows=20, batch=16)] == [
+            (4, 8), (8, 8), (16, 8), (20, 8),
+            (2, 16), (4, 16), (8, 16), (16, 16), (20, 16)]
+    assert candidate_geometries("ccs", "spmm", n_rows=150, nnz_pad=1800,
+                                batch=16) == candidate_geometries(
+        "csr", "spmm", n_rows=150, nnz_pad=1800, batch=16)
+    assert candidate_geometries("hybrid", "spmv") == []
+    assert candidate_geometries("hybrid", "spmm", batch=8) == []
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -101,10 +115,16 @@ def test_candidates_are_launches_a_wrapper_makes(fmt, op, batch):
             kt, lanes, _ = C.rhs_tile(batch, g.block_k)
             assert g.block_k == kt <= batch
         else:
-            lanes = {"csr": C.csr_spmv_lanes(nnz_pad, n_rows), "ell_row": 32,
+            lanes = {"csr": C.csr_spmv_lanes(nnz_pad, n_rows),
+                     "ccs": C.csr_spmv_lanes(nnz_pad, n_rows), "ell_row": 32,
                      "sell": 32}.get(fmt, 1)
         if fmt.startswith("coo"):
             assert g.block_rows is None and g.block_nnz <= nnz_pad
+        elif fmt == "bcsr" and op == "spmv":
+            # a thread per scalar row, ``width`` the block size b
+            threads, rows = C.bcsr_spmv_launch(width, g.block_rows)
+            assert rows == g.block_rows <= n_rows
+            assert g.block_rows * width <= threads <= 1024
         else:
             assert g.block_nnz is None
             assert g.block_rows * lanes == C.clamp_threads(

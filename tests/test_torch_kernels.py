@@ -34,7 +34,8 @@ from repro_torch.kernels import csr_spmv as K2
 from repro_torch.kernels import ell_spmv as K1
 from repro_torch.kernels import ops as T_ops
 
-FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell")
+FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell", "ccs",
+           "bcsr")
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -509,7 +510,9 @@ def test_cpu_calls_launch_no_kernel(rng):
         TD.spmm(TT.TRANSFORMS_HOST[fmt](tm), X, tier="kernel")
     assert TK.launch_counts() == {"ell_spmv": 0, "csr_spmv": 0,
                                   "coo_spmv": 0, "ell_spmm": 0,
-                                  "csr_spmm": 0, "coo_spmm": 0}
+                                  "csr_spmm": 0, "coo_spmm": 0,
+                                  "ccs_spmv": 0, "ccs_spmm": 0,
+                                  "bcsr_spmv": 0, "bcsr_spmm": 0}
 
 
 def test_build_is_keyed_by_source_hash_and_needs_nvcc(tmp_path, monkeypatch):
@@ -522,7 +525,7 @@ def test_build_is_keyed_by_source_hash_and_needs_nvcc(tmp_path, monkeypatch):
             T_build.build_dir() / f"{name}-{h}.so"
         assert len(T_build.SIGNATURES[name]) >= 10
     assert len({T_build.source_hash(n) for n in T_build.KERNELS}) == \
-        len(T_build.KERNELS) == 6
+        len(T_build.KERNELS) == 10
     with pytest.raises(RuntimeError):
         T_build.check_launch("ell_spmv", 9)
     T_build.check_launch("ell_spmv", 0)

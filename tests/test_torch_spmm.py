@@ -35,7 +35,8 @@ from repro_torch.kernels import csr_spmv as K2
 from repro_torch.kernels import ell_spmv as K1
 from repro_torch.kernels import ops as T_ops
 
-FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell")
+FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell", "ccs",
+           "bcsr")
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,7 +44,7 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def rel_tol(dtype, fmt=""):
     if dtype == "bfloat16":
         return 2e-2
-    return 1e-4 if "coo" in fmt else 1e-5
+    return 1e-4 if "coo" in fmt or fmt in ("ccs", "bcsr") else 1e-5
 
 
 def f32(a):
