@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths — the paper's loop: matrix statistics -> D_mat
-rule -> run-time transform CRS -> ELL / COO / SELL / CCS / BCSR -> SpMV, and
-the same loop with a batch axis, where each call carries B products (SpMM,
-``X: (n_cols, B)``) — through the entry points a user calls
-(``offline_phase``, ``Planner().plan(csr, batch=B).bind(csr) @ X``) at the
+Drives the port's three paths — the paper's loop: matrix statistics -> D_mat
+rule -> run-time transform CRS -> ELL / COO / SELL / CCS / BCSR -> SpMV; the
+same loop with a batch axis, where each call carries B products (SpMM,
+``X: (n_cols, B)``); and the LM server, continuous-batching decode over an
+int8 KV cache — through the entry points a user calls (``offline_phase``,
+``Planner().plan(csr, batch=B).bind(csr) @ X``, ``ServeEngine``) at the
 published sizes of the paper's Table 1, plus one matrix scaled past the
-card's L2 cache.  On the way it builds the ten CUDA kernels from the sources
-in this checkout, holds each against its plain PyTorch version on the card,
+card's L2 cache, and qwen3-1.7b at full width and depth (weights from a
+seed).  On the way it builds the eleven CUDA kernels from the sources in
+this checkout, holds each against its plain PyTorch version on the card,
 times it beside its bound, checks every served product against an
-independent float64 oracle, and runs the launch-geometry tuner
-(``KernelTuner``) on the card.
+independent float64 oracle, runs the launch-geometry tuner
+(``KernelTuner``) on the card, and holds one full-width decode step against
+the same step with the plain attention in the kernel's place.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
@@ -109,7 +112,29 @@ KERNEL_INFO = {
     "bcsr_spmm": {"route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/bcsr_spmm.cu",
                   "replaces": "src/repro/kernels/bcsr_spmv.py:175"},
+    "decode_attention_int8": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention_int8.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:95"},
 }
+#: the SpMV and SpMM kernels (the sparse paths)
+SPARSE_KERNELS = tuple(k for k in KERNEL_INFO
+                       if k != "decode_attention_int8")
+
+#: the LM the serve_lm phase serves at full width and depth, int8 KV cache
+LM_ARCH = "qwen3-1.7b"
+LM_SLOTS = 8
+LM_MAX_LEN = 8192
+#: prompt lengths the requests draw from (flash attention over a prompt
+#: longer than 1024 needs a multiple of 1024, as in the reference)
+LM_PROMPTS = tuple(range(1024, 6145, 1024))
+LM_MAX_NEW = 32
+LM_SEED = 0
+#: a full-width decode step with the plain attention in the kernel's place,
+#: relative to max |logits|: every attention output may differ by one
+#: bfloat16 ulp (2^-8 relative) between the two, and 28 bfloat16 layers carry
+#: that to the logits; a wrong head, mask or scale moves them by O(1)
+LM_STEP_REL_TOL = 4e-2
 #: the SpMM kernel each format's batched product launches
 SPMM_KERNEL_OF = {"csr": "csr_spmm", "coo_row": "coo_spmm",
                   "coo_col": "coo_spmm", "ell_row": "ell_spmm",
@@ -412,15 +437,18 @@ def phase_kernels(reps: int):
     return results
 
 
-def kernels_line(cases, launches):
-    """One entry per kernel: its float32 case on xenon2 at scale 4 — past the
-    L2, where the card does real memory work (ELL: row-major, the layout
-    the paper's rule serves; SpMM at B = ``SERVE_BATCH``) — carries the
-    times; the error is the largest over all of the kernel's cases (listed
-    by the ``kernels`` phase line).  ``launches`` is the count from the
+def kernels_line(cases, k11_cases, launches):
+    """One entry per kernel.  A sparse kernel's float32 case on xenon2 at
+    scale 4 — past the L2, where the card does real memory work (ELL:
+    row-major, the layout the paper's rule serves; SpMM at B =
+    ``SERVE_BATCH``) — carries the times; K11's served case (the shape and
+    sequence lengths of the serve_lm phase).  The error is the largest over
+    all of the kernel's cases (listed by the ``kernels`` and
+    ``decode_attention`` phase lines).  ``launches`` is the count from the
     run of the path the kernel serves."""
     out = []
-    for kname, info in KERNEL_INFO.items():
+    for kname in SPARSE_KERNELS:
+        info = KERNEL_INFO[kname]
         mine = [c for c in cases if c["name"] == kname]
         head = next(c for c in mine if c["matrix"] == matrix_label(*BIG)
                     and c["dtype"] == "float32"
@@ -438,6 +466,17 @@ def kernels_line(cases, launches):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": shape,
             "cases_checked": len(mine)})
+    head = k11_cases[0]
+    out.append({
+        "name": "decode_attention_int8", **KERNEL_INFO["decode_attention_int8"],
+        "launches": launches["decode_attention_int8"],
+        "max_abs_err": max(c["max_abs_err"] for c in k11_cases),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": {k: head[k] for k in ("case", "B", "S", "KV", "G", "Dh",
+                                       "window", "dtype")},
+        "cases_checked": len(k11_cases)})
     return {"kernels": out}
 
 
@@ -780,6 +819,347 @@ def phase_tune(db, csr):
 
 
 # ---------------------------------------------------------------------------
+# phase: decode_attention (K11 against its plain version)
+# ---------------------------------------------------------------------------
+def lm_prompt_lengths():
+    """The serve_lm phase's prompt lengths, drawn from ``LM_SEED``."""
+    rng = np.random.default_rng(LM_SEED)
+    return [int(n) for n in rng.choice(LM_PROMPTS, size=LM_SLOTS)]
+
+
+#: (label, B, S, KV, G, Dh, window, q dtype): the first is the shape the
+#: serve_lm phase launches K11 at (qwen3-1.7b, 8 slots of 8192, bfloat16 q)
+K11_CASES = (
+    ("served", 8, 8192, 8, 2, 128, None, torch.bfloat16),
+    ("served_f32", 8, 8192, 8, 2, 128, None, torch.float32),
+    ("window", 8, 8192, 8, 2, 128, 4096, torch.bfloat16),
+    ("g1", 8, 8192, 8, 1, 128, None, torch.bfloat16),
+    ("g6", 4, 4096, 4, 6, 128, None, torch.bfloat16),
+    ("ragged", 8, 8000, 8, 2, 128, None, torch.bfloat16),
+    ("ragged_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32),
+)
+
+
+def k11_inputs(B, S, KV, G, Dh, q_dtype, lens, seed):
+    """Random int8 codes, bfloat16 scales and q on the card; sequence b
+    holds positions 0 .. lens[b] - 1 and queries at lens[b] - 1."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = lambda: torch.randint(-127, 128, (B, S, KV, Dh), generator=g,
+                                  device=dev, dtype=torch.int8)
+    scales = lambda: (torch.rand((B, S, KV), generator=g, device=dev)
+                      * 0.02).to(torch.bfloat16)
+    q = torch.randn((B, KV, G, Dh), generator=g, device=dev).to(q_dtype)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    idx = torch.arange(S, dtype=torch.int32, device=dev)
+    key_pos = torch.where(idx[None, :] < lens_t[:, None], idx[None, :],
+                          torch.full_like(idx[None, :], -1))
+    return [q, codes(), scales(), codes(), scales(), key_pos.contiguous(),
+            lens_t - 1]
+
+
+def k11_bytes_flops(args, window):
+    """What one call must move and compute on these inputs: a sequence with
+    a valid slot needs the codes and scales of its valid slots only (a
+    masked slot's weight is exactly 0); one with none needs every slot's V
+    (its output is their mean); plus key_pos, q_pos, q and the output.
+    Also the bytes of the whole cache, which the kernel reads."""
+    q, k_q, _, _, _, key_pos, q_pos = args
+    B, S, KV, Dh = k_q.shape
+    G = q.shape[2]
+    valid = (key_pos >= 0) & (key_pos <= q_pos[:, None])
+    if window is not None:
+        valid &= key_pos > (q_pos[:, None] - window)
+    n_valid = valid.sum(dim=1).tolist()
+    per_slot = KV * (2 * Dh + 2 * 2)           # K and V codes, two scales
+    io = 4 * B * S + 4 * B + 2 * q.numel() * q.element_size()
+    needed = io + sum(n * per_slot if n else S * KV * (Dh + 2)
+                      for n in n_valid)
+    flops = sum(4 * KV * G * Dh * (n or S) for n in n_valid)
+    return needed, flops, io + B * S * per_slot
+
+
+#: bfloat16 outputs: besides one bfloat16 ulp, the float32 sums' own error
+#: before the rounding — near zero (a mean of +-v over thousands of slots
+#: cancels) it exceeds one bfloat16 ulp of the value
+K11_BF16_ATOL = 1e-6
+
+
+def k11_close(got, want, q_dtype):
+    """``(max_abs_err, ok)``: float32 q within 2e-4 + 2e-4 |want| (the
+    reference's tolerance); bfloat16 q within one bfloat16 ulp of the larger
+    of the two plus ``K11_BF16_ATOL`` (both round float32 values that differ
+    only in summation order)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if q_dtype == torch.float32:
+        ok = bool((err <= 2e-4 + 2e-4 * want.abs()).all())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            got.abs(), want.abs()).clamp_min(
+                torch.finfo(torch.float32).tiny))) - 7)
+        ok = bool((err <= ulp + K11_BF16_ATOL).all())
+    return float(err.max()), ok
+
+
+def phase_decode_attention(reps: int):
+    """K11 against its plain version on the card at the served shape (with
+    the serve_lm phase's sequence lengths, mid-decode) and at the others of
+    ``K11_CASES``; each timed beside its bound and the plain version."""
+    from repro_torch.kernels import decode_attention as K11
+
+    results = []
+    for i, (label, B, S, KV, G, Dh, window, q_dtype) in enumerate(K11_CASES):
+        if label.startswith("served"):
+            lens = [n + LM_MAX_NEW // 2 for n in lm_prompt_lengths()]
+        else:
+            lens = np.random.default_rng(100 + i).integers(
+                S // 2, S, size=B).tolist()
+        args = k11_inputs(B, S, KV, G, Dh, q_dtype, lens, 200 + i)
+        got = K11.decode_attention_int8(*args, window=window)
+        want = K11.decode_attention_int8_plain(*args, window=window)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != q_dtype or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"decode_attention_int8 {label}: bad output "
+                                 f"{tuple(got.shape)} {got.dtype}")
+        err, ok = k11_close(got, want, q_dtype)
+        if not ok:
+            raise AssertionError(f"decode_attention_int8 {label}: kernel "
+                                 f"disagrees with its plain version "
+                                 f"(max abs err {err})")
+        needed, flops, full = k11_bytes_flops(args, window)
+        b_ms, b_by = bound(needed, flops)
+        results.append({
+            "name": "decode_attention_int8", "case": label, "B": B, "S": S,
+            "KV": KV, "G": G, "Dh": Dh, "window": window,
+            "dtype": str(q_dtype).replace("torch.", ""), "lens": lens,
+            "max_abs_err": err,
+            "tolerance": "2e-4" if q_dtype == torch.float32
+            else f"1 bf16 ulp + {K11_BF16_ATOL}",
+            "ms": time_ms(lambda: K11.decode_attention_int8(
+                *args, window=window), reps),
+            "ms_cold_l2": time_ms(lambda: K11.decode_attention_int8(
+                *args, window=window), reps, cold=True),
+            "plain_ms": time_events_ms(lambda: K11.decode_attention_int8_plain(
+                *args, window=window), reps),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": needed,
+            "bound_ms_whole_cache": full / PEAK_BYTES_PER_S * 1e3,
+            "bytes_whole_cache": full, "library_ms": None})
+        del args, got, want
+    torch.cuda.empty_cache()
+    emit("decode_attention", cases=results)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_lm (the LM server at full width, int8 KV cache)
+# ---------------------------------------------------------------------------
+def clone_caches(caches):
+    return {"layers": [{"attn": {n: t.clone() for n, t in c["attn"].items()}}
+                       for c in caches["layers"]]}
+
+
+def decode_step_bytes(cfg, lengths, slots):
+    """Bytes one decode step must move: every matmul weight once (bfloat16),
+    the norm scales, the B token embeddings read and, per layer, the valid
+    slots' int8 codes and bfloat16 scales of K and V (the new token's
+    included) — the least a step at these lengths needs."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import tree_leaves
+    weights = 0
+    for s in tree_leaves({k: v for k, v in M.model_spec(cfg).items()
+                          if k != "embed"}):
+        weights += int(np.prod(s.shape)) * (4 if len(s.shape) == 1 else 2)
+    B = len(lengths)
+    embed = B * cfg.d_model * 2
+    per_slot = cfg.n_kv_heads * (2 * cfg.head_dim + 2 * 2)
+    cache = cfg.n_layers * per_slot * sum(min(n + 1, slots)
+                                          for n in lengths)
+    return weights + embed + cache, weights
+
+
+def profile_decode(params, cfg, snapshot, steps: int = 2):
+    """``torch.profiler`` over ``steps`` decode steps from a copy of
+    ``snapshot``: the card's busy time and the kernels launched per step,
+    and the kernels that take most of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+
+    caches, toks, lengths = snapshot
+    caches = clone_caches(caches)
+    toks = torch.from_numpy(toks).long().cuda()
+    pos = torch.from_numpy(lengths).cuda()
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            M.decode_step(params, toks, caches, pos + i, cfg)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or \
+            getattr(e, "self_cuda_time_total", 0.0)
+    # the kernels themselves (an operator's row repeats its kernels' time)
+    busy = [(e.key, dev_us(e), e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and dev_us(e) > 0]
+    busy.sort(key=lambda t: -t[1])
+    total = sum(t[1] for t in busy)
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cuLaunchKernel"))
+    return {"steps": steps, "device_ms_per_step": total / 1e3 / steps,
+            "launches_per_step": launches / steps,
+            "top_kernels": [{"name": k[:80], "ms_per_step": us / 1e3 / steps,
+                             "share": us / total, "calls_per_step":
+                             n / steps} for k, us, n in busy[:10]]}
+
+
+def phase_serve_lm():
+    """``ServeEngine`` at full width and depth on the card: 8 requests into
+    8 slots of ``LM_MAX_LEN``, prompts drawn from ``LM_PROMPTS``,
+    ``LM_MAX_NEW`` tokens each.  The K11 launches are counted from just
+    before the requests are admitted to just after the last step; then one
+    decode step (from a snapshot taken before the first) is held against
+    the same step with the plain attention in the kernel's place."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as K11
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+
+    # on by default: cuBLAS may reduce bfloat16 products in bfloat16; off
+    # here, so the served numbers are those of float32 reductions
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = get_config(LM_ARCH).replace(kv_quant=True)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED),
+                    device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(params, cfg, max_batch=LM_SLOTS, max_len=LM_MAX_LEN,
+                      device=dev)
+    rng = np.random.default_rng(LM_SEED + 1)
+    lens = lm_prompt_lengths()
+    for n in lens:
+        eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                   max_new_tokens=LM_MAX_NEW)
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._admit()              # one prefill per request, caches copied in
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    snapshot = (clone_caches(eng.caches), eng.last_tokens.copy(),
+                eng.lengths.copy())
+    step_ms, step_tokens, step_bytes = [], [], []
+    while any(r is not None for r in eng.active):
+        lengths = eng.lengths.tolist()
+        t0 = time.perf_counter()
+        n = eng.step()        # reads the tokens back: the card is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_tokens.append(n)
+        step_bytes.append(decode_step_bytes(cfg, lengths, LM_MAX_LEN)[0])
+    lm_path = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(step_ms)
+    if lm_path["decode_attention_int8"] != cfg.n_layers * steps:
+        raise AssertionError(
+            f"serve_lm: {lm_path['decode_attention_int8']} K11 launches for "
+            f"{steps} decode steps of {cfg.n_layers} layers")
+    done = eng.finished
+    if len(done) != LM_SLOTS or any(
+            len(r.generated) != LM_MAX_NEW or not r.done or
+            not all(0 <= t < cfg.vocab_size for t in r.generated)
+            for r in done.values()):
+        raise AssertionError("serve_lm: a request did not finish with "
+                             f"{LM_MAX_NEW} tokens in the vocabulary")
+
+    # one full-width step: K11 against its plain version in its place
+    caches, toks, lengths = snapshot
+    toks = torch.from_numpy(toks).long().to(dev)
+    pos = torch.from_numpy(lengths).to(dev)
+    with torch.no_grad():
+        logits_k, _ = M.decode_step(params, toks, clone_caches(caches), pos,
+                                    cfg)
+        A.decode_attention_int8 = (
+            lambda *a, **kw: K11.decode_attention_int8_plain(*a, **kw))
+        try:
+            logits_p, _ = M.decode_step(params, toks, caches, pos, cfg)
+        finally:
+            A.decode_attention_int8 = K11.decode_attention_int8
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        reduced
+    lk, lp = logits_k.float(), logits_p.float()
+    if lk.shape != (LM_SLOTS, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"serve_lm: bad logits {tuple(lk.shape)}")
+    rel = float((lk - lp).abs().max() / lp.abs().max())
+    if rel > LM_STEP_REL_TOL:
+        raise AssertionError(f"serve_lm: the decode step with K11 is "
+                             f"{rel} (of max |logits|) off the plain step")
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    trace = profile_decode(params, cfg, snapshot)
+    first_step = [r.generated[1] for r in sorted(done.values(),
+                                                 key=lambda r: r.rid)]
+
+    decode_s = sum(step_ms) / 1e3
+    decode_tokens = sum(step_tokens)
+    generated = sum(len(r.generated) for r in done.values())
+    _, weight_bytes = decode_step_bytes(cfg, [0] * LM_SLOTS, LM_MAX_LEN)
+    whole_cache = cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.n_kv_heads * (
+        2 * cfg.head_dim + 4)
+    out = {
+        "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+        "kv_quant": True, "n_params": M.n_params(cfg), "slots": LM_SLOTS,
+        "max_len": LM_MAX_LEN, "prompt_lengths": lens,
+        "max_new_tokens": LM_MAX_NEW,
+        "bf16_reduced_precision_reduction": False,
+        "t_init_s": t_init,
+        "prefill_ms_per_request": t_prefill * 1e3 / LM_SLOTS,
+        "prefill_tokens_per_s": sum(lens) / t_prefill,
+        "decode_steps": steps,
+        "decode_ms_per_step": decode_s * 1e3 / steps,
+        "decode_ms_median": statistics.median(step_ms),
+        "decode_ms_steps": step_ms,
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "tokens_per_s": generated / (t_prefill + decode_s),
+        "generated_tokens": generated,
+        "peak_memory_gb": peak / 1e9,
+        "step_bound_ms": sum(step_bytes) / steps / PEAK_BYTES_PER_S * 1e3,
+        "step_bytes_mean": sum(step_bytes) / steps,
+        "weight_bytes": weight_bytes, "whole_cache_bytes": whole_cache,
+        "step_bound_ms_whole_cache": (weight_bytes + whole_cache)
+        / PEAK_BYTES_PER_S * 1e3,
+        "trace": trace,
+        # the card's idle share of a decode step: 1 - busy time / step time
+        "idle_share": 1.0 - trace["device_ms_per_step"]
+        / statistics.median(step_ms),
+        "k11_launches": lm_path["decode_attention_int8"],
+        "k11_launches_per_step": lm_path["decode_attention_int8"] / steps,
+        "step_vs_plain": {"max_rel_err": rel, "tolerance": LM_STEP_REL_TOL,
+                          "argmax_agree": agree,
+                          "argmax_is_served_token": float(np.mean(
+                              [a == b for a, b in zip(
+                                  lk.argmax(-1)[:, 0].tolist(),
+                                  first_step)]))}}
+    emit("serve_lm", **out)
+    del eng, params, snapshot, caches, logits_k, logits_p
+    torch.cuda.empty_cache()
+    return out, lm_path
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -815,6 +1195,7 @@ def main() -> int:
         return out
 
     cases = timed("kernels", phase_kernels, REPS)
+    k11_cases = timed("decode_attention", phase_decode_attention, REPS)
 
     from repro_torch.core import suite
     t0 = time.perf_counter()
@@ -831,17 +1212,24 @@ def main() -> int:
     dbs = timed("offline_spmm", phase_offline_spmm, mats, ITERS)
     big = timed("serve_spmm", phase_serve_spmm, dbs, ITERS)
     spmm_path = kernels.launch_counts()
+    timed("tune", phase_tune, dbs[SERVE_BATCH], big)
+    del big, dbs, db, mats
+    torch.cuda.empty_cache()
+    # the LM server, counted on its own inside the phase
+    lm, lm_path = timed("serve_lm", phase_serve_lm)
     launches = {k: (spmm_path if k.endswith("_spmm") else spmv_path)[k]
-                for k in KERNEL_INFO}
+                for k in SPARSE_KERNELS}
+    launches["decode_attention_int8"] = lm_path["decode_attention_int8"]
     emit("launches", main_path=launches, spmv_path=spmv_path,
-         spmm_path=spmm_path)
+         spmm_path=spmm_path, lm_path=lm_path,
+         lm_decode_steps=lm["decode_steps"],
+         k11_per_decode_step=lm["k11_launches_per_step"])
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"the main path never launched {idle}")
 
-    timed("tune", phase_tune, dbs[SERVE_BATCH], big)
     emit("summary", seconds=time.perf_counter() - t_start, phases=phases)
-    print(json.dumps(kernels_line(cases, launches)), flush=True)
+    print(json.dumps(kernels_line(cases, k11_cases, launches)), flush=True)
 
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -159,3 +159,47 @@ def check_grid_y(batch: int, kt: int) -> None:
         raise ValueError(f"B = {batch} in tiles of {kt} columns needs more "
                          f"than {MAX_GRID_Y} blocks along grid.y; raise "
                          f"block_k")
+
+
+# ---------------------------------------------------------------------------
+# decode attention (K11)
+# ---------------------------------------------------------------------------
+#: threads per block of the split kernel of ``decode_attention_int8``
+DECODE_THREADS = 128
+#: resident blocks per SM the split count aims at: enough 16-byte loads in
+#: flight per SM to cover device-memory latency
+DECODE_BLOCKS_PER_SM = 8
+#: fewest keys one split reads (below this the partials' merge dominates)
+DECODE_MIN_KEYS = 64
+#: widest head the 16-byte-per-thread key groups take (32 lanes)
+DECODE_MAX_HEAD_DIM = 512
+#: streaming multiprocessors of an H100 SXM
+H100_SMS = 132
+
+
+def decode_attention_launch(batch: int, kv_heads: int, group: int,
+                            slots: int, head_dim: int, sms: int = H100_SMS):
+    """``(lanes, threads, g_tile, keys_per_split, splits)`` of a
+    ``decode_attention_int8`` launch: ``lanes`` threads read one key (16
+    int8 codes each, the smallest power of two covering ``head_dim``);
+    ``g_tile`` query rows per block (the smallest power of two covering the
+    group, at most 4: ``ceil(group / g_tile)`` tiles per kv head); and the
+    ``slots`` axis cut into ``splits`` of ``keys_per_split`` keys so that
+    the grid, ``batch * kv_heads * tiles * splits`` blocks, holds about
+    ``DECODE_BLOCKS_PER_SM`` blocks per SM, with at least
+    ``DECODE_MIN_KEYS`` keys a split."""
+    if head_dim % 16 or not 16 <= head_dim <= DECODE_MAX_HEAD_DIM:
+        raise ValueError(f"decode_attention_int8 reads heads of a multiple "
+                         f"of 16 up to {DECODE_MAX_HEAD_DIM}; got {head_dim}")
+    lanes = 1
+    while lanes * 16 < head_dim:
+        lanes *= 2
+    g_tile = 1
+    while g_tile < min(group, 4):
+        g_tile *= 2
+    heads = batch * kv_heads * -(-group // g_tile)
+    want = -(-DECODE_BLOCKS_PER_SM * sms // max(heads, 1))
+    splits = max(1, min(want, slots // DECODE_MIN_KEYS))
+    keys_per_split = -(-slots // splits)
+    return lanes, DECODE_THREADS, g_tile, keys_per_split, -(-slots //
+                                                           keys_per_split)

@@ -23,11 +23,13 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("ell_spmv", "csr_spmv", "coo_spmv", "ell_spmm", "csr_spmm",
-           "coo_spmm", "ccs_spmv", "ccs_spmm", "bcsr_spmv", "bcsr_spmm")
+           "coo_spmm", "ccs_spmv", "ccs_spmm", "bcsr_spmv", "bcsr_spmm",
+           "decode_attention_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 #: C signature of each library's entry point (every pointer and the stream
 #: are ``c_void_p`` — ctypes would otherwise cut a pointer to 32 bits)
 SIGNATURES: Dict[str, Sequence] = {
@@ -64,6 +66,10 @@ SIGNATURES: Dict[str, Sequence] = {
     # B, kt, lanes, per_lane, rows_per_block, data_bf16, x_bf16, stream
     "bcsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _P),
+    # q, k_q, k_s, v_q, v_s, key_pos, q_pos, part_m, part_l, part_acc, out,
+    # B, S, KV, G, Dh, lanes, threads, g_tile, keys_per_split, splits,
+    # window, has_window, scale, q_bf16, stream
+    "decode_attention_int8": (_P,) * 11 + (_I,) * 12 + (_F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -284,3 +284,136 @@ def test_cuda_ccs_bcsr_wrappers_count_no_launch_for_empty_input(cuda):
     assert K9.bcsr_spmm(blocks, torch.zeros(1, **i32), torch.zeros(2, **i32),
                         torch.ones(5, 0, device=cuda), 3).shape == (3, 0)
     assert TK.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# K11: the fused int8-KV decode attention, and the LM's decode on the card
+# ---------------------------------------------------------------------------
+def k11_inputs(rng, B, S, KV, G, Dh, q_dtype):
+    """Random int8 codes and bfloat16 scales (the cache layout), each
+    sequence filled to a random length in [S/2, S)."""
+    from repro_torch.models.attention import _quantize_kv
+    k_q, k_s = _quantize_kv(torch.from_numpy(
+        rng.normal(size=(B, S, KV, Dh)).astype(np.float32)))
+    v_q, v_s = _quantize_kv(torch.from_numpy(
+        rng.normal(size=(B, S, KV, Dh)).astype(np.float32)))
+    q = torch.from_numpy(rng.normal(size=(B, KV, G, Dh)).astype(
+        np.float32)).to(TDT[q_dtype])
+    lens = rng.integers(S // 2, S, size=B)
+    key_pos = torch.from_numpy(np.where(
+        np.arange(S)[None, :] < lens[:, None], np.arange(S)[None, :],
+        -1).astype(np.int32))
+    q_pos = torch.from_numpy((lens - 1).astype(np.int32))
+    return [q, k_q, k_s, v_q, v_s, key_pos, q_pos]
+
+
+def assert_k11_close(got, want, q_dtype):
+    """float32 q: the reference's 2e-4; bfloat16 q: one bfloat16 ulp of the
+    larger value (both round float32 values that differ only in summation
+    order) plus 1e-6 for the float32 sums' own error, which near zero (a
+    mean of +-v over many slots cancels) exceeds one ulp of the value."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    if q_dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(np.maximum(
+            np.maximum(np.abs(got), np.abs(want)),
+            np.finfo(np.float32).tiny))) - 7)
+        assert np.all(np.abs(got - want) <= ulp + 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,KV,G,Dh,window", [
+    (2, 512, 2, 3, 64, None), (1, 1024, 4, 1, 128, None),
+    (3, 640, 2, 2, 32, 256), (2, 512, 1, 6, 64, 128),
+    (8, 1000, 8, 2, 128, None),       # ragged S, the served head shape
+    (2, 300, 2, 2, 16, None),         # the smoke configs' head_dim
+    (2, 200, 2, 5, 80, 64),           # h2o-danube's head_dim 80, G = 5
+    (1, 5, 1, 2, 128, None)])         # fewer slots than one split's keys
+def test_cuda_decode_attention_int8_matches_plain(cuda, B, S, KV, G, Dh,
+                                                  window, q_dtype):
+    from repro_torch.kernels import decode_attention as K11
+    rng = np.random.default_rng(41)
+    args = k11_inputs(rng, B, S, KV, G, Dh, q_dtype)
+    before = TK.launch_counts()["decode_attention_int8"]
+    got = K11.decode_attention_int8(*[a.to(cuda) for a in args],
+                                    window=window)
+    torch.cuda.synchronize()
+    assert TK.launch_counts()["decode_attention_int8"] == before + 1
+    assert got.shape == (B, KV, G, Dh) and got.dtype == TDT[q_dtype]
+    want = K11.decode_attention_int8_plain(*args, window=window)
+    assert_k11_close(got, want, q_dtype)
+    on_card = K11.decode_attention_int8_plain(*[a.to(cuda) for a in args],
+                                              window=window)
+    assert_k11_close(got, on_card, q_dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_int8_fully_masked_rows(cuda):
+    """No valid slot (empty cache, or q_pos before every key): the mean of
+    V over all slots, as the reference gives, never NaN."""
+    from repro_torch.kernels import decode_attention as K11
+    args = k11_inputs(np.random.default_rng(42), 3, 700, 2, 2, 64, "float32")
+    args[5][1] = -1
+    args[6][2] = -1
+    got = K11.decode_attention_int8(*[a.to(cuda) for a in args], window=32)
+    assert bool(torch.isfinite(got).all())
+    assert_k11_close(got, K11.decode_attention_int8_plain(*args, window=32),
+                     "float32")
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_int8_refuses_what_it_cannot_read(cuda):
+    from repro_torch.kernels import decode_attention as K11
+    args = [a.to(cuda) for a in k11_inputs(np.random.default_rng(43), 2, 64,
+                                           2, 2, 32, "float32")]
+    before = TK.launch_counts()["decode_attention_int8"]
+    for i, bad in ((2, args[2].float()), (4, args[4].float())):
+        with pytest.raises(TypeError):
+            K11.decode_attention_int8(*(args[:i] + [bad] + args[i + 1:]))
+    odd = k11_inputs(np.random.default_rng(44), 2, 64, 2, 2, 24, "float32")
+    with pytest.raises(ValueError):
+        K11.decode_attention_int8(*[a.to(cuda) for a in odd])
+    # a view whose codes start off a 16-byte boundary
+    k_q = torch.zeros(2 * 64 * 2 * 32 + 8, dtype=torch.int8, device=cuda)
+    k_q = k_q[8:].view(2, 64, 2, 32)
+    with pytest.raises(ValueError):
+        K11.decode_attention_int8(*(args[:1] + [k_q] + args[2:]))
+    assert TK.launch_counts()["decode_attention_int8"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-1.8b"])
+def test_cuda_int8_decode_step_launches_k11_per_layer(cuda, arch):
+    """The model's int8 decode step on the card launches K11 once per layer
+    and gives the CPU's logits (float32; the plain version on the host)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as TM
+    cfg = smoke_config(get_config(arch)).replace(kv_quant=True)
+    params = TM.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = [{k: {n: t.to(cuda) for n, t in v.items()}
+                for k, v in layer.items()} for layer in params["layers"]]
+    p_card = {k: ({n: t.to(cuda) for n, t in v.items()}
+                  if isinstance(v, dict) else v)
+              for k, v in params.items() if k != "layers"}
+    p_card["layers"] = on_card
+    toks = torch.from_numpy(np.random.default_rng(45).integers(
+        0, cfg.vocab_size, (2, 40)))
+    logits = {}
+    for dev in ("cpu", cuda):
+        p = params if dev == "cpu" else p_card
+        caches = TM.init_caches(cfg, 2, 48, torch.float32, device=dev)
+        _, caches = TM.prefill(p, {"tokens": toks[:, :-1].to(dev)}, caches,
+                               cfg)
+        before = TK.launch_counts()["decode_attention_int8"]
+        logits[str(dev)], _ = TM.decode_step(
+            p, toks[:, -1:].to(dev), caches, torch.tensor([39, 30],
+                                                          device=dev), cfg)
+        torch.cuda.synchronize()
+        launched = TK.launch_counts()["decode_attention_int8"] - before
+        assert launched == (cfg.n_layers if dev == cuda else 0)
+    # cuBLAS and the CPU sum in other orders, and an int8 code may then
+    # round the other way (~3e-4 on these logits, test_torch_lm_model.py)
+    np.testing.assert_allclose(logits[str(cuda)].cpu().numpy(),
+                               logits["cpu"].numpy(), rtol=1e-3, atol=1e-3)

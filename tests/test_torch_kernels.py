@@ -512,7 +512,8 @@ def test_cpu_calls_launch_no_kernel(rng):
                                   "coo_spmv": 0, "ell_spmm": 0,
                                   "csr_spmm": 0, "coo_spmm": 0,
                                   "ccs_spmv": 0, "ccs_spmm": 0,
-                                  "bcsr_spmv": 0, "bcsr_spmm": 0}
+                                  "bcsr_spmv": 0, "bcsr_spmm": 0,
+                                  "decode_attention_int8": 0}
 
 
 def test_build_is_keyed_by_source_hash_and_needs_nvcc(tmp_path, monkeypatch):
@@ -525,7 +526,7 @@ def test_build_is_keyed_by_source_hash_and_needs_nvcc(tmp_path, monkeypatch):
             T_build.build_dir() / f"{name}-{h}.so"
         assert len(T_build.SIGNATURES[name]) >= 10
     assert len({T_build.source_hash(n) for n in T_build.KERNELS}) == \
-        len(T_build.KERNELS) == 10
+        len(T_build.KERNELS) == 11
     with pytest.raises(RuntimeError):
         T_build.check_launch("ell_spmv", 9)
     T_build.check_launch("ell_spmv", 0)
