@@ -80,6 +80,9 @@ SERVE_BATCH = 128
 SPMM_CHECKED = tuple(sorted({1, 8, SERVE_BATCH, *OFFLINE_BATCHES}))
 #: the matrix the SpMM kernels are timed and the tuner runs on
 BIG = ("xenon2", 4.0)
+#: the matrix whose entries the COO kernels are also checked on in every
+#: order of ``suite.COO_ORDERS``
+COO_ORDER_MATRIX = ("xenon2", 1.0)
 
 KERNEL_INFO = {
     "ell_spmv": {"route": "cuda",
@@ -315,7 +318,8 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
             "plain": lambda c=coo, d=cd: coo_plain(d, c.rows, c.cols, x, n),
             "mag": lambda c=coo, d=cd: coo_plain(d.abs(), c.rows, c.cols,
                                                  xa, n),
-            "bytes": coo.nnz_pad * (val + 8) + xy_bytes, "flops": flops})
+            "bytes": coo.nnz_pad * (val + 8) + xy_bytes, "flops": flops,
+            "info": coo_segments(coo.rows, batch, block_k)})
 
     ccs = layouts["ccs"]
     sd = ccs.data.to(dtype)
@@ -347,6 +351,84 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
                                     size=csr.shape)
         library = lambda: a @ x
     return cases, library
+
+
+def coo_segments(rows, batch=None, block_k=None):
+    """The runs of equal rows a COO kernel flushes at its launch for
+    ``batch`` (``None``: SpMV) and ``block_k``, host-computed from ``rows``:
+    one per maximal run inside each warp's span (SpMV, ``32 * chunk``
+    entries) or each lane group's sub-run (SpMM).  ``atomics`` is the float32
+    atomics that makes (SpMM: one per run and column)."""
+    from repro_torch.kernels._common import coo_launch
+    from repro_torch.kernels.coo_spmv import coo_spmm_launch
+
+    if batch is None:
+        _, bn, chunk = coo_launch()
+        span = 32 * chunk
+    else:
+        _, _, _, _, bn, span = coo_spmm_launch(batch, None, block_k)
+    r = rows.cpu().numpy()
+    k = np.arange(r.shape[0])
+    starts = k % bn % span == 0
+    starts[1:] |= r[1:] != r[:-1]
+    segments = int(starts.sum())
+    return {"segments": segments,
+            "segments_per_block": segments / -(-r.shape[0] // bn),
+            "atomics": segments * (batch or 1)}
+
+
+def coo_order_results(csr, label):
+    """K3 and K6 held against their plain versions on ``csr``'s entries in
+    each order of ``suite.COO_ORDERS`` (one row across every block, rows
+    alternating every entry, ...), both value dtypes: SpMV at the default
+    launch and at each entries-per-block tile of the tuner's grid, SpMM at
+    B = ``SERVE_BATCH``.  Not timed."""
+    from repro_torch.core import suite
+    from repro_torch.core import transform as T
+    from repro_torch.core.kernel_tune import GPU_NNZ_TILES
+    from repro_torch.kernels import coo_spmv as K3
+
+    coo = T.host_csr_to_coo_row(csr)
+    entries = (coo.rows[:coo.nnz].numpy(), coo.cols[:coo.nnz].numpy(),
+               coo.data[:coo.nnz].float().numpy())
+    dev = torch.device("cuda")
+    results = []
+    for i, order in enumerate(suite.COO_ORDERS):
+        rows, cols, data, n = suite.coo_entries(*entries, csr.n_rows, order,
+                                                seed=i)
+        rows = torch.from_numpy(rows).to(dev)
+        cols = torch.from_numpy(cols).to(dev)
+        data = torch.from_numpy(data).to(dev)
+        rng = np.random.default_rng(4321 + i)
+        for dtype in (torch.float32, torch.bfloat16):
+            d = data.to(dtype)
+            for batch in (None, SERVE_BATCH):
+                shape = (csr.n_cols,) if batch is None else (csr.n_cols,
+                                                             batch)
+                x = torch.from_numpy(rng.normal(size=shape).astype(
+                    np.float32)).to(dev).to(dtype)
+                kern, plain = ((K3.coo_spmv, K3.coo_spmv_plain)
+                               if batch is None
+                               else (K3.coo_spmm, K3.coo_spmm_plain))
+                tiles = (None,) + GPU_NNZ_TILES if batch is None else (None,)
+                for bn in tiles:
+                    case = {
+                        "name": kern.__name__, "layout": f"coo[{order}]",
+                        "kernel": lambda x=x, bn=bn: kern(d, rows, cols, x,
+                                                          n, block_nnz=bn),
+                        "plain": lambda x=x: plain(d, rows, cols, x, n),
+                        "mag": lambda x=x: plain(d.abs(), rows, cols,
+                                                 x.abs(), n)}
+                    if bn is None:
+                        case["info"] = coo_segments(rows, batch)
+                    extra = {} if batch is None else {"batch": batch}
+                    if bn is not None:
+                        extra["block_nnz"] = bn
+                    results += check_cases([case], None, label,
+                                           int(rows.shape[0]), dtype, False,
+                                           REPS, **extra)
+        del rows, cols, data
+    return results
 
 
 def check_cases(cases, library, label, nnz, dtype, timed, reps, **extra):
@@ -394,10 +476,11 @@ def phase_kernels(reps: int):
     """Hold every kernel against its plain version on every matrix the main
     path runs (all its formats, both value dtypes; the SpMM kernels at each
     B of ``SPMM_CHECKED``, and on ``BIG`` at B = ``SERVE_BATCH`` also at
-    each column tile the tuner's grid launches); time the SpMV cases of
-    ``KERNEL_MATRICES`` and the SpMM cases of ``BIG`` at each B of
-    ``SPMM_TIMED``.  The phase line also gives the seconds spent on each
-    matrix."""
+    each column tile the tuner's grid launches; the COO kernels also on
+    ``COO_ORDER_MATRIX``'s entries in every adversarial order); time the
+    SpMV cases of ``KERNEL_MATRICES`` and the SpMM cases of ``BIG`` at each
+    B of ``SPMM_TIMED``.  The phase line also gives the seconds spent on
+    each matrix."""
     from repro_torch.core import suite
     from repro_torch.core.kernel_tune import GPU_K_TILES
 
@@ -430,6 +513,8 @@ def phase_kernels(reps: int):
                                            dtype, False, reps,
                                            batch=SERVE_BATCH, block_k=block_k)
                     del cases
+        if (name, scale) == COO_ORDER_MATRIX:
+            results += coo_order_results(csr, label)
         del csr, layouts
         torch.cuda.empty_cache()
         seconds[label] = time.perf_counter() - t0

@@ -217,6 +217,48 @@ def synthesize_power_law(n: int = 8192, mu: float = 8.0, alpha: float = 2.0,
     return _csr_from_flat(cols, vals, lens, n_cols=n, pad=8, device=device)
 
 
+#: entry orders that stress the COO kernels' reduction of runs of equal rows
+#: (every one a valid COO): all entries in one row, rows alternating every
+#: entry, a random permutation, rows descending, pads ``(0, 0, 0.0)`` at the
+#: end, two empty rows around each stored one, and an odd entry count (no
+#: multiple of any block or per-thread chunk)
+COO_ORDERS = ("one_row", "alternating", "random", "descending",
+              "pads_at_end", "empty_rows", "ragged")
+
+
+def coo_entries(rows: np.ndarray, cols: np.ndarray, data: np.ndarray,
+                n_rows: int, order: str, seed: int = 0):
+    """``(rows, cols, data, n_rows)``: the COO entries of an ``n_rows``-row
+    matrix rearranged in ``order`` (one of :data:`COO_ORDERS`) as numpy
+    arrays — inputs on which the COO kernels are held against their plain
+    versions.  ``one_row`` and ``alternating`` move the entries to other
+    rows, ``empty_rows`` to row ``3 r + 1`` of ``3 n_rows + 1``."""
+    rows = np.asarray(rows, np.int32)
+    cols = np.asarray(cols, np.int32)
+    data = np.asarray(data)
+    nnz = rows.shape[0]
+    if order == "one_row":
+        return np.full(nnz, n_rows // 2, np.int32), cols, data, n_rows
+    if order == "alternating":
+        alt = np.where(np.arange(nnz) % 2 == 0, 0, n_rows - 1)
+        return alt.astype(np.int32), cols, data, n_rows
+    if order in ("random", "descending"):
+        perm = (np.random.default_rng(seed).permutation(nnz)
+                if order == "random" else np.argsort(-rows, kind="stable"))
+        return rows[perm], cols[perm], data[perm], n_rows
+    if order == "pads_at_end":
+        pads = nnz // 3 + 5
+        return (np.concatenate([rows, np.zeros(pads, np.int32)]),
+                np.concatenate([cols, np.zeros(pads, np.int32)]),
+                np.concatenate([data, np.zeros(pads, data.dtype)]), n_rows)
+    if order == "empty_rows":
+        return 3 * rows + 1, cols, data, 3 * n_rows + 1
+    if order == "ragged":
+        keep = nnz - 1 + nnz % 2        # the largest odd count <= nnz
+        return rows[:keep], cols[:keep], data[:keep], n_rows
+    raise ValueError(f"unknown COO order {order!r}; one of {COO_ORDERS}")
+
+
 def verify_suite(scale: float = 1.0, rtol: float = 0.25) -> List[str]:
     """Return a list of mismatch messages (empty = all stats reproduced)."""
     msgs = []
@@ -230,4 +272,4 @@ def verify_suite(scale: float = 1.0, rtol: float = 0.25) -> List[str]:
 
 
 __all__ = ["MatrixSpec", "TABLE1", "synthesize", "synthesize_power_law",
-           "paper_suite", "verify_suite"]
+           "paper_suite", "verify_suite", "COO_ORDERS", "coo_entries"]

@@ -67,6 +67,12 @@ MAX_BLOCK_K = 128
 DEFAULT_THREADS = 256
 #: entries per CUDA block (COO) when no ``block_nnz`` is given
 DEFAULT_BLOCK_NNZ = 1024
+#: most entries per CUDA block at which a ``coo_spmv`` thread sums 4
+#: consecutive entries (8 above it)
+COO_CHUNK4_MAX_NNZ = 1024
+#: most entries a ``coo_spmv`` block takes in one pass: its shared memory
+#: stages 8 bytes per entry of a pass (32 KB)
+COO_PASS_NNZ = 4096
 #: grid.y limit of a CUDA launch
 MAX_GRID_Y = 65535
 #: elements of the largest ``(entries, B)`` temporary a plain SpMM version
@@ -122,11 +128,27 @@ def bcsr_spmv_launch(block: int, block_rows=None):
 
 
 def coo_launch(block_nnz=None):
-    """``(threads, block_nnz)`` of a COO launch: ``block_nnz`` entries per
-    CUDA block (default ``DEFAULT_BLOCK_NNZ``) walked by
-    ``min(block_nnz, DEFAULT_THREADS)`` threads, rounded to whole warps."""
+    """``(threads, block_nnz, chunk)`` of a COO SpMV launch: ``block_nnz``
+    entries per CUDA block (default ``DEFAULT_BLOCK_NNZ``), each thread
+    summing ``chunk`` consecutive entries (4, or 8 above
+    ``COO_CHUNK4_MAX_NNZ`` entries a block), and as many whole warps as
+    cover the block's entries at that chunk, up to ``COO_PASS_NNZ`` entries
+    a pass (a larger block walks its entries in several passes)."""
     bn = int(block_nnz) if block_nnz else DEFAULT_BLOCK_NNZ
-    return clamp_threads(min(bn, DEFAULT_THREADS)), bn
+    chunk = 4 if bn <= COO_CHUNK4_MAX_NNZ else 8
+    return clamp_threads(-(-min(bn, COO_PASS_NNZ) // chunk)), bn, chunk
+
+
+def coo_spmm_groups(lanes: int, block_nnz=None):
+    """``(threads, block_nnz, run)`` of a COO SpMM launch at ``lanes``
+    threads per group: ``block_nnz`` entries per CUDA block (default
+    ``DEFAULT_BLOCK_NNZ``) cut into one sub-run of ``run`` consecutive
+    entries per group; up to ``DEFAULT_THREADS`` threads, and no more
+    groups than give each at least ``lanes`` entries."""
+    bn = int(block_nnz) if block_nnz else DEFAULT_BLOCK_NNZ
+    groups = max(1, min(DEFAULT_THREADS // lanes, -(-bn // lanes)))
+    threads = clamp_threads(groups * lanes)
+    return threads, bn, -(-bn // (threads // lanes))
 
 
 def rhs_tile(batch: int, block_k=None):

@@ -39,9 +39,9 @@ SIGNATURES: Dict[str, Sequence] = {
     # data, cols, indptr, x, y, n_rows, lanes, rows_per_block, data_bf16,
     # x_bf16, stream
     "csr_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # data, rows, cols, x, y, nnz, threads, block_nnz, data_bf16, x_bf16,
-    # stream
-    "coo_spmv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    # data, rows, cols, x, y, nnz, threads, block_nnz, chunk, data_bf16,
+    # x_bf16, stream
+    "coo_spmv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
     # data, cols, x, y, n_rows, width, row_stride, col_stride, B, kt, lanes,
     # per_lane, rows_per_block, data_bf16, x_bf16, stream
     "ell_spmm": (_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I,
@@ -50,9 +50,9 @@ SIGNATURES: Dict[str, Sequence] = {
     # rows_per_block, data_bf16, x_bf16, stream
     "csr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # data, rows, cols, x, y, nnz, B, kt, lanes, per_lane, threads,
-    # block_nnz, data_bf16, x_bf16, stream
+    # block_nnz, run, data_bf16, x_bf16, stream
     "coo_spmm": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
-                 _P),
+                 _I, _P),
     # data, rows, indptr, x, y, n_cols, lanes, cols_per_block, data_bf16,
     # x_bf16, stream
     "ccs_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -8,16 +8,23 @@ any order, float32 accumulation; padded entries are ``(0, 0, 0.0)``.
 Bound on an H100: memory.  The least the card must move is
 ``nnz * (val + 8)`` bytes for the three streams plus ``val * n_cols`` for x
 and ``4 * n_rows`` for y, over 3.35 TB/s.  The design reads the three streams
-once, coalesced (a thread per entry, a contiguous run per block), and meets
-in global memory with float32 ``atomicAdd`` — blocks run in no order, so
-there is no sequential accumulator to carry.  Atomics make the summation
+once, coalesced (a few consecutive entries per thread, a contiguous run per
+block), and reduces each run of equal rows on the chip before it reaches y:
+a thread sums the runs of its entries in registers and a segmented scan over
+the warp, keyed by row, joins the runs that cross its lanes, so only the lane
+that ends a run issues a float32 ``atomicAdd`` — blocks run in no order, so
+there is no sequential accumulator to carry.  Where runs are short (entries
+sorted by column), a warp issues its atomics in entry order through shared
+memory, as a thread per entry would.  Atomics make the summation
 order, and so the last bits, differ from run to run: COO results are compared
 to a tolerance, never bit for bit.
 
 :func:`coo_spmm` replaces ``repro/kernels/coo_spmv.py:coo_spmm``: the same
-scatter of ``(nnz, B)`` contributions into an ``(n_rows, B)`` panel.  One
-thread per (entry, column) adds with ``atomicAdd``; the B atomics of one
-entry hit B consecutive addresses, so a warp's atomics coalesce
+scatter of ``(nnz, B)`` contributions into an ``(n_rows, B)`` panel.  A group
+of threads along the right-hand-side columns walks a sub-run of entries in
+order, keeps the current row's partial ``Y`` tile in registers and flushes it
+with one ``atomicAdd`` per column when the row changes — four consecutive
+columns a thread as one 16-byte X load and one vector atomic where B allows
 (``csrc/coo_spmm.cu``).
 """
 from __future__ import annotations
@@ -30,7 +37,7 @@ from . import build as _build
 from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, check_contiguous,
                       check_current_device, check_grid_y, check_index,
                       check_same_device, check_values, coo_launch,
-                      current_stream_ptr, rhs_tile)
+                      coo_spmm_groups, current_stream_ptr, rhs_tile)
 
 
 def coo_spmv_plain(data: torch.Tensor, rows: torch.Tensor,
@@ -66,10 +73,10 @@ def coo_spmv(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     y = torch.zeros(n_rows, dtype=torch.float32, device=data.device)
     if data.shape[0] == 0 or n_rows == 0:
         return y                 # nothing stored: no launch, none counted
-    threads, bn = coo_launch(block_nnz)
+    threads, bn, chunk = coo_launch(block_nnz)
     code = _build.launcher("coo_spmv")(
         data.data_ptr(), rows.data_ptr(), cols.data_ptr(), x.data_ptr(),
-        y.data_ptr(), data.shape[0], threads, bn,
+        y.data_ptr(), data.shape[0], threads, bn, chunk,
         int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
         current_stream_ptr())
     _build.check_launch("coo_spmv", code)
@@ -99,12 +106,13 @@ def coo_spmm_plain(data: torch.Tensor, rows: torch.Tensor,
 
 def coo_spmm_launch(batch: int, block_nnz: Optional[int] = None,
                     block_k: Optional[int] = None):
-    """``(kt, lanes, per_lane, threads, block_nnz)`` of a COO SpMM launch:
-    the right-hand-side tile of :func:`~._common.rhs_tile` and the entries
-    per block and threads of :func:`~._common.coo_launch`."""
+    """``(kt, lanes, per_lane, threads, block_nnz, run)`` of a COO SpMM
+    launch: the right-hand-side tile of :func:`~._common.rhs_tile` and the
+    threads, entries per block and entries per group of
+    :func:`~._common.coo_spmm_groups`."""
     kt, lanes, per_lane = rhs_tile(batch, block_k)
     check_grid_y(batch, kt)
-    return (kt, lanes, per_lane) + coo_launch(block_nnz)
+    return (kt, lanes, per_lane) + coo_spmm_groups(lanes, block_nnz)
 
 
 def coo_spmm(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
@@ -132,11 +140,12 @@ def coo_spmm(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     y = torch.zeros((n_rows, batch), dtype=torch.float32, device=data.device)
     if data.shape[0] == 0 or n_rows == 0 or batch == 0:
         return y                 # nothing stored: no launch, none counted
-    kt, lanes, per_lane, threads, bn = coo_spmm_launch(batch, block_nnz,
-                                                       block_k)
+    kt, lanes, per_lane, threads, bn, run = coo_spmm_launch(
+        batch, block_nnz, block_k)
     code = _build.launcher("coo_spmm")(
         data.data_ptr(), rows.data_ptr(), cols.data_ptr(), x.data_ptr(),
         y.data_ptr(), data.shape[0], batch, kt, lanes, per_lane, threads, bn,
+        run,
         int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
         current_stream_ptr())
     _build.check_launch("coo_spmm", code)

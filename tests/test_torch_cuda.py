@@ -16,7 +16,9 @@ import torch
 from repro_torch import kernels as TK
 from repro_torch.core import dispatch as TD
 from repro_torch.core import transform as TT
-from repro_torch.core.kernel_tune import TileGeometry
+from repro_torch.core.kernel_tune import (GPU_K_TILES, GPU_NNZ_TILES,
+                                          TileGeometry)
+from repro_torch.core.suite import COO_ORDERS, coo_entries
 from repro_torch.kernels import ell_spmv as K1
 
 FORMATS = ("csr", "coo_row", "coo_col", "ell_row", "ell_col", "sell", "ccs",
@@ -202,6 +204,80 @@ def test_cuda_spmm_wrappers_count_no_launch_for_empty_input(cuda):
                        torch.zeros(4, 3, **i32),
                        torch.ones(5, 0, device=cuda)).shape == (4, 0)
     assert TK.launch_counts() == before
+
+
+#: a kernel against its plain version, relative to sum_k |data_k * x_k| of
+#: the output element (``chip_smoke.KERNEL_REL_TOL``): both read the same
+#: float32 or bfloat16 values and accumulate in float32, only the order of
+#: the sum differs — and an element with no entry must stay exactly 0
+KERNEL_REL_TOL = 1e-4
+
+
+def coo_case(order, seed, dtype, batch=None):
+    """Row-sorted COO entries, ~29 a row over 700 rows (so one row crosses
+    every block of every tile), rearranged in ``order``; CPU tensors
+    ``(data, rows, cols, x, n_rows)``, values in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    n_rows, nnz, n_cols = 700, 20011, 500
+    rows, cols, data, n_rows = coo_entries(
+        np.sort(rng.integers(0, n_rows, nnz)).astype(np.int32),
+        rng.integers(0, n_cols, nnz).astype(np.int32),
+        rng.normal(size=nnz).astype(np.float32), n_rows, order, seed=seed)
+    shape = (n_cols,) if batch is None else (n_cols, batch)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return (torch.from_numpy(data).to(TDT[dtype]), torch.from_numpy(rows),
+            torch.from_numpy(cols), x.to(TDT[dtype]), n_rows)
+
+
+def assert_kernel_close(got, want, mag):
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got.cpu().double() - want.double()).abs()
+    assert bool((err <= KERNEL_REL_TOL * mag.double()).all()), \
+        float((err / (mag.double() + 1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_nnz", (None,) + GPU_NNZ_TILES)
+@pytest.mark.parametrize("order", COO_ORDERS)
+def test_cuda_coo_spmv_reduces_row_runs_in_any_order(cuda, order, block_nnz,
+                                                     dtype):
+    """K3's in-warp reduction of runs of equal rows, on orders built to
+    break it, at the default launch and each tile of the tuner's grid."""
+    from repro_torch.kernels import coo_spmv as K3
+    data, rows, cols, x, n_rows = coo_case(order, 51, dtype)
+    before = K3.coo_spmv.launches
+    got = K3.coo_spmv(data.to(cuda), rows.to(cuda), cols.to(cuda),
+                      x.to(cuda), n_rows, block_nnz=block_nnz)
+    torch.cuda.synchronize()
+    assert K3.coo_spmv.launches == before + 1
+    assert_kernel_close(got, K3.coo_spmv_plain(data, rows, cols, x, n_rows),
+                        K3.coo_spmv_plain(data.abs(), rows, cols, x.abs(),
+                                          n_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3, 8, 32, 128])
+@pytest.mark.parametrize("order", COO_ORDERS)
+def test_cuda_coo_spmm_flushes_row_runs_in_any_order(cuda, order, batch,
+                                                     dtype):
+    """K6's register-held row tile, flushed once per run, on orders built
+    to break it, at every column tile and entries-per-block tile of the
+    tuner's grid."""
+    from repro_torch.kernels import coo_spmv as K3
+    data, rows, cols, x, n_rows = coo_case(order, 52, dtype, batch)
+    want = K3.coo_spmm_plain(data, rows, cols, x, n_rows)
+    mag = K3.coo_spmm_plain(data.abs(), rows, cols, x.abs(), n_rows)
+    args = [t.to(cuda) for t in (data, rows, cols, x)]
+    for block_k in GPU_K_TILES:
+        for block_nnz in (None,) + GPU_NNZ_TILES:
+            before = K3.coo_spmm.launches
+            got = K3.coo_spmm(*args, n_rows, block_nnz=block_nnz,
+                              block_k=block_k)
+            torch.cuda.synchronize()
+            assert K3.coo_spmm.launches == before + 1
+            assert_kernel_close(got, want, mag)
 
 
 def ragged_dense(rng, n_rows=100, n_cols=61):

@@ -22,7 +22,8 @@ from repro_torch.core import dispatch as TD
 from repro_torch.core import plan as TPL
 from repro_torch.core import transform as TT
 from repro_torch.core.formats import MatrixStats
-from repro_torch.core.kernel_tune import (GRID_FORMATS, GeometryRecord,
+from repro_torch.core.kernel_tune import (GPU_NNZ_TILES, GRID_FORMATS,
+                                          GeometryRecord,
                                           KernelTuner, TileGeometry,
                                           candidate_geometries,
                                           nearest_geometry)
@@ -130,6 +131,47 @@ def test_candidates_are_launches_a_wrapper_makes(fmt, op, batch):
             assert g.block_rows * lanes == C.clamp_threads(
                 g.block_rows * lanes) <= 1024
             assert g.block_rows * lanes <= max(32, n_rows * lanes + 31)
+
+
+@pytest.mark.parametrize("fmt", ["coo_row", "coo_col"])
+@pytest.mark.parametrize("op,batch", [("spmv", 1), ("spmm", 8),
+                                      ("spmm", 128)])
+def test_coo_candidates_are_distinct_launches_and_load_in_reference(
+        problem, fmt, op, batch):
+    """Each COO candidate is one launch of the wrapper's helper — threads,
+    entries per block and entries per thread (SpMV) or per lane group
+    (SpMM) — no two the same, and the tuner's COO records load in the
+    reference's ``TuningDB``."""
+    from repro_torch.kernels.coo_spmv import coo_spmm_launch
+    _, m = problem
+    obj = TT.TRANSFORMS_HOST[fmt](m)
+
+    def launch(g):
+        if op == "spmv":
+            return C.coo_launch(g.block_nnz)
+        return coo_spmm_launch(batch, g.block_nnz, g.block_k)
+
+    for nnz_pad in (obj.nnz_pad, 10 ** 6):
+        cands = candidate_geometries(fmt, op, n_rows=obj.n_rows,
+                                     nnz_pad=nnz_pad, batch=batch)
+        launches = [launch(g) for g in cands]
+        assert len(set(launches)) == len(cands) > 0
+        for g, shape in zip(cands, launches):
+            bn = shape[1] if op == "spmv" else shape[4]
+            assert bn == g.block_nnz <= nnz_pad
+            if op == "spmm":
+                assert shape[0] == g.block_k
+    assert len(cands) == len(GPU_NNZ_TILES) * (1 if op == "spmv" else 3
+                                               if batch > 8 else 1)
+    db = empty_db(TA)
+    rec = KernelTuner(db=db, timer=fake_timer()).tune(obj, op=op,
+                                                      batch=batch)
+    ref = RA.TuningDB.from_json(db.to_json())
+    assert json.loads(ref.to_json()) == json.loads(db.to_json())
+    got = ref.best_geometry(fmt, rec.d_mat, op=op, batch=batch)
+    assert got.to_dict() == rec.geometry.to_dict()
+    assert rec.geometry in candidate_geometries(
+        fmt, op, n_rows=obj.n_rows, nnz_pad=obj.nnz_pad, batch=batch)
 
 
 # ---------------------------------------------------------------------------

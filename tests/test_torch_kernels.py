@@ -27,7 +27,8 @@ from repro.kernels import ref as R_ref
 from repro_torch import kernels as TK
 from repro_torch.core import dispatch as TD
 from repro_torch.core import transform as TT
-from repro_torch.core.kernel_tune import TileGeometry
+from repro_torch.core.kernel_tune import GPU_NNZ_TILES, TileGeometry
+from repro_torch.core.suite import COO_ORDERS, coo_entries
 from repro_torch.kernels import build as T_build
 from repro_torch.kernels import coo_spmv as K3
 from repro_torch.kernels import csr_spmv as K2
@@ -152,6 +153,39 @@ def test_coo_pad_entries_leave_row_zero_alone(rng):
     np.testing.assert_array_equal(f32(got), [0.0, 10.0, 21.0])
 
 
+def sorted_coo(rng, n_rows=120, nnz=3001, n_cols=90):
+    """Row-sorted COO entries, ~25 a row (xenon2's mean), as numpy."""
+    rows = np.sort(rng.integers(0, n_rows, nnz)).astype(np.int32)
+    cols = rng.integers(0, n_cols, nnz).astype(np.int32)
+    return rows, cols, rng.normal(size=nnz).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_nnz", GPU_NNZ_TILES)
+@pytest.mark.parametrize("order", COO_ORDERS)
+def test_coo_spmv_raw_matches_reference_on_adversarial_orders(order,
+                                                              block_nnz,
+                                                              dtype):
+    """Entry orders built to break a per-row reduction (one row across every
+    block, rows alternating every entry, pads at the end, ...), at each
+    entries-per-block tile of the tuner's grid, against the JAX package's
+    kernel run at the same tile."""
+    rng = np.random.default_rng(block_nnz)
+    rows, cols, data, n_rows = coo_entries(*sorted_coo(rng), 120, order,
+                                           seed=block_nnz)
+    x = rng.normal(size=90).astype(np.float32)
+    want = R_ops.coo_spmv_raw(jnp.asarray(data, JDT[dtype]),
+                              jnp.asarray(rows), jnp.asarray(cols),
+                              jnp.asarray(x, JDT[dtype]), n_rows,
+                              interpret=True,
+                              tuning=RTile(block_nnz=block_nnz))
+    got = T_ops.coo_spmv_raw(t_(data, dtype), t_(rows), t_(cols),
+                             t_(x, dtype), n_rows,
+                             TileGeometry(block_nnz=block_nnz))
+    assert got.dtype == TDT[dtype] and got.shape == (n_rows,)
+    np.testing.assert_allclose(f32(got), f32(want), **tol(dtype))
+
+
 # ---------------------------------------------------------------------------
 # CSR: shapes, heavy-tail rows, empty rows, launch geometry
 # ---------------------------------------------------------------------------
@@ -258,8 +292,11 @@ def test_spmv_launch_shapes_are_chosen_on_the_host():
     assert C.rows_per_block(1) == 256 and C.rows_per_block(32) == 8
     assert C.rows_per_block(8, block_rows=5) == 8     # 40 -> 64 threads
     assert C.rows_per_block(32, block_rows=1024) == 32
-    assert C.coo_launch() == (256, 1024)
-    assert C.coo_launch(100) == (128, 100)
+    # a COO SpMV thread sums 4 consecutive entries (8 above 1024 a block)
+    assert C.coo_launch() == (256, 1024, 4)
+    assert C.coo_launch(100) == (32, 100, 4)
+    assert C.coo_launch(4096) == (512, 4096, 8)
+    assert C.coo_launch(16384) == (512, 16384, 8)    # four passes a block
     for fmt, width, lanes in (("ell_row", 40, 8), ("ell_row", 300, 32),
                               ("sell", 40, 8), ("ell_col", 300, 1),
                               ("ell_row", 1, 1)):

@@ -29,6 +29,7 @@ from repro_torch.core import autotune as TA
 from repro_torch.core import dispatch as TD
 from repro_torch.core import plan as TPL
 from repro_torch.core import transform as TT
+from repro_torch.core.suite import COO_ORDERS, coo_entries
 from repro_torch.core.formats import BucketedELL as TSell
 from repro_torch.kernels import coo_spmv as K3
 from repro_torch.kernels import csr_spmv as K2
@@ -159,6 +160,28 @@ def test_coo_spmm_raw_matches_reference(nnz, n_rows, n_cols, sort, batch):
     assert_rel_close(got, want, mag, rel_tol("float32", "coo"))
 
 
+@pytest.mark.parametrize("batch", [1, 3, 8, 32, 128])
+@pytest.mark.parametrize("order", COO_ORDERS)
+def test_coo_spmm_raw_matches_reference_on_adversarial_orders(order, batch):
+    """Entry orders built to break a per-row flush (one row across every
+    block, rows alternating every entry, pads at the end, ...) against the
+    JAX package's kernel, at the batches the tests of the card run."""
+    rng = np.random.default_rng(batch)
+    n_rows, nnz, n_cols = 120, 3001, 90
+    rows, cols, data, n_rows = coo_entries(
+        np.sort(rng.integers(0, n_rows, nnz)).astype(np.int32),
+        rng.integers(0, n_cols, nnz).astype(np.int32),
+        rng.normal(size=nnz).astype(np.float32), n_rows, order, seed=batch)
+    x = rng.normal(size=(n_cols, batch)).astype(np.float32)
+    want = R_ops.coo_spmm_raw(jnp.asarray(data), jnp.asarray(rows),
+                              jnp.asarray(cols), jnp.asarray(x), n_rows,
+                              interpret=True)
+    got = T_ops.coo_spmm_raw(t_(data), t_(rows), t_(cols), t_(x), n_rows)
+    mag = np.zeros((n_rows, batch))
+    np.add.at(mag, rows, np.abs(data)[:, None] * np.abs(x)[cols])
+    assert_rel_close(got, want, mag, rel_tol("float32", "coo"))
+
+
 # ---------------------------------------------------------------------------
 # format-level wrappers, both packages, the sweeps of tests/test_spmm.py
 # ---------------------------------------------------------------------------
@@ -277,8 +300,17 @@ def test_spmm_launch_shapes():
                 kt, lanes, per, rows = C.row_group_launch(b, br, bk)
                 assert kt <= lanes * per and lanes <= 32
                 assert 32 <= rows * lanes <= 1024 and rows * lanes % 32 == 0
-    assert K3.coo_spmm_launch(128) == (128, 32, 4, 256, 1024)
-    assert K3.coo_spmm_launch(8, block_nnz=100) == (8, 8, 1, 128, 100)
+    # (kt, lanes, per_lane, threads, block_nnz, entries per lane group)
+    assert K3.coo_spmm_launch(128) == (128, 32, 4, 256, 1024, 128)
+    assert K3.coo_spmm_launch(8, block_nnz=100) == (8, 8, 1, 128, 100, 7)
+    assert K3.coo_spmm_launch(1, block_nnz=16384) == (1, 1, 1, 256, 16384,
+                                                      64)
+    for b in (1, 3, 8, 40, 128):
+        for bn in (1, 7, 100, 256, 1024, 16384):
+            _, lanes, _, threads, got_bn, run = K3.coo_spmm_launch(b, bn)
+            assert got_bn == bn and 32 <= threads <= 1024
+            assert run * (threads // lanes) >= bn > (run - 1) * (
+                threads // lanes)
     with pytest.raises(ValueError):
         C.row_group_launch(65536 * 128 + 1)  # more tiles than grid.y holds
 

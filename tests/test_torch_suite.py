@@ -104,3 +104,43 @@ def test_memory_policy_matches_reference(name):
             RP.MemoryPolicy().estimate_bytes(f, RF.MatrixStats.of(ref))
     with pytest.raises(KeyError):
         TP.MemoryPolicy().estimate_bytes("nope", st)
+
+
+@pytest.mark.parametrize("order", TS.COO_ORDERS)
+def test_coo_orders_are_what_they_claim(order):
+    """Each adversarial COO order keeps the matrix's product (the entries'
+    multiset, up to its remapping of rows) and has the shape it names."""
+    rng = np.random.default_rng(5)
+    rows = np.sort(rng.integers(0, 50, 1000)).astype(np.int32)
+    cols = rng.integers(0, 40, 1000).astype(np.int32)
+    data = rng.normal(size=1000).astype(np.float32)
+    r, c, d, n_rows = TS.coo_entries(rows, cols, data, 50, order, seed=3)
+    assert r.dtype == c.dtype == np.int32 and d.dtype == np.float32
+    assert r.shape == c.shape == d.shape
+    assert 0 <= r.min() and r.max() < n_rows
+    x = rng.normal(size=40)
+    y = np.zeros(n_rows)
+    np.add.at(y, r, d * x[c])
+    want = np.zeros(50)
+    np.add.at(want, rows, data * x[cols])
+    if order == "one_row":
+        assert set(r) == {25}
+        np.testing.assert_allclose(y[25], want.sum(), rtol=1e-5)
+    elif order == "alternating":
+        assert (r[1:] != r[:-1]).all()
+    elif order == "empty_rows":
+        assert n_rows == 151 and not y[::3].any() and not y[2::3].any()
+        np.testing.assert_allclose(y[1::3], want, rtol=1e-5, atol=1e-6)
+    elif order == "ragged":
+        assert r.shape[0] % 2 == 1 and (r == rows[:r.shape[0]]).all()
+    else:
+        np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-6)
+        if order == "descending":
+            assert (np.diff(r) <= 0).all()
+        if order == "pads_at_end":
+            assert r.shape[0] == 1000 + 338 and not d[1000:].any()
+            assert not r[1000:].any() and not c[1000:].any()
+        if order == "random":
+            assert (r != rows).any()
+    with pytest.raises(ValueError):
+        TS.coo_entries(rows, cols, data, 50, "sideways")
