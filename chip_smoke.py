@@ -81,8 +81,13 @@ SPMM_CHECKED = tuple(sorted({1, 8, SERVE_BATCH, *OFFLINE_BATCHES}))
 #: the matrix the SpMM kernels are timed and the tuner runs on
 BIG = ("xenon2", 4.0)
 #: the matrix whose entries the COO kernels are also checked on in every
-#: order of ``suite.COO_ORDERS``
+#: order of ``suite.COO_ORDERS``, and the CCS kernels with each column's rows
+#: in random order
 COO_ORDER_MATRIX = ("xenon2", 1.0)
+#: the heavy-tailed matrix the CSR and CCS kernels are also checked and timed
+#: on (D_mat 5.72; 857 rows of 4959 entries hold half of them): only those
+#: two formats, since its ELL panel would take gigabytes
+HEAVY = ("torso1", 1.0)
 
 KERNEL_INFO = {
     "ell_spmv": {"route": "cuda",
@@ -293,10 +298,12 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
             "bytes": rows * width * (val + 4) + xy_bytes, "flops": flops})
 
     for order in ("row", "col"):
-        m_ell = layouts[f"ell_{order}"]
-        ell_case(f"ell_{order}", m_ell.data, m_ell.cols,
-                 transposed=order == "col")
-    for i, bucket in enumerate(layouts["sell"].buckets):
+        if f"ell_{order}" in layouts:
+            m_ell = layouts[f"ell_{order}"]
+            ell_case(f"ell_{order}", m_ell.data, m_ell.cols,
+                     transposed=order == "col")
+    for i, bucket in enumerate(layouts["sell"].buckets if "sell" in layouts
+                               else ()):
         ell_case(f"sell[{i}]", bucket.data, bucket.cols)
 
     m = layouts["csr"]
@@ -309,6 +316,8 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
         "bytes": nnz * (val + 4) + 4 * (n + 1) + xy_bytes, "flops": flops})
 
     for layout in ("coo_row", "coo_col"):
+        if layout not in layouts:
+            continue
         coo = layouts[layout]
         cd = coo.data.to(dtype)
         cases.append({
@@ -321,16 +330,26 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
             "bytes": coo.nnz_pad * (val + 8) + xy_bytes, "flops": flops,
             "info": coo_segments(coo.rows, batch, block_k)})
 
-    ccs = layouts["ccs"]
-    sd = ccs.data.to(dtype)
-    cases.append({
-        "name": f"ccs_{op}", "layout": "ccs",
-        "kernel": lambda: ccs_k(sd, ccs.rows, ccs.indptr, x, n, **kw),
-        "plain": lambda: ccs_plain(sd, ccs.rows, ccs.indptr, x, n),
-        "mag": lambda: ccs_plain(sd.abs(), ccs.rows, ccs.indptr, xa, n),
-        "bytes": nnz * (val + 4) + 4 * (csr.n_cols + 1) + xy_bytes,
-        "flops": flops})
+    for layout in ("ccs", "ccs[shuffled]"):
+        if layout not in layouts:
+            continue
+        ccs = layouts[layout]
+        sd = ccs.data.to(dtype)
+        cases.append({
+            "name": f"ccs_{op}", "layout": layout,
+            "kernel": lambda c=ccs, d=sd: ccs_k(d, c.rows, c.indptr, x, n,
+                                                **kw),
+            "plain": lambda c=ccs, d=sd: ccs_plain(d, c.rows, c.indptr, x,
+                                                   n),
+            "mag": lambda c=ccs, d=sd: ccs_plain(d.abs(), c.rows, c.indptr,
+                                                 xa, n),
+            "bytes": nnz * (val + 4) + 4 * (csr.n_cols + 1) + xy_bytes,
+            "flops": flops,
+            "info": {} if batch is None else ccs_flushes(layouts, layout,
+                                                         batch, block_k)})
 
+    if "bcsr" not in layouts:
+        return cases, library_of(layouts, csr, x, dtype)
     bm = layouts["bcsr"]
     bd = bm.data.to(dtype)
     nblocks, blk = int(bm.indptr[-1]), bm.block
@@ -345,12 +364,30 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
         "info": {"block": blk, "nblocks": nblocks,
                  "fill_ratio": bcsr_fill_ratio(bm)}})
 
-    library = None
-    if dtype == torch.float32:
-        a = torch.sparse_csr_tensor(m.indptr, m.cols[:nnz], m.data[:nnz],
-                                    size=csr.shape)
-        library = lambda: a @ x
-    return cases, library
+    return cases, library_of(layouts, csr, x, dtype)
+
+
+def library_of(layouts, csr, x, dtype):
+    """The library call for ``x`` (a sparse CSR product; float32 only)."""
+    if dtype != torch.float32:
+        return None
+    m = layouts["csr"]
+    a = torch.sparse_csr_tensor(m.indptr, m.cols[:csr.nnz],
+                                m.data[:csr.nnz], size=csr.shape)
+    return lambda: a @ x
+
+
+def ccs_flushes(layouts, layout, batch, block_k):
+    """K8's global atomics at this launch (``ccs_spmm_flushes``), counted
+    once per matrix, layout, B and column tile."""
+    from repro_torch.kernels.ccs_spmv import ccs_spmm_flushes
+    memo = layouts.setdefault("flushes", {})
+    key = (layout, batch, block_k)
+    if key not in memo:
+        m = layouts[layout]
+        memo[key] = ccs_spmm_flushes(m.rows, m.indptr, m.n_rows, batch,
+                                     block_k=block_k)
+    return memo[key]
 
 
 def coo_segments(rows, batch=None, block_k=None):
@@ -431,6 +468,39 @@ def coo_order_results(csr, label):
     return results
 
 
+def shuffled_ccs(ccs, seed):
+    """``ccs`` with each column's entries in random order (the kernels take
+    any order within a column); the pads stay last."""
+    import dataclasses
+
+    ip = ccs.indptr.cpu().numpy()
+    nnz = int(ip[-1])
+    col = np.repeat(np.arange(ip.shape[0] - 1), np.diff(ip))
+    perm = np.lexsort((np.random.default_rng(seed).random(nnz), col))
+    perm = torch.from_numpy(np.concatenate(
+        [perm, np.arange(nnz, ccs.rows.shape[0])])).to(ccs.rows.device)
+    return dataclasses.replace(ccs, rows=ccs.rows[perm].contiguous(),
+                               data=ccs.data[perm].contiguous())
+
+
+def shuffled_ccs_results(csr, layouts, label):
+    """K7 and K8 held against their plain versions on ``csr``'s CCS with
+    each column's rows shuffled: SpMV, and SpMM at B = 8 (a lane group a
+    column) and ``SERVE_BATCH`` (the shared window), both value dtypes.  Not
+    timed."""
+    mine = {"csr": layouts["csr"],
+            "ccs[shuffled]": shuffled_ccs(layouts["ccs"], 17)}
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (None, 8, SERVE_BATCH):
+            cases, _ = kernel_cases(csr, mine, dtype, batch)
+            extra = {} if batch is None else {"batch": batch}
+            results += check_cases(
+                [c for c in cases if c["name"].startswith("ccs")], None,
+                label, csr.nnz, dtype, False, REPS, **extra)
+    return results
+
+
 def check_cases(cases, library, label, nnz, dtype, timed, reps, **extra):
     """Hold each case's kernel against its plain version (relative to the
     plain version on |data|, |x|); time the kernel, the plain version and
@@ -477,11 +547,14 @@ def phase_kernels(reps: int):
     path runs (all its formats, both value dtypes; the SpMM kernels at each
     B of ``SPMM_CHECKED``, and on ``BIG`` at B = ``SERVE_BATCH`` also at
     each column tile the tuner's grid launches; the COO kernels also on
-    ``COO_ORDER_MATRIX``'s entries in every adversarial order); time the
-    SpMV cases of ``KERNEL_MATRICES`` and the SpMM cases of ``BIG`` at each
-    B of ``SPMM_TIMED``.  The phase line also gives the seconds spent on
+    ``COO_ORDER_MATRIX``'s entries in every adversarial order, the CCS
+    kernels on its columns with their rows shuffled; the CSR and CCS kernels
+    on ``HEAVY``); time the SpMV cases of ``KERNEL_MATRICES`` and ``HEAVY``
+    and the SpMM cases of ``BIG`` and ``HEAVY`` at each B of
+    ``SPMM_TIMED``.  The phase line also gives the seconds spent on
     each matrix."""
     from repro_torch.core import suite
+    from repro_torch.core import transform as T
     from repro_torch.core.kernel_tune import GPU_K_TILES
 
     specs = {s.name: s for s in suite.TABLE1}
@@ -515,9 +588,27 @@ def phase_kernels(reps: int):
                     del cases
         if (name, scale) == COO_ORDER_MATRIX:
             results += coo_order_results(csr, label)
+            results += shuffled_ccs_results(csr, layouts, label)
         del csr, layouts
         torch.cuda.empty_cache()
         seconds[label] = time.perf_counter() - t0
+    # the heavy-tailed matrix: CSR and CCS only, every case timed
+    t0 = time.perf_counter()
+    csr = suite.synthesize(specs[HEAVY[0]], scale=HEAVY[1])
+    layouts = {"csr": csr.to("cuda"),
+               "ccs": T.host_csr_to_ccs(csr).to("cuda")}
+    label = matrix_label(*HEAVY)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases, library = kernel_cases(csr, layouts, dtype)
+        results += check_cases(cases, library, label, csr.nnz, dtype, True,
+                               reps)
+        for batch in SPMM_CHECKED:
+            cases, library = kernel_cases(csr, layouts, dtype, batch)
+            results += check_cases(cases, library, label, csr.nnz, dtype,
+                                   batch in SPMM_TIMED, reps, batch=batch)
+    del csr, layouts
+    torch.cuda.empty_cache()
+    seconds[label] = time.perf_counter() - t0
     emit("kernels", seconds=seconds, cases=results)
     return results
 
@@ -912,16 +1003,20 @@ def lm_prompt_lengths():
     return [int(n) for n in rng.choice(LM_PROMPTS, size=LM_SLOTS)]
 
 
-#: (label, B, S, KV, G, Dh, window, q dtype): the first is the shape the
-#: serve_lm phase launches K11 at (qwen3-1.7b, 8 slots of 8192, bfloat16 q)
+#: (label, B, S, KV, G, Dh, window, q dtype, logit softcap): the first is
+#: the shape the serve_lm phase launches K11 at (qwen3-1.7b, 8 slots of 8192,
+#: bfloat16 q); the softcap cases cap the scores (of about one unit here)
+#: at 1.0, so that the cap bends most of them
 K11_CASES = (
-    ("served", 8, 8192, 8, 2, 128, None, torch.bfloat16),
-    ("served_f32", 8, 8192, 8, 2, 128, None, torch.float32),
-    ("window", 8, 8192, 8, 2, 128, 4096, torch.bfloat16),
-    ("g1", 8, 8192, 8, 1, 128, None, torch.bfloat16),
-    ("g6", 4, 4096, 4, 6, 128, None, torch.bfloat16),
-    ("ragged", 8, 8000, 8, 2, 128, None, torch.bfloat16),
-    ("ragged_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32),
+    ("served", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0),
+    ("served_f32", 8, 8192, 8, 2, 128, None, torch.float32, 0.0),
+    ("window", 8, 8192, 8, 2, 128, 4096, torch.bfloat16, 0.0),
+    ("g1", 8, 8192, 8, 1, 128, None, torch.bfloat16, 0.0),
+    ("g6", 4, 4096, 4, 6, 128, None, torch.bfloat16, 0.0),
+    ("ragged", 8, 8000, 8, 2, 128, None, torch.bfloat16, 0.0),
+    ("ragged_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32, 0.0),
+    ("softcap", 8, 8192, 8, 2, 128, None, torch.bfloat16, 1.0),
+    ("softcap_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32, 1.0),
 )
 
 
@@ -994,15 +1089,17 @@ def phase_decode_attention(reps: int):
     from repro_torch.kernels import decode_attention as K11
 
     results = []
-    for i, (label, B, S, KV, G, Dh, window, q_dtype) in enumerate(K11_CASES):
+    for i, (label, B, S, KV, G, Dh, window, q_dtype, cap) in enumerate(
+            K11_CASES):
         if label.startswith("served"):
             lens = [n + LM_MAX_NEW // 2 for n in lm_prompt_lengths()]
         else:
             lens = np.random.default_rng(100 + i).integers(
                 S // 2, S, size=B).tolist()
         args = k11_inputs(B, S, KV, G, Dh, q_dtype, lens, 200 + i)
-        got = K11.decode_attention_int8(*args, window=window)
-        want = K11.decode_attention_int8_plain(*args, window=window)
+        kw = {"window": window, "softcap": cap}
+        got = K11.decode_attention_int8(*args, **kw)
+        want = K11.decode_attention_int8_plain(*args, **kw)
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != q_dtype or \
                 not bool(torch.isfinite(got).all()):
@@ -1017,17 +1114,17 @@ def phase_decode_attention(reps: int):
         b_ms, b_by = bound(needed, flops)
         results.append({
             "name": "decode_attention_int8", "case": label, "B": B, "S": S,
-            "KV": KV, "G": G, "Dh": Dh, "window": window,
+            "KV": KV, "G": G, "Dh": Dh, "window": window, "softcap": cap,
             "dtype": str(q_dtype).replace("torch.", ""), "lens": lens,
             "max_abs_err": err,
             "tolerance": "2e-4" if q_dtype == torch.float32
             else f"1 bf16 ulp + {K11_BF16_ATOL}",
-            "ms": time_ms(lambda: K11.decode_attention_int8(
-                *args, window=window), reps),
+            "ms": time_ms(lambda: K11.decode_attention_int8(*args, **kw),
+                          reps),
             "ms_cold_l2": time_ms(lambda: K11.decode_attention_int8(
-                *args, window=window), reps, cold=True),
+                *args, **kw), reps, cold=True),
             "plain_ms": time_events_ms(lambda: K11.decode_attention_int8_plain(
-                *args, window=window), reps),
+                *args, **kw), reps),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": needed,
             "bound_ms_whole_cache": full / PEAK_BYTES_PER_S * 1e3,
             "bytes_whole_cache": full, "library_ms": None})

@@ -1,28 +1,41 @@
 #!/usr/bin/env python3
-"""Before and after: the COO kernels of the PyTorch/CUDA port (K3
-``coo_spmv``, K6 ``coo_spmm``) of this checkout against those of another
-checkout (for example the parent commit, unpacked with ``git archive``), on
-one CUDA card, in turns: other, this, this, other.
+"""Before and after: kernels of the PyTorch/CUDA port in this checkout against
+those of another checkout (for example the parent commit, unpacked with
+``git archive``), on one CUDA card, in turns: other, this, this, other.
 
 Each turn is a process of its own whose ``repro_torch`` comes from that
 checkout's ``src/`` (its kernels built from that checkout's sources), so the
-two versions share nothing but the card.  A turn synthesizes xenon2 at
-``scale=4.0`` (629 856 rows, 15 466 752 entries: past the 50 MB L2), builds
-its row-sorted (``coo_row``) and column-sorted (``coo_col``) COO, and times
-each kernel through its public wrapper at the default launch — SpMV and SpMM
-at B = 1, 8 and 128, float32 and bfloat16 — 20 times (device time of one
-call, CUDA events behind a head start, ``core.autotune.time_device``),
-beside the library call (``torch.sparse_csr_tensor @ x|X``, float32).  It
-also times every entries-per-block tile of the tuner's grid on ``coo_row``,
-float32, SpMV and B = 128, and holds every case against the plain version.
+two versions share nothing but the card.  Every kernel is timed through its
+public wrapper, 20 times (device time of one call, CUDA events behind a head
+start, ``core.autotune.time_device``), beside the library call
+(``torch.sparse_csr_tensor @ x|X``, float32), and every case is held against
+the kernel's plain version.  ``--kernels`` picks the set:
+
+* ``coo`` (default): K3 ``coo_spmv`` and K6 ``coo_spmm`` on xenon2 at
+  ``scale=4.0`` (629 856 rows, 15 466 752 entries: past the 50 MB L2), its
+  row-sorted (``coo_row``) and column-sorted (``coo_col``) COO, SpMV and
+  SpMM at B = 1, 8 and 128, float32 and bfloat16, and every
+  entries-per-block tile of the tuner's grid on ``coo_row``, float32, SpMV
+  and B = 128.
+* ``csr_ccs``: K2 ``csr_spmv`` on xenon2@x4 and torso1 (``scale=1.0``:
+  116 158 rows, 8 516 500 entries, 857 rows of 4959), float32 and bfloat16,
+  and float32 at each candidate of the checkout's own tuner grid; K8
+  ``ccs_spmm`` at B = 1, 8 and 128 on xenon2@x4 and viscoplastic2 at
+  ``scale=16.0`` (524 304 rows, 6.1 M hash-scattered entries), float32 and
+  bfloat16, and at B = 128, float32, at each columns-per-block tile of the
+  tuner's grid; K11 ``decode_attention_int8`` at the LM server's shape
+  (B 8, S 8192, KV 8, G 2, Dh 128, bfloat16 q).
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
-    python3 experiments/torch_coo_ab.py --other DIR [--out FILE]
+    python3 experiments/torch_coo_ab.py --other DIR [--kernels coo|csr_ccs]
+        [--out FILE]
 
 It prints one line per case (median ms of each turn and the spread of this
-checkout's 40 times), the card's name and power limit, and writes every
-time to ``--out`` (default ``build/coo_ab.json``, git-ignored).
+checkout's 40 times; a case only one checkout has, such as a tile of a grid
+that changed, shows its own turns), the card's name and power limit, and
+writes every time to ``--out`` (default ``build/<kernels>_ab.json``,
+git-ignored).
 """
 from __future__ import annotations
 
@@ -42,18 +55,47 @@ BATCHES = (None, 1, 8, 128)        # None: SpMV
 KERNEL_REL_TOL = 1e-4
 
 
-def worker() -> None:
-    """One turn: the ``repro_torch`` on ``sys.path`` times its COO kernels
-    and prints one JSON line."""
+def rel_err(got, want, mag) -> float:
+    """Largest error relative to the plain version on |data|, |x|."""
+    return float(((got - want).abs() / (mag + 1e-30)).max())
+
+
+def worker(kernels: str) -> None:
+    """One turn: the ``repro_torch`` on ``sys.path`` times the kernels of
+    the set ``kernels`` and prints one JSON line."""
+    cases, names = (coo_cases() if kernels == "coo"
+                    else csr_ccs_cases())
     import hashlib
 
-    import numpy as np
     import torch
 
     import repro_torch
+    from repro_torch.kernels import build
+    src = hashlib.sha256(b"".join(
+        (build.CSRC / f"{k}.cu").read_bytes() for k in names)).hexdigest()[:12]
+    print(json.dumps({"repro_torch": repro_torch.__file__, "sources": src,
+                      "device": torch.cuda.get_device_name(0),
+                      "cases": cases}), flush=True)
+
+
+def times_of(fn):
+    """``REPS`` device times of one call, in ms, after warm-up."""
+    import torch
+
+    from repro_torch.core.autotune import time_device
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return [time_device(fn) * 1e3 for _ in range(REPS)]
+
+
+def coo_cases():
+    """K3 and K6 on xenon2@x4 (``--kernels coo``)."""
+    import numpy as np
+    import torch
+
     from repro_torch.core import suite
     from repro_torch.core import transform as T
-    from repro_torch.core.autotune import time_device
     from repro_torch.core.kernel_tune import GPU_NNZ_TILES
     from repro_torch.kernels import build
     from repro_torch.kernels import coo_spmv as K3
@@ -68,13 +110,6 @@ def worker() -> None:
     lib = torch.sparse_csr_tensor(m.indptr, m.cols[:m.nnz], m.data[:m.nnz],
                                   size=csr.shape)
     n = csr.n_rows
-
-    def times(fn):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        return [time_device(fn) * 1e3 for _ in range(REPS)]
-
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for batch in BATCHES:
@@ -84,7 +119,7 @@ def worker() -> None:
                 np.float32)).to(dev).to(dtype)
             kern, plain = ((K3.coo_spmv, K3.coo_spmv_plain) if batch is None
                            else (K3.coo_spmm, K3.coo_spmm_plain))
-            lib_ms = (statistics.median(times(lambda: lib @ x))
+            lib_ms = (statistics.median(times_of(lambda: lib @ x))
                       if dtype == torch.float32 else None)
             for layout, coo in layouts.items():
                 d = coo.data.to(dtype)
@@ -97,30 +132,147 @@ def worker() -> None:
                                     block_nnz=bn)
                     got, want = call(), plain(d, coo.rows, coo.cols, x, n)
                     mag = plain(d.abs(), coo.rows, coo.cols, x.abs(), n)
-                    rel = float(((got - want).abs() / (mag + 1e-30)).max())
+                    rel = rel_err(got, want, mag)
                     if rel > KERNEL_REL_TOL:
                         raise AssertionError(f"{layout} B={batch} {dtype} "
                                              f"block_nnz={bn}: rel err {rel}")
                     del got, want, mag
                     cases.append({
-                        "kernel": kern.__name__, "layout": layout,
-                        "dtype": str(dtype).replace("torch.", ""),
-                        "batch": batch, "block_nnz": bn,
-                        "max_rel_err": rel, "ms": times(call),
+                        "key": f"{kern.__name__}/{layout}/{dtype}/B={batch}"
+                               f"/bn={bn}".replace("torch.", ""),
+                        "max_rel_err": rel, "ms": times_of(call),
                         "library_ms": lib_ms})
-    src = hashlib.sha256(b"".join(
-        (build.CSRC / f"{k}.cu").read_bytes()
-        for k in ("coo_spmv", "coo_spmm"))).hexdigest()[:12]
-    print(json.dumps({"repro_torch": repro_torch.__file__, "sources": src,
-                      "device": torch.cuda.get_device_name(0),
-                      "cases": cases}), flush=True)
+    return cases, ("coo_spmv", "coo_spmm")
 
 
-def turn(checkout: Path) -> dict:
+def csr_ccs_cases():
+    """K2 on xenon2@x4 and torso1, K8 on xenon2@x4 and viscoplastic2@x16,
+    K11 at the served shape (``--kernels csr_ccs``)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import suite
+    from repro_torch.core import transform as T
+    from repro_torch.core.kernel_tune import candidate_geometries
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ccs_spmv as K7
+    from repro_torch.kernels import csr_spmv as K2
+    from repro_torch.kernels import decode_attention as K11
+
+    build.build_all(("csr_spmv", "ccs_spmm", "decode_attention_int8"),
+                    force=True)
+    specs = {s.name: s for s in suite.TABLE1}
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+
+    def case(key, call, plain, plain_abs, lib_ms):
+        got, want, mag = call(), plain(), plain_abs()
+        rel = rel_err(got, want, mag)
+        if rel > KERNEL_REL_TOL:
+            raise AssertionError(f"{key}: rel err {rel}")
+        del got, want, mag
+        cases.append({"key": key, "max_rel_err": rel, "ms": times_of(call),
+                      "library_ms": lib_ms})
+
+    # K2: the knob this checkout's wrapper reads
+    knobs = [k for k in ("block_rows", "block_nnz")
+             if k in inspect.signature(K2.csr_spmv).parameters]
+    for name, scale in (("xenon2", 4.0), ("torso1", 1.0)):
+        csr = suite.synthesize(specs[name], scale=scale, device="cpu")
+        m = csr.to(dev)
+        label = name if scale == 1.0 else f"{name}@x{scale:g}"
+        lib = torch.sparse_csr_tensor(m.indptr, m.cols[:m.nnz],
+                                      m.data[:m.nnz], size=csr.shape)
+        grid = candidate_geometries("csr", "spmv", n_rows=m.n_rows,
+                                    nnz_pad=m.nnz_pad)
+        for dtype in (f32, bf16):
+            x = torch.from_numpy(np.random.default_rng(7).normal(
+                size=m.n_cols).astype(np.float32)).to(dev).to(dtype)
+            d = m.data.to(dtype)
+            lib_ms = (statistics.median(times_of(lambda: lib @ x))
+                      if dtype == f32 else None)
+            for g in [None] + (grid if dtype == f32 else []):
+                kw = {} if g is None else {k: getattr(g, k) for k in knobs
+                                           if getattr(g, k) is not None}
+                case(f"csr_spmv/{label}/{dtype}/{kw or 'default'}"
+                     .replace("torch.", ""),
+                     lambda kw=kw: K2.csr_spmv(d, m.cols, m.indptr, x, **kw),
+                     lambda: K2.csr_spmv_plain(d, m.cols, m.indptr, x),
+                     lambda: K2.csr_spmv_plain(d.abs(), m.cols, m.indptr,
+                                               x.abs()), lib_ms)
+        del m, lib, csr
+    # K8
+    for name, scale in (("xenon2", 4.0), ("viscoplastic2", 16.0)):
+        csr = suite.synthesize(specs[name], scale=scale, device="cpu")
+        ccs = T.host_csr_to_ccs(csr).to(dev)
+        m = csr.to(dev)
+        label = f"{name}@x{scale:g}"
+        lib = torch.sparse_csr_tensor(m.indptr, m.cols[:m.nnz],
+                                      m.data[:m.nnz], size=csr.shape)
+        n = ccs.n_rows
+        for dtype in (f32, bf16):
+            d = ccs.data.to(dtype)
+            for batch in (1, 8, 128):
+                X = torch.from_numpy(np.random.default_rng(8).normal(
+                    size=(ccs.n_cols, batch)).astype(np.float32)).to(
+                    dev).to(dtype)
+                lib_ms = (statistics.median(times_of(lambda: lib @ X))
+                          if dtype == f32 else None)
+                want = K7.ccs_spmm_plain(d, ccs.rows, ccs.indptr, X, n)
+                mag = K7.ccs_spmm_plain(d.abs(), ccs.rows, ccs.indptr,
+                                        X.abs(), n)
+                tiles = [None]
+                if dtype == f32 and batch == 128:
+                    tiles += [g.block_rows for g in candidate_geometries(
+                        "ccs", "spmm", n_rows=ccs.n_cols,
+                        nnz_pad=ccs.nnz_pad, batch=batch)
+                        if g.block_k == 128]
+                for br in tiles:
+                    case(f"ccs_spmm/{label}/{dtype}/B={batch}/rows={br}"
+                         .replace("torch.", ""),
+                         lambda br=br: K7.ccs_spmm(d, ccs.rows, ccs.indptr, X,
+                                                   n, block_rows=br),
+                         lambda: want, lambda: mag, lib_ms)
+                del X, want, mag
+        del ccs, m, lib, csr
+        torch.cuda.empty_cache()
+    # K11 at the LM server's shape, mid-decode
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S, KV, G, Dh = 8, 8192, 8, 2, 128
+    codes = lambda: torch.randint(-127, 128, (B, S, KV, Dh), generator=g,
+                                  device=dev, dtype=torch.int8)
+    scales = lambda: (torch.rand((B, S, KV), generator=g, device=dev)
+                      * 0.02).to(bf16)
+    q = torch.randn((B, KV, G, Dh), generator=g, device=dev).to(bf16)
+    lens = torch.tensor([6160, 4112, 4112, 2064, 2064, 1040, 1040, 1040],
+                        dtype=torch.int32, device=dev)
+    idx = torch.arange(S, dtype=torch.int32, device=dev)
+    key_pos = torch.where(idx[None, :] < lens[:, None], idx[None, :],
+                          torch.full_like(idx[None, :], -1)).contiguous()
+    args = [q, codes(), scales(), codes(), scales(), key_pos, lens - 1]
+    want = K11.decode_attention_int8_plain(*args).float()
+    got = K11.decode_attention_int8(*args).float()
+    err = float((got - want).abs().max())
+    if err > 1e-2:
+        raise AssertionError(f"decode_attention_int8: max abs err {err}")
+    cases.append({"key": "decode_attention_int8/served/bfloat16",
+                  "max_abs_err": err,
+                  "ms": times_of(lambda: K11.decode_attention_int8(*args)),
+                  "library_ms": None})
+    return cases, ("csr_spmv", "ccs_spmm", "decode_attention_int8")
+
+
+def turn(checkout: Path, kernels: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(checkout / "src"))
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--worker"], env=env, cwd=checkout, check=True,
-                         capture_output=True, text=True, timeout=900)
+                          "--worker", "--kernels", kernels], env=env,
+                         cwd=checkout, capture_output=True, text=True,
+                         timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"turn in {checkout} failed:\n{out.stderr[-4000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
@@ -128,12 +280,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path,
                     help="root of the checkout to compare with")
-    ap.add_argument("--out", type=Path,
-                    default=ROOT / "build" / "coo_ab.json")
+    ap.add_argument("--kernels", choices=("coo", "csr_ccs"), default="coo",
+                    help="the kernels to time (see the module's docstring)")
+    ap.add_argument("--out", type=Path, help="where to write every time")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker()
+        worker(args.kernels)
         return 0
     if args.other is None:
         ap.error("--other is required")
@@ -141,26 +294,35 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_coo_ab: no CUDA device available", file=sys.stderr)
         return 1
+    out = args.out or ROOT / "build" / f"{args.kernels}_ab.json"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.strip().splitlines()[0]
     order = [("other", args.other.resolve()), ("this", ROOT),
              ("this", ROOT), ("other", args.other.resolve())]
-    turns = [(name, turn(path)) for name, path in order]
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps({"nvidia_smi": smi, "order": [
-        {"checkout": name, **t} for name, t in turns]}, indent=1))
+    turns = [(name, turn(path, args.kernels)) for name, path in order]
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"nvidia_smi": smi, "kernels": args.kernels,
+                               "order": [{"checkout": name, **t}
+                                         for name, t in turns]}, indent=1))
     print("case,other_ms(turn1/turn4),this_ms(turn2/turn3),"
           "this/other,this_min..max,library_ms")
-    for i, case in enumerate(turns[0][1]["cases"]):
-        med = [statistics.median(t["cases"][i]["ms"]) for _, t in turns]
-        mine = turns[1][1]["cases"][i]["ms"] + turns[2][1]["cases"][i]["ms"]
-        key = (f"{case['kernel']}/{case['layout']}/{case['dtype']}/"
-               f"B={case['batch']}/bn={case['block_nnz']}")
-        print(f"{key},{med[0]:.4f}/{med[3]:.4f},{med[1]:.4f}/{med[2]:.4f},"
-              f"{(med[1] + med[2]) / (med[0] + med[3]):.3f},"
-              f"{min(mine):.4f}..{max(mine):.4f},{case['library_ms']}")
+    by_key = [{c["key"]: c for c in t["cases"]} for _, t in turns]
+    keys = list(dict.fromkeys(k for t in by_key for k in t))
+    for key in keys:
+        med = [statistics.median(t[key]["ms"]) if key in t else None
+               for t in by_key]
+        lib = next(t[key]["library_ms"] for t in by_key if key in t)
+        fmt = lambda a, b: ("-" if a is None else f"{a:.4f}/{b:.4f}")
+        mine = (by_key[1][key]["ms"] + by_key[2][key]["ms"]
+                if key in by_key[1] else None)
+        ratio = ((med[1] + med[2]) / (med[0] + med[3])
+                 if None not in med else None)
+        print(f"{key},{fmt(med[0], med[3])},{fmt(med[1], med[2])},"
+              f"{'-' if ratio is None else f'{ratio:.3f}'},"
+              f"{'-' if mine is None else f'{min(mine):.4f}..{max(mine):.4f}'}"
+              f",{lib}")
     print(smi, flush=True)
     return 0
 

@@ -180,7 +180,7 @@ def _structure_sig(obj: Any) -> int:
 #: rows); the block holds that many rows times the lanes the wrapper gives
 #: a row (BCSR SpMV: times b), clamped to 1024 threads
 GPU_ROW_TILES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
-#: entries per CUDA block (COO)
+#: entries per CUDA block (COO; the slice of a CSR SpMV block)
 GPU_NNZ_TILES = (256, 1024, 4096, 16384)
 #: right-hand-side columns per CUDA block (SpMM), clamped to the batch
 GPU_K_TILES = (8, 32, 128)
@@ -194,13 +194,14 @@ GRID_FORMATS = ("ell_row", "ell_col", "sell", "coo_row", "coo_col", "csr",
 def _lanes_per_row(fmt: str, op: str, n_rows: int, width: int,
                    nnz_pad: int, batch: int,
                    block_k: Optional[int]) -> int:
-    """Threads the wrapper gives one row (ELL, SELL bucket, CSR; a CCS
+    """Threads the wrapper gives one row (ELL, SELL bucket, CSR SpMM; a CCS
     column, a BCSR block row in SpMM), from the same helpers the wrappers
-    call.  ``n_rows`` is the segmented axis (CCS: the column count)."""
+    call.  ``n_rows`` is the segmented axis (CCS: the column count).  CSR
+    SpMV cuts its work by entries, not rows: no lane group."""
     from ..kernels import _common as C
     if op == "spmm":
         return C.rhs_tile(batch, block_k)[1]
-    if fmt in ("csr", "ccs"):
+    if fmt == "ccs":
         return C.csr_spmv_lanes(nnz_pad, n_rows)
     # ELL-Row and SELL buckets are row-major (a one-slot band has strides
     # (1, 1) and is not); ELL-Col is column-major
@@ -213,7 +214,8 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
     """The bounded launch-geometry grid for one (format, op).
 
     Only knobs a CUDA wrapper reads are searched: ``block_rows`` (ELL, SELL,
-    CSR, CCS, BCSR), ``block_nnz`` (COO) and, for SpMM, ``block_k``.  Each
+    CSR SpMM, CCS, BCSR), ``block_nnz`` (COO, CSR SpMV) and, for SpMM,
+    ``block_k``.  Each
     candidate holds the values its launch actually takes — rows per block as
     the whole warps the wrapper rounds to at its lane count (at most 1024
     threads, at most the matrix's rows), entries per block at most
@@ -230,7 +232,7 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
           else [None])
     geoms: List[TileGeometry] = []
     for k in ks:
-        if fmt.startswith("coo"):
+        if fmt.startswith("coo") or (fmt == "csr" and op == "spmv"):
             geoms.extend(TileGeometry(block_nnz=min(bn, nnz_pad or bn),
                                       block_k=k) for bn in GPU_NNZ_TILES)
             continue

@@ -73,6 +73,15 @@ COO_CHUNK4_MAX_NNZ = 1024
 #: most entries a ``coo_spmv`` block takes in one pass: its shared memory
 #: stages 8 bytes per entry of a pass (32 KB)
 COO_PASS_NNZ = 4096
+#: entries a ``csr_spmv`` block (a slice) owns when no ``block_nnz`` is given:
+#: 256 threads of 8 entries, one pass
+CSR_DEFAULT_BLOCK_NNZ = 2048
+#: columns a ``ccs_spmm`` block owns by default where it keeps a window of Y
+#: rows: 32 adjacent columns of a band share ~56 rows, so their window takes
+#: most of their entries
+CCS_SPMM_COLS = 32
+#: most window rows a ``ccs_spmm`` lane group keeps in registers
+CCS_ROWS_PER_GROUP_MAX = 16
 #: grid.y limit of a CUDA launch
 MAX_GRID_Y = 65535
 #: elements of the largest ``(entries, B)`` temporary a plain SpMM version
@@ -139,6 +148,16 @@ def coo_launch(block_nnz=None):
     return clamp_threads(-(-min(bn, COO_PASS_NNZ) // chunk)), bn, chunk
 
 
+def csr_slices(nnz_pad: int, block_nnz=None):
+    """``(threads, block_nnz, chunk, n_slices)`` of a CSR SpMV launch:
+    ``block_nnz`` entries a slice (default ``CSR_DEFAULT_BLOCK_NNZ``), one
+    CUDA block a slice, threads and entries per thread as :func:`coo_launch`
+    gives them; ``n_slices`` cover the ``nnz_pad`` stored slots (at least
+    one, which writes the rows of a matrix with no slot)."""
+    threads, bn, chunk = coo_launch(block_nnz or CSR_DEFAULT_BLOCK_NNZ)
+    return threads, bn, chunk, max(1, -(-int(nnz_pad) // bn))
+
+
 def coo_spmm_groups(lanes: int, block_nnz=None):
     """``(threads, block_nnz, run)`` of a COO SpMM launch at ``lanes``
     threads per group: ``block_nnz`` entries per CUDA block (default
@@ -174,6 +193,46 @@ def row_group_launch(batch: int, block_rows=None, block_k=None):
     kt, lanes, per_lane = rhs_tile(batch, block_k)
     check_grid_y(batch, kt)
     return kt, lanes, per_lane, rows_per_block(lanes, block_rows)
+
+
+def ccs_spmm_launch(batch: int, n_rows: int, n_cols: int, nnz_pad: int,
+                    block_rows=None, block_k=None):
+    """``(kt, lanes, per_lane, threads, cols, window, rows_per_group)`` of a
+    CCS SpMM launch.  The column tile is :func:`rhs_tile`'s; ``cols``
+    adjacent columns a CUDA block owns (``block_rows``, rounded as
+    :func:`rows_per_block` rounds a row group, so a tuner candidate is the
+    launch).  A tile of a whole warp (``lanes == 32``) keeps a window of
+    ``window`` rows of Y on the chip: ``DEFAULT_THREADS`` threads, ``cols``
+    at least ``CCS_SPMM_COLS`` by default, and the rows its columns map to
+    (``cols * n_rows / n_cols``) plus the mean column's length — a band
+    reaches that far on either side of them — spread over the lane groups,
+    ``rows_per_group`` each (a power of two from 2 to
+    ``CCS_ROWS_PER_GROUP_MAX``), at most ``n_rows``.  A narrower tile runs a
+    lane group a column with no window (``window == 0``): ``cols`` groups of
+    ``lanes`` threads, ``DEFAULT_THREADS`` by default."""
+    kt, lanes, per_lane = rhs_tile(batch, block_k)
+    check_grid_y(batch, kt)
+    if lanes < 32:
+        cols = rows_per_block(lanes, block_rows)
+        return kt, lanes, per_lane, cols * lanes, cols, 0, 0
+    cols = rows_per_block(lanes, block_rows or CCS_SPMM_COLS)
+    groups = DEFAULT_THREADS // lanes
+    n_rows, n_cols = max(int(n_rows), 1), max(int(n_cols), 1)
+    span = -(-cols * n_rows // n_cols) + -(-int(nnz_pad) // n_cols)
+    rpg = 2
+    while rpg < CCS_ROWS_PER_GROUP_MAX and rpg * groups < span:
+        rpg *= 2
+    return (kt, lanes, per_lane, DEFAULT_THREADS, cols,
+            max(1, min(rpg * groups, n_rows)), rpg)
+
+
+def ccs_window_base(block: int, cols: int, window: int, n_rows: int,
+                    n_cols: int) -> int:
+    """First row of block ``block``'s window, as ``csrc/ccs_spmm.cu``
+    computes it: centred on the rows its ``cols`` columns map to, inside the
+    matrix."""
+    base = (2 * block * cols + cols) * n_rows // (2 * n_cols) - window // 2
+    return max(0, min(base, n_rows - window))
 
 
 def check_grid_y(batch: int, kt: int) -> None:

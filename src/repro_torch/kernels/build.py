@@ -36,9 +36,9 @@ SIGNATURES: Dict[str, Sequence] = {
     # data, cols, x, y, n_rows, width, row_stride, col_stride, lanes,
     # rows_per_block, data_bf16, x_bf16, stream
     "ell_spmv": (_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _P),
-    # data, cols, indptr, x, y, n_rows, lanes, rows_per_block, data_bf16,
-    # x_bf16, stream
-    "csr_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # data, cols, indptr, x, y, scratch, n_rows, nnz_pad, n_slices, threads,
+    # block_nnz, chunk, data_bf16, x_bf16, stream
+    "csr_spmv": (_P,) * 6 + (_I,) * 8 + (_P,),
     # data, rows, cols, x, y, nnz, threads, block_nnz, chunk, data_bf16,
     # x_bf16, stream
     "coo_spmv": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
@@ -56,9 +56,10 @@ SIGNATURES: Dict[str, Sequence] = {
     # data, rows, indptr, x, y, n_cols, lanes, cols_per_block, data_bf16,
     # x_bf16, stream
     "ccs_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # data, rows, indptr, x, y, n_cols, B, kt, lanes, per_lane,
-    # cols_per_block, data_bf16, x_bf16, stream
-    "ccs_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # data, rows, indptr, x, y, n_rows, n_cols, B, kt, lanes, per_lane,
+    # threads, cols_per_block, window, rows_per_group, data_bf16, x_bf16,
+    # stream
+    "ccs_spmm": (_P,) * 5 + (_I,) * 12 + (_P,),
     # data, block_cols, indptr, x, y, n_rows, n_cols, block, threads,
     # data_bf16, x_bf16, stream
     "bcsr_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -68,8 +69,8 @@ SIGNATURES: Dict[str, Sequence] = {
                   _I, _I, _P),
     # q, k_q, k_s, v_q, v_s, key_pos, q_pos, part_m, part_l, part_acc, out,
     # B, S, KV, G, Dh, lanes, threads, g_tile, keys_per_split, splits,
-    # window, has_window, scale, q_bf16, stream
-    "decode_attention_int8": (_P,) * 11 + (_I,) * 12 + (_F, _I, _P),
+    # window, has_window, scale, softcap, q_bf16, stream
+    "decode_attention_int8": (_P,) * 11 + (_I,) * 12 + (_F, _F, _I, _P),
 }
 
 _lock = threading.Lock()

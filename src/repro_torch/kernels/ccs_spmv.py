@@ -17,9 +17,17 @@ atomics make the order of the sum, and so the last bits, differ from run to
 run: CCS results are compared to a tolerance, never bit for bit.
 
 :func:`ccs_spmm` replaces ``repro/kernels/ccs_spmv.py:ccs_spmm``: the same
-scatter against an ``(n_cols, B)`` panel.  A column group sits along the
-right-hand-side columns, keeps its slice of the column's X row in registers
-and adds each entry's contributions into consecutive addresses of a Y row.
+scatter against an ``(n_cols, B)`` panel.  Where a tile of right-hand-side
+columns spans a warp (B > 16), a block owns adjacent columns,
+which in a band share most of their rows, and a window of Y rows around the
+rows they map to.  It stages its columns' X rows on the chip (X is read
+once), sorts its entries by window row, and lane groups that own the window's
+rows sum them in registers — no two threads add to one place — then add each
+touched row to Y once; an entry outside the window goes to Y with global
+atomics.  A narrower tile runs a lane group a column, which keeps the
+column's X slice in registers and adds each entry to Y with global atomics
+(``csrc/ccs_spmm.cu``).  :func:`ccs_spmm_flushes` counts the global atomics
+on the host.
 
 The reference's ``slabs_per_block`` (:func:`~.csr_spmv.slabs_needed` over
 the column pointer) is kept only for plan-schema parity; these kernels do
@@ -29,13 +37,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import build as _build
 from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, check_contiguous,
                       check_current_device, check_index, check_same_device,
-                      check_values, csr_spmv_lanes, current_stream_ptr,
-                      row_group_launch, rows_per_block)
+                      ccs_spmm_launch, ccs_window_base, check_values,
+                      csr_spmv_lanes, current_stream_ptr, rows_per_block)
 
 
 def _check(data, rows, indptr, x, ndim: int) -> None:
@@ -136,8 +145,9 @@ def ccs_spmm(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
     """``Y = A @ X`` for CCS arrays and a contiguous ``(n_cols, B)`` panel;
     returns float32 ``(n_rows, B)``.  ``block_rows`` is the number of
     columns and ``block_k`` the number of right-hand-side columns a CUDA
-    block owns.  CPU tensors run :func:`ccs_spmm_plain`; CUDA tensors launch
-    the kernel or raise."""
+    block owns; the rows of its shared Y window follow from them and the
+    shape (host ints: nothing is read back from the device).  CPU tensors
+    run :func:`ccs_spmm_plain`; CUDA tensors launch the kernel or raise."""
     _check(data, rows, indptr, x, 2)
     if data.device.type == "cpu":
         return ccs_spmm_plain(data, rows, indptr, x, n_rows)
@@ -154,11 +164,13 @@ def ccs_spmm(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
     y = torch.zeros((n_rows, batch), dtype=torch.float32, device=data.device)
     if n_cols == 0 or n_rows == 0 or batch == 0 or data.shape[0] == 0:
         return y                 # nothing stored: no launch, none counted
-    kt, lanes, per_lane, groups = row_group_launch(batch, block_rows,
-                                                   block_k)
+    kt, lanes, per_lane, threads, cols, window, rows_per_group = \
+        ccs_spmm_launch(batch, n_rows, n_cols, data.shape[0], block_rows,
+                        block_k)
     code = _build.launcher("ccs_spmm")(
         data.data_ptr(), rows.data_ptr(), indptr.data_ptr(), x.data_ptr(),
-        y.data_ptr(), n_cols, batch, kt, lanes, per_lane, groups,
+        y.data_ptr(), n_rows, n_cols, batch, kt, lanes, per_lane, threads,
+        cols, window, rows_per_group,
         int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
         current_stream_ptr())
     _build.check_launch("ccs_spmm", code)
@@ -166,7 +178,40 @@ def ccs_spmm(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
     return y
 
 
+def ccs_spmm_flushes(rows: torch.Tensor, indptr: torch.Tensor, n_rows: int,
+                     batch: int, block_rows: Optional[int] = None,
+                     block_k: Optional[int] = None) -> dict:
+    """The global atomics :func:`ccs_spmm` issues at its launch for
+    ``batch`` right-hand sides, counted on the host from the structure:
+    ``flushed`` window rows (one per row an entry of the block touched
+    inside its window), ``outside`` entries (one each, outside the window),
+    and ``atomics``, their float32 additions, ``(flushed + outside) * B``
+    (the parent design's ``nnz * B``)."""
+    ip = indptr.cpu().numpy().astype(np.int64)
+    n_cols = ip.shape[0] - 1
+    nnz = int(ip[-1]) if n_cols > 0 else 0
+    _, _, _, _, cols, window, _ = ccs_spmm_launch(batch, n_rows, n_cols,
+                                                  rows.shape[0], block_rows,
+                                                  block_k)
+    if window == 0:           # a narrow tile: every entry straight to Y
+        return {"cols": cols, "window": 0, "flushed": 0, "outside": nnz,
+                "atomics": nnz * batch}
+    r = rows[:nnz].cpu().numpy().astype(np.int64)
+    block = np.repeat(np.arange(n_cols, dtype=np.int64) // cols, np.diff(ip))
+    n_blocks = -(-n_cols // cols)
+    base = np.array([ccs_window_base(b, cols, window, n_rows, n_cols)
+                     for b in range(n_blocks)], dtype=np.int64)
+    w = r - base[block]
+    inside = (w >= 0) & (w < window)
+    touched = np.zeros(n_blocks * window, dtype=bool)
+    touched[block[inside] * window + w[inside]] = True
+    flushed, outside = int(touched.sum()), int(nnz - inside.sum())
+    return {"cols": cols, "window": window, "flushed": flushed,
+            "outside": outside, "atomics": (flushed + outside) * batch}
+
+
 #: number of kernel launches made by :func:`ccs_spmm` in this process
 ccs_spmm.launches = 0
 
-__all__ = ["ccs_spmv", "ccs_spmv_plain", "ccs_spmm", "ccs_spmm_plain"]
+__all__ = ["ccs_spmv", "ccs_spmv_plain", "ccs_spmm", "ccs_spmm_flushes",
+           "ccs_spmm_plain"]

@@ -8,11 +8,16 @@ IRP[r+1])} data[k] * x[cols[k]]``, float32 accumulation; slots past
 
 Bound on an H100: memory.  The least the card must move is
 ``nnz * (val + 4) + 4 * (n_rows + 1) + val * n_cols + 4 * n_rows`` bytes over
-3.35 TB/s.  The design streams VAL/ICOL once with a group of lanes per row
-(CSR-vector; the group is as wide as the mean row is long, so short rows do
-not idle most of a warp), reads each row's bounds from IRP at run time —
-there is no static bound on a row's length, so a heavy-tail row is just a
-longer loop for its group — and reduces with warp shuffles.
+3.35 TB/s.  The design cuts the work by entries, not rows: each CUDA block
+owns a slice of ``block_nnz`` entries, finds the rows it owns by a search over
+IRP (a first small kernel), sums a few consecutive entries a thread
+(16-byte loads) and joins each row's partial sums by a keyed scan over the
+warp and across the block's warps, with plain stores only; a row that
+crosses slices leaves one partial sum a slice in a carry buffer, which a
+last small kernel adds in slice order.  So a row of
+thousands of entries costs what as many short rows cost, there is no static
+bound on a row's length, and ``y`` is the same bit for bit from run to run
+(``csrc/csr_spmv.cu``).
 
 :func:`csr_spmm` replaces ``repro/kernels/csr_spmv.py:csr_spmm``: the same
 sum against an ``(n_cols, B)`` panel.  Bound on an H100: memory — A once,
@@ -35,8 +40,8 @@ import torch
 from . import build as _build
 from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, check_contiguous,
                       check_current_device, check_index, check_same_device,
-                      check_values, csr_spmv_lanes, current_stream_ptr,
-                      row_group_launch, rows_per_block)
+                      check_values, csr_slices, current_stream_ptr,
+                      row_group_launch)
 
 
 def slabs_needed(indptr, block_rows: int, block_nnz: int) -> int:
@@ -73,13 +78,14 @@ def csr_spmv_plain(data: torch.Tensor, cols: torch.Tensor,
 
 def csr_spmv(data: torch.Tensor, cols: torch.Tensor, indptr: torch.Tensor,
              x: torch.Tensor, *,
-             block_rows: Optional[int] = None) -> torch.Tensor:
-    """``y = A @ x`` for CSR arrays; returns float32 ``(n_rows,)``.
+             block_nnz: Optional[int] = None) -> torch.Tensor:
+    """``y = A @ x`` for CSR arrays; returns float32 ``(n_rows,)``, the same
+    bits on every launch of the same shape.
 
-    ``block_rows`` is the number of rows a CUDA block owns.  The lane group
-    is sized from the stored length over the row count (host ints: nothing
-    is read back from the device).  CPU tensors run :func:`csr_spmv_plain`;
-    CUDA tensors launch the kernel or raise."""
+    ``block_nnz`` is the number of entries a CUDA block owns (a slice); the
+    launch shape comes from host ints only (nothing is read back from the
+    device).  CPU tensors run :func:`csr_spmv_plain`; CUDA tensors launch the
+    kernel or raise."""
     check_values("data", data, 1)
     check_values("x", x, 1)
     check_index("cols", cols, data)
@@ -101,14 +107,16 @@ def csr_spmv(data: torch.Tensor, cols: torch.Tensor, indptr: torch.Tensor,
     if n_rows == 0:
         # no row to write: no launch, none counted
         return torch.zeros(0, dtype=torch.float32, device=data.device)
-    lanes = csr_spmv_lanes(data.shape[0], n_rows)
+    threads, bn, chunk, n_slices = csr_slices(data.shape[0], block_nnz)
     y = torch.empty(n_rows, dtype=torch.float32, device=data.device)
+    # each slice's first row, then its carry's row and float32 sum
+    scratch = torch.empty(3 * n_slices + 1, dtype=torch.int32,
+                          device=data.device)
     code = _build.launcher("csr_spmv")(
-        data.data_ptr(), cols.data_ptr(), indptr.data_ptr(),
-        x.data_ptr(), y.data_ptr(), n_rows, lanes,
-        rows_per_block(lanes, block_rows),
-        int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
-        current_stream_ptr())
+        data.data_ptr(), cols.data_ptr(), indptr.data_ptr(), x.data_ptr(),
+        y.data_ptr(), scratch.data_ptr(), n_rows, data.shape[0], n_slices,
+        threads, bn, chunk, int(data.dtype == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), current_stream_ptr())
     _build.check_launch("csr_spmv", code)
     csr_spmv.launches += 1
     return y

@@ -29,59 +29,7 @@
 // val * n_cols * B for X and 4 * n_rows * B for Y, over 3.35 TB/s, against
 // 2 * nnz * B flops at 67 TF/s.  As for CSR, X is gathered row by row and its
 // reuse through L2 depends on the matrix's column locality.
-#include <cstdint>
-
 #include "common.cuh"
-
-// PER consecutive values of one X row, from an address aligned for them.
-template <int PER>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[PER]) {
-  if constexpr (PER == 4) {
-    const float4 w = *reinterpret_cast<const float4*>(p);
-    v[0] = w.x;
-    v[1] = w.y;
-    v[2] = w.z;
-    v[3] = w.w;
-  } else if constexpr (PER == 2) {
-    const float2 w = *reinterpret_cast<const float2*>(p);
-    v[0] = w.x;
-    v[1] = w.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-// bfloat16: a bfloat16 is the top half of a float32.
-template <int PER>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
-                                         float (&v)[PER]) {
-  if constexpr (PER == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    v[0] = __uint_as_float(w.x << 16);
-    v[1] = __uint_as_float(w.x & 0xffff0000u);
-    v[2] = __uint_as_float(w.y << 16);
-    v[3] = __uint_as_float(w.y & 0xffff0000u);
-  } else if constexpr (PER == 2) {
-    const unsigned w = *reinterpret_cast<const unsigned*>(p);
-    v[0] = __uint_as_float(w << 16);
-    v[1] = __uint_as_float(w & 0xffff0000u);
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
-
-// One vector atomic add of PER consecutive floats (sm_90 adds float2 and
-// float4 atomics to global memory).
-template <int PER>
-__device__ __forceinline__ void add_row(float* p, const float (&v)[PER]) {
-  if constexpr (PER == 4) {
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (PER == 2) {
-    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-  } else {
-    atomicAdd(p, v[0]);
-  }
-}
 
 // VEC: a thread's PER columns are consecutive, k0 + lane * PER + i, and are
 // read and added as one vector (the entry point checks B, kt and the

@@ -28,48 +28,7 @@
 //
 // Bound on an H100: bytes — nnz * (val + 8) for the three streams,
 // val * n_cols for x and 4 * n_rows for y, over 3.35 TB/s.
-#include <cstdint>
-
 #include "common.cuh"
-
-// CHUNK consecutive entries from an address aligned for the vector loads.
-template <int CHUNK>
-__device__ __forceinline__ void load_chunk(const int* p, int (&v)[CHUNK]) {
-#pragma unroll
-  for (int q = 0; q < CHUNK / 4; ++q) {
-    const int4 w = __ldcs(reinterpret_cast<const int4*>(p) + q);
-    v[4 * q] = w.x;
-    v[4 * q + 1] = w.y;
-    v[4 * q + 2] = w.z;
-    v[4 * q + 3] = w.w;
-  }
-}
-
-template <int CHUNK>
-__device__ __forceinline__ void load_chunk(const float* p, float (&v)[CHUNK]) {
-#pragma unroll
-  for (int q = 0; q < CHUNK / 4; ++q) {
-    const float4 w = __ldcs(reinterpret_cast<const float4*>(p) + q);
-    v[4 * q] = w.x;
-    v[4 * q + 1] = w.y;
-    v[4 * q + 2] = w.z;
-    v[4 * q + 3] = w.w;
-  }
-}
-
-// bfloat16: four values in 8 bytes; a bfloat16 is the top half of a float32.
-template <int CHUNK>
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float (&v)[CHUNK]) {
-#pragma unroll
-  for (int q = 0; q < CHUNK / 4; ++q) {
-    const uint2 w = __ldcs(reinterpret_cast<const uint2*>(p) + q);
-    v[4 * q] = __uint_as_float(w.x << 16);
-    v[4 * q + 1] = __uint_as_float(w.x & 0xffff0000u);
-    v[4 * q + 2] = __uint_as_float(w.y << 16);
-    v[4 * q + 3] = __uint_as_float(w.y & 0xffff0000u);
-  }
-}
 
 // VEC: every chunk's first entry is aligned for load_chunk (the entry point
 // checks the pointers and block_nnz); a chunk cut by the end of the block
@@ -191,10 +150,6 @@ __global__ void coo_spmv_runs(const TD* __restrict__ data,
       if (row >= 0) atomicAdd(y + row, !uniform ? head_sum : v);
     }
   }
-}
-
-static inline bool aligned16(const void* p) {
-  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 // threads: threads per block (a whole number of warps, <= 1024); block_nnz:

@@ -3,6 +3,7 @@
 // per (slot, kv head).  For query rows q[b, h, g, :] (G rows per kv head h):
 //
 //   s[t]   = (q * Dh^-1/2) . (k_q[b, t, h, :] * k_s[b, t, h])
+//   s[t]   = cap * tanh(s[t] / cap)   (only when a softcap cap > 0 is given)
 //   s[t]   = -1e30 unless key_pos[b,t] >= 0, key_pos[b,t] <= q_pos[b]
 //            (and key_pos[b,t] > q_pos[b] - window when a window is given)
 //   out    = sum_t softmax(s)[t] * (v_q[b, t, h, :] * v_s[b, t, h])
@@ -74,7 +75,9 @@ __device__ __forceinline__ void unpack16(const int4 raw, float* out) {
   }
 }
 
-template <typename TQ, int GT>
+// CAP: the scores are capped (a template flag, so the uncapped kernel is the
+// one it always was).
+template <typename TQ, int GT, bool CAP>
 __global__ void __launch_bounds__(DA_MAX_THREADS)
 decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
                   const __nv_bfloat16* __restrict__ k_s,
@@ -85,7 +88,7 @@ decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
                   float* __restrict__ part_l, float* __restrict__ part_acc,
                   int S, int KV, int G, int Dh, int lanes, int g_tiles,
                   int keys_per_split, int splits, int window, int has_window,
-                  float scale) {
+                  float scale, float softcap) {
   __shared__ float sm_m[DA_MAX_THREADS];
   __shared__ float sm_l[DA_MAX_THREADS];
   __shared__ float sm_acc[DA_MAX_THREADS * 16];
@@ -163,7 +166,9 @@ decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
       unpack16(vraw, vf);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
-        const float s = valid ? dot[g] * ksc : DA_NEG_INF;
+        float s = dot[g] * ksc;
+        if (CAP) s = softcap * tanhf(s / softcap);
+        if (!valid) s = DA_NEG_INF;
         const float m_new = fmaxf(m[g], s);
         const float alpha = expf(m[g] - m_new);
         const float p = expf(s - m_new);
@@ -242,32 +247,39 @@ __global__ void decode_int8_combine(const float* __restrict__ part_m,
 // float32 scratch; out like q.  lanes: threads per key, a power of two <= 32
 // with lanes * 16 >= Dh; threads: a whole number of warps <= 256; g_tile:
 // query rows a block keeps in registers (1, 2 or 4); splits * keys_per_split
-// >= S.  The wrapper (kernels/decode_attention.py) picks them.  Launches both
-// kernels on `stream`; returns cudaGetLastError().
+// >= S; softcap: the cap of the scores, 0 for none.  The wrapper
+// (kernels/decode_attention.py) picks them.  Launches both kernels on
+// `stream`; returns cudaGetLastError().
 extern "C" int decode_attention_int8_launch(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* key_pos, const void* q_pos, void* part_m,
     void* part_l, void* part_acc, void* out, int B, int S, int KV, int G,
     int Dh, int lanes, int threads, int g_tile, int keys_per_split,
-    int splits, int window, int has_window, float scale, int q_bf16,
-    void* stream) {
+    int splits, int window, int has_window, float scale, float softcap,
+    int q_bf16, void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0) return 0;
   const int g_tiles = (G + g_tile - 1) / g_tile;
   if (S <= 0 || Dh <= 0 || Dh % 16 != 0 || !valid_block(lanes, threads) ||
       threads > DA_MAX_THREADS || lanes * 16 < Dh || splits < 1 ||
       keys_per_split < 1 || (long long)splits * keys_per_split < S ||
-      (long long)KV * g_tiles > 65535 || B > 65535) {
+      (long long)KV * g_tiles > 65535 || B > 65535 || !(softcap >= 0.f)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((unsigned)splits, (unsigned)(KV * g_tiles), (unsigned)B);
-#define SPLIT(TQ, GT)                                                       \
-  decode_int8_split<TQ, GT><<<grid, (unsigned)threads, 0, s>>>(             \
+#define SPLIT_CAP(TQ, GT, CAP)                                              \
+  decode_int8_split<TQ, GT, CAP><<<grid, (unsigned)threads, 0, s>>>(        \
       (const TQ*)q, (const int8_t*)k_q, (const __nv_bfloat16*)k_s,          \
       (const int8_t*)v_q, (const __nv_bfloat16*)v_s, (const int*)key_pos,   \
       (const int*)q_pos, (float*)part_m, (float*)part_l, (float*)part_acc,  \
       S, KV, G, Dh, lanes, g_tiles, keys_per_split, splits, window,         \
-      has_window, scale)
+      has_window, scale, softcap)
+#define SPLIT(TQ, GT)              \
+  if (softcap > 0.f) {             \
+    SPLIT_CAP(TQ, GT, true);       \
+  } else {                         \
+    SPLIT_CAP(TQ, GT, false);      \
+  }
 #define CALL(TQ)                                                 \
   switch (g_tile) {                                              \
     case 1: SPLIT(TQ, 1); break;                                 \
@@ -285,5 +297,6 @@ extern "C" int decode_attention_int8_launch(
   }
 #undef CALL
 #undef SPLIT
+#undef SPLIT_CAP
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@ KV cache of int8 codes with per-(slot, kv head) scales, dequantized inside
 the kernel so that no float copy of the cache is written to device memory —
 the copy the int8 decode branch of ``models/attention.py`` would otherwise
 make before a plain masked softmax.  Semantics are those of the reference's
-oracle ``repro/kernels/ref.py:decode_attention_int8_ref``: masked slots
+oracle ``repro/kernels/ref.py:decode_attention_int8_ref``, with the logit
+softcap of ``models/attention.py:decode_attention`` (the int8 decode branch of
+the reference dequantizes and calls it): masked slots
 score -1e30 (a row with no valid slot gives the mean of V, never NaN), the
 online softmax runs in float32 and the output is cast to q's dtype.
 
@@ -71,14 +73,19 @@ def decode_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor,
                                 k_s: torch.Tensor, v_q: torch.Tensor,
                                 v_s: torch.Tensor, key_pos: torch.Tensor,
                                 q_pos: torch.Tensor,
-                                window: Optional[int] = None) -> torch.Tensor:
+                                window: Optional[int] = None,
+                                softcap: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version: dequantize the whole cache to float32, then the
-    masked max/exp/sum attention — ``ref.py:decode_attention_int8_ref``."""
+    masked max/exp/sum attention — ``ref.py:decode_attention_int8_ref``, with
+    the scores capped at ``softcap * tanh(s / softcap)`` before the mask
+    when ``softcap > 0`` (``models/attention.py:decode_attention``)."""
     kf = k_q.float() * k_s.float()[..., None]
     vf = v_q.float() * v_s.float()[..., None]
     scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32,
                                           device=q.device))
     s = torch.einsum("bkgd,bskd->bkgs", q.float() * scale, kf)
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
     valid = (key_pos >= 0) & (key_pos <= q_pos[:, None])
     if window is not None:
         valid &= key_pos > (q_pos[:, None] - window)
@@ -94,19 +101,21 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                           k_s: torch.Tensor, v_q: torch.Tensor,
                           v_s: torch.Tensor, key_pos: torch.Tensor,
                           q_pos: torch.Tensor, *,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          softcap: float = 0.0) -> torch.Tensor:
     """q ``(B, KV, G, Dh)`` -> out ``(B, KV, G, Dh)`` in q's dtype.
 
     ``k_q``/``v_q`` ``(B, S, KV, Dh)`` int8; ``k_s``/``v_s`` ``(B, S, KV)``
     scales; ``key_pos`` ``(B, S)`` int32 absolute positions (-1 empty);
-    ``q_pos`` ``(B,)`` int32.  CPU tensors run
+    ``q_pos`` ``(B,)`` int32; ``softcap > 0`` caps each score at
+    ``softcap * tanh(s / softcap)`` before the mask.  CPU tensors run
     :func:`decode_attention_int8_plain`; CUDA tensors launch the kernel (which
     takes bfloat16 scales — the cache layout of ``models/attention.py`` — and
     heads of a multiple of 16) or raise."""
     B, S, KV, G, Dh = _check(q, k_q, k_s, v_q, v_s, key_pos, q_pos)
     if q.device.type == "cpu":
         return decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, key_pos,
-                                           q_pos, window)
+                                           q_pos, window, softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_int8 takes CPU or CUDA tensors; "
                          f"got {q.device}")
@@ -136,7 +145,8 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
         out.data_ptr(), B, S, KV, G, Dh, lanes, threads, g_tile,
         keys_per_split, splits,
         min(max(int(window), -INT32_MAX), INT32_MAX) if has_window else 0,
-        int(has_window), scale, int(q.dtype == torch.bfloat16),
+        int(has_window), scale, float(max(softcap, 0.0)),
+        int(q.dtype == torch.bfloat16),
         current_stream_ptr())
     _build.check_launch("decode_attention_int8", code)
     decode_attention_int8.launches += 1

@@ -7,8 +7,8 @@ Responsibilities:
   * cast the kernels' float32 result to ``promote_types(data, x)``;
   * accept a per-call launch geometry (``tuning=`` — a
     ``core.kernel_tune.TileGeometry``): ``block_rows`` is the number of rows
-    (ELL, CSR), columns (CCS) or block rows (BCSR) a CUDA block owns,
-    ``block_nnz`` the number of entries a CUDA block owns (COO) and
+    (ELL, CSR SpMM), columns (CCS) or block rows (BCSR) a CUDA block owns,
+    ``block_nnz`` the number of entries a CUDA block owns (COO, CSR SpMV) and
     ``block_k`` the number of right-hand-side columns a CUDA block owns
     (SpMM); ``block_w`` and ``slabs_per_block`` are ignored by these
     kernels;
@@ -19,8 +19,7 @@ Responsibilities:
 
 Every wrapper here reaches a kernel wrapper of this package, which launches
 its CUDA kernel for CUDA tensors (or raises) and runs the kernel's plain
-PyTorch version for CPU tensors.  CSR is served by the native row-segmented
-kernel; the CSR-via-COO detour survives only as ``spmv_csr_via_coo`` so a
+PyTorch version for CPU tensors.  CSR is served by its native kernels; the CSR-via-COO detour survives only as ``spmv_csr_via_coo`` so a
 benchmark can measure what the native kernel buys (``spmm_csr_via_coo`` is
 its SpMM twin).  SELL launches the ELL kernel once per bucket and accepts a
 *per-bucket* launch geometry.
@@ -157,9 +156,9 @@ def spmm_coo(m: COO, x: torch.Tensor,
 
 def spmv_csr(m: CSR, x: torch.Tensor,
              tuning: Optional[TileGeometry] = None) -> torch.Tensor:
-    """CSR through the native row-segmented kernel (no COO detour)."""
+    """CSR through the native entry-sliced kernel (no COO detour)."""
     y = _csr.csr_spmv(m.data, m.cols, m.indptr, x,
-                      block_rows=_knob(tuning, "block_rows"))
+                      block_nnz=_knob(tuning, "block_nnz"))
     return y.to(result_dtype(m.data.dtype, x.dtype))
 
 

@@ -248,10 +248,6 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                                  window)
     elif S == 1:
         quant = "k_s" in cache
-        if quant and cfg.attn_logit_softcap > 0.0:
-            raise NotImplementedError(
-                "the int8 decode kernel (decode_attention_int8) has no logit "
-                "softcap; no config of the repo sets one")
         pos_b = torch.as_tensor(cache_len, dtype=torch.int32,
                                 device=dev).broadcast_to((B,)).contiguous()
         q = apply_rope(q, pos_b[:, None], theta)
@@ -273,7 +269,8 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         if quant:
             out = decode_attention_int8(
                 q.reshape(B, KV, G, Dh), cache["k"], cache["k_s"],
-                cache["v"], cache["v_s"], key_pos, pos_b, window=window)
+                cache["v"], cache["v_s"], key_pos, pos_b, window=window,
+                softcap=cfg.attn_logit_softcap)
         else:
             out = decode_attention(q.reshape(B, 1, KV, G, Dh), cache["k"],
                                    cache["v"], key_pos, pos_b, window=window,

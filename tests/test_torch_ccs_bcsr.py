@@ -499,6 +499,105 @@ def test_ccs_bcsr_launch_shapes_are_chosen_on_the_host():
             assert C.bcsr_spmv_launch(b, rows)[0] == threads or b > 32
 
 
+@pytest.mark.parametrize("batch,block_rows,block_k", [
+    (128, None, None), (128, 8, None), (128, 1024, None), (8, None, None),
+    (1, None, None), (1, 1024, None), (130, None, 32), (3, 5, None)])
+@pytest.mark.parametrize("shape", [(629856, 629856, 15466752),
+                                   (524304, 524304, 6103216),
+                                   (116158, 116158, 8516500), (100, 61, 856),
+                                   (40, 30, 8), (7, 5000, 20000)])
+def test_ccs_spmm_window_is_chosen_on_the_host(shape, batch, block_rows,
+                                               block_k):
+    """K8's launch: the column tile as before; the block's columns rounded
+    as a row group is (so a tuner candidate is the launch).  A tile of a
+    whole warp keeps a window: ``DEFAULT_THREADS`` threads, at least
+    ``CCS_SPMM_COLS`` columns by default, rows covering those the columns map
+    to plus a mean column, a power of two of rows a lane group (2 to
+    ``CCS_ROWS_PER_GROUP_MAX``), within the matrix, under 48 KB of shared
+    memory.  A narrower tile runs a lane group a column, no window."""
+    n_rows, n_cols, nnz_pad = shape
+    kt, lanes, per, threads, cols, window, rpg = C.ccs_spmm_launch(
+        batch, n_rows, n_cols, nnz_pad, block_rows, block_k)
+    assert (kt, lanes, per) == C.rhs_tile(batch, block_k)
+    if lanes < 32:
+        assert (window, rpg) == (0, 0) and per == 1
+        assert cols == C.rows_per_block(lanes, block_rows)
+        assert threads == cols * lanes == C.clamp_threads(threads)
+        return
+    assert threads == C.DEFAULT_THREADS
+    assert cols == C.rows_per_block(lanes, block_rows or C.CCS_SPMM_COLS)
+    groups = C.DEFAULT_THREADS // lanes
+    need = -(-cols * n_rows // n_cols) + -(-nnz_pad // n_cols)
+    assert rpg in (2, 4, 8, 16)
+    assert rpg * groups >= need or rpg == C.CCS_ROWS_PER_GROUP_MAX
+    assert rpg == 2 or (rpg // 2) * groups < need
+    assert window == min(rpg * groups, n_rows)
+    smem = 4 * (cols * lanes * per + cols + 1 + window
+                + 5 * 4 * C.DEFAULT_THREADS)
+    assert smem <= 48 * 1024
+    if shape[0] == 629856 and (batch, block_rows, block_k) == (128, None,
+                                                               None):
+        # xenon2@x4 at B = 128: 32 columns, 8 warps of 8 rows: 64 rows
+        assert (cols, window, rpg) == (32, 64, 8)
+    for b in range(min(-(-n_cols // cols), 9)):
+        base = C.ccs_window_base(b, cols, window, n_rows, n_cols)
+        assert 0 <= base <= n_rows - window
+
+
+def brute_flushes(rows, indptr, n_rows, cols, window):
+    """The global atomics of K8, entry by entry: one per distinct window row
+    a block touches, one per entry outside its window."""
+    ip = indptr.numpy()
+    n_cols = ip.shape[0] - 1
+    touched, outside = set(), 0
+    for c in range(n_cols):
+        b = c // cols
+        base = C.ccs_window_base(b, cols, window, n_rows, n_cols)
+        for k in range(ip[c], ip[c + 1]):
+            r = int(rows[k])
+            if base <= r < base + window:
+                touched.add((b, r))
+            else:
+                outside += 1
+    return len(touched), outside
+
+
+@pytest.mark.parametrize("batch,block_rows", [(128, None), (32, None),
+                                              (8, None), (128, 3)])
+@pytest.mark.parametrize("kind", ["band", "scattered", "shuffled"])
+def test_ccs_spmm_flushes_counted_on_the_host(kind, batch, block_rows):
+    """``ccs_spmm_flushes`` equals an entry-by-entry count; a band flushes
+    few window rows and a scattered matrix almost only entries outside."""
+    rng = np.random.default_rng(19)
+    n = 300
+    if kind == "scattered":
+        dense = (rng.random((n, n)) < 0.03) * rng.normal(size=(n, n))
+    else:
+        i = np.arange(n)[:, None]
+        dense = (np.abs(i - np.arange(n)[None, :]) <= 5) * rng.normal(
+            size=(n, n))
+    m = TT.host_csr_to_ccs(TT.csr_from_dense(dense.astype(np.float32),
+                                             pad=8, device="cpu"))
+    rows = m.rows.clone()
+    if kind == "shuffled":
+        ip = m.indptr.numpy()
+        for a, b in zip(ip[:-1], ip[1:]):
+            rows[a:b] = rows[a:b][torch.from_numpy(rng.permutation(b - a))]
+    got = K7.ccs_spmm_flushes(rows, m.indptr, m.n_rows, batch, block_rows)
+    _, _, _, _, cols, window, _ = C.ccs_spmm_launch(
+        batch, m.n_rows, m.n_cols, rows.shape[0], block_rows)
+    if window:
+        flushed, outside = brute_flushes(rows, m.indptr, m.n_rows, cols,
+                                         window)
+    else:                     # a narrow tile: every entry straight to Y
+        flushed, outside = 0, m.nnz
+    assert got == {"cols": cols, "window": window, "flushed": flushed,
+                   "outside": outside,
+                   "atomics": (flushed + outside) * batch}
+    if kind != "scattered" and block_rows is None and batch > 16:
+        assert outside == 0 and flushed < m.nnz / 3
+
+
 @pytest.mark.parametrize("g", [None, dict(block_rows=8, block_nnz=64),
                                dict(block_rows=3), dict(block_nnz=4096),
                                dict(block_rows=1000, block_nnz=8,

@@ -493,3 +493,228 @@ def test_cuda_int8_decode_step_launches_k11_per_layer(cuda, arch):
     # round the other way (~3e-4 on these logits, test_torch_lm_model.py)
     np.testing.assert_allclose(logits[str(cuda)].cpu().numpy(),
                                logits["cpu"].numpy(), rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K2: entry slices, rows joined by a keyed scan and carries — deterministic
+# ---------------------------------------------------------------------------
+def csr_arrays(kind, seed, dtype):
+    """CPU ``(data, cols, indptr, x)`` of one CSR case: ``empty_rows``
+    (leading, trailing and every third row empty), ``one_row`` (every entry
+    in one row), ``power_law`` (torso1's two-point rows, 4959 entries each,
+    past several slices of every tile), ``pads`` (slots past IRP[-1] hold
+    NaN: never read), ``ragged`` (1003 entries: no multiple of 4), and
+    ``unaligned`` (``data[1:]``, ``cols[1:]``: no 16-byte load aligns)."""
+    from repro_torch.core import suite
+    rng = np.random.default_rng(seed)
+    n_cols = 300
+    if kind == "power_law":
+        spec = next(s for s in suite.TABLE1 if s.name == "torso1")
+        m = suite.synthesize(spec, scale=0.05, device="cpu")
+        data, cols, indptr = m.data, m.cols, m.indptr
+        n_cols = m.n_cols
+        data = torch.from_numpy(rng.normal(size=data.shape[0]).astype(
+            np.float32))
+    else:
+        lens = {"empty_rows": np.where(np.arange(90) % 3 == 0, 0,
+                                       rng.integers(1, 40, 90)),
+                "one_row": np.where(np.arange(50) == 3, 5000, 0),
+                "pads": rng.integers(0, 30, 70),
+                "ragged": np.full(59, 17),
+                "unaligned": rng.integers(0, 50, 80)}[kind]
+        if kind == "empty_rows":
+            lens[:4] = 0
+            lens[-5:] = 0
+        if kind == "ragged":
+            lens[-1] = 1003 - 17 * 58
+        nnz = int(lens.sum())
+        indptr = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(lens)]).astype(np.int32))
+        cols = torch.from_numpy(rng.integers(0, n_cols, nnz).astype(np.int32))
+        data = torch.from_numpy(rng.normal(size=nnz).astype(np.float32))
+        if kind == "pads":
+            data = torch.cat([data, torch.full((61,), float("nan"))])
+            cols = torch.cat([cols, torch.zeros(61, dtype=torch.int32)])
+    x = torch.from_numpy(rng.normal(size=n_cols).astype(np.float32))
+    data = data.to(TDT[dtype])
+    if kind == "unaligned":
+        data = torch.cat([data[:1], data])[1:]
+        cols = torch.cat([cols[:1], cols])[1:]
+    return data, cols, indptr, x.to(TDT[dtype])
+
+
+CSR_KINDS = ("empty_rows", "one_row", "power_law", "pads", "ragged",
+             "unaligned")
+
+
+def on_card(arrays, cuda):
+    """The arrays on the card, keeping a view's offset (``unaligned``)."""
+    out = []
+    for a in arrays:
+        if a.storage_offset():
+            base = a._base if a._base is not None else a
+            out.append(base.to(cuda)[a.storage_offset():])
+        else:
+            out.append(a.to(cuda))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", CSR_KINDS)
+def test_cuda_csr_spmv_slices_match_plain_at_every_tile(cuda, kind, dtype):
+    """K2 against its plain version at the default launch and every
+    candidate of the tuner's grid (entries per block), each launch giving
+    the same bits twice."""
+    from repro_torch.core.kernel_tune import candidate_geometries
+    from repro_torch.kernels import csr_spmv as K2
+    data, cols, indptr, x = csr_arrays(kind, 61, dtype)
+    want = K2.csr_spmv_plain(data, cols, indptr, x)
+    mag = K2.csr_spmv_plain(data.nan_to_num().abs(), cols, indptr, x.abs())
+    args = on_card((data, cols, indptr, x), cuda)
+    if kind == "unaligned":
+        assert args[0].data_ptr() % 16 and args[1].data_ptr() % 16
+    grid = candidate_geometries("csr", "spmv", n_rows=indptr.shape[0] - 1,
+                                nnz_pad=data.shape[0])
+    assert grid and all(g.block_nnz for g in grid)
+    for bn in [None] + [g.block_nnz for g in grid]:
+        before = K2.csr_spmv.launches
+        got = K2.csr_spmv(*args, block_nnz=bn)
+        again = K2.csr_spmv(*args, block_nnz=bn)
+        torch.cuda.synchronize()
+        assert K2.csr_spmv.launches == before + 2
+        assert torch.equal(got, again), bn
+        assert_kernel_close(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_nnz", (None,) + GPU_NNZ_TILES)
+def test_cuda_csr_spmv_is_bit_identical_across_launches(cuda, block_nnz):
+    """Rows of 4959 entries cross several slices: their carries are added in
+    slice order, so ten launches give one result, bit for bit."""
+    from repro_torch.kernels import csr_spmv as K2
+    args = on_card(csr_arrays("power_law", 62, "float32"), cuda)
+    first = K2.csr_spmv(*args, block_nnz=block_nnz)
+    for _ in range(9):
+        assert torch.equal(K2.csr_spmv(*args, block_nnz=block_nnz), first)
+
+
+# ---------------------------------------------------------------------------
+# K8: a block's adjacent columns meet in a shared-memory window of Y rows
+# ---------------------------------------------------------------------------
+def ccs_arrays(kind, seed, dtype):
+    """CPU ``(data, rows, indptr, n_rows)`` of one CCS case: ``banded``
+    (xenon2's band), ``scattered`` (viscoplastic2's hashed columns),
+    ``shuffled`` (the band with each column's rows in random order),
+    ``wide`` (the band plus entries far from it, so a block's rows span past
+    its window), ``heavy`` (torso1's long rows: the widest window), ``ragged``
+    (empty and dense columns) and ``all_zero``."""
+    from repro_torch.core import suite
+    rng = np.random.default_rng(seed)
+    specs = {s.name: s for s in suite.TABLE1}
+    if kind == "ragged":
+        csr = TT.csr_from_dense(ragged_dense(rng), pad=8, device="cpu")
+    elif kind == "all_zero":
+        csr = TT.csr_from_dense(np.zeros((40, 30), np.float32), pad=8,
+                                device="cpu")
+    elif kind == "wide":
+        dense = np.zeros((400, 400), np.float32)
+        i = np.arange(400)
+        for off in range(-6, 7):
+            j = np.clip(i + off, 0, 399)
+            dense[i, j] = rng.normal(size=400)
+        far = rng.integers(0, 400, (600, 2))
+        dense[far[:, 0], far[:, 1]] = rng.normal(size=600)
+        csr = TT.csr_from_dense(dense, pad=8, device="cpu")
+    else:
+        name, scale = {"banded": ("xenon2", 0.02),
+                       "shuffled": ("xenon2", 0.02),
+                       "scattered": ("viscoplastic2", 0.1),
+                       "heavy": ("torso1", 0.02)}[kind]
+        csr = suite.synthesize(specs[name], scale=scale, device="cpu")
+    m = TT.host_csr_to_ccs(csr)
+    data = torch.from_numpy(rng.normal(size=m.data.shape[0]).astype(
+        np.float32))
+    rows = m.rows.clone()
+    if kind == "shuffled":
+        ip = m.indptr.numpy()
+        perm = np.concatenate([a + rng.permutation(b - a)
+                               for a, b in zip(ip[:-1], ip[1:])]
+                              + [np.arange(ip[-1], rows.shape[0])])
+        rows, data = rows[perm], data[perm]
+    return data.to(TDT[dtype]), rows, m.indptr, m.n_rows
+
+
+CCS_KINDS = ("banded", "scattered", "shuffled", "wide", "heavy", "ragged",
+             "all_zero")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3, 8, 40, 128])
+@pytest.mark.parametrize("kind", CCS_KINDS)
+def test_cuda_ccs_spmm_window_matches_plain(cuda, kind, batch, dtype):
+    """K8 against its plain version at the default launch, each column tile
+    of the tuner's grid and a few columns-per-block values (so windows of
+    other sizes and places)."""
+    from repro_torch.kernels import ccs_spmv as K7
+    data, rows, indptr, n_rows = ccs_arrays(kind, 63, dtype)
+    rng = np.random.default_rng(64)
+    x = torch.from_numpy(rng.normal(size=(indptr.shape[0] - 1, batch)).astype(
+        np.float32)).to(TDT[dtype])
+    want = K7.ccs_spmm_plain(data, rows, indptr, x, n_rows)
+    mag = K7.ccs_spmm_plain(data.abs(), rows, indptr, x.abs(), n_rows)
+    args = [t.to(cuda) for t in (data, rows, indptr, x)]
+    for block_k in (None,) + GPU_K_TILES:
+        for block_rows in (None, 1, 7, 32):
+            before = K7.ccs_spmm.launches
+            got = K7.ccs_spmm(*args, n_rows, block_rows=block_rows,
+                              block_k=block_k)
+            torch.cuda.synchronize()
+            assert K7.ccs_spmm.launches == before + 1
+            assert_kernel_close(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 32, 128])
+def test_cuda_ccs_spmm_widest_window(cuda, batch):
+    """torso1's columns reach ~75 rows past a block's own, so at B = 128 each
+    lane group keeps the most rows it may (16) in registers; the rest of its
+    rows' entries go to Y from outside the window."""
+    from repro_torch.kernels import _common as C
+    from repro_torch.kernels import ccs_spmv as K7
+    data, rows, indptr, n_rows = ccs_arrays("heavy", 65, "float32")
+    n_cols = indptr.shape[0] - 1
+    *_, window, rows_per_group = C.ccs_spmm_launch(batch, n_rows, n_cols,
+                                                   data.shape[0])
+    assert rows_per_group == (C.CCS_ROWS_PER_GROUP_MAX if batch > 16 else 0)
+    x = torch.from_numpy(np.random.default_rng(66).normal(
+        size=(n_cols, batch)).astype(np.float32))
+    got = K7.ccs_spmm(*(t.to(cuda) for t in (data, rows, indptr, x)), n_rows)
+    assert_kernel_close(got, K7.ccs_spmm_plain(data, rows, indptr, x, n_rows),
+                        K7.ccs_spmm_plain(data.abs(), rows, indptr, x.abs(),
+                                          n_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softcap", [1.5, 30.0])
+@pytest.mark.parametrize("B,S,KV,G,Dh,window", [
+    (2, 512, 2, 3, 64, None), (3, 640, 2, 2, 32, 256),
+    (8, 1000, 8, 2, 128, None)])
+def test_cuda_decode_attention_int8_softcap_matches_plain(
+        cuda, B, S, KV, G, Dh, window, softcap, q_dtype):
+    """K11 with the reference's logit softcap (cap * tanh(s / cap) before
+    the mask) against its plain version; a cap of 1.5 bends every score."""
+    from repro_torch.kernels import decode_attention as K11
+    args = k11_inputs(np.random.default_rng(46), B, S, KV, G, Dh, q_dtype)
+    args[0] = args[0] * 8      # scores of several units, so the cap bites
+    got = K11.decode_attention_int8(*[a.to(cuda) for a in args],
+                                    window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    want = K11.decode_attention_int8_plain(*args, window=window,
+                                           softcap=softcap)
+    assert_k11_close(got, want, q_dtype)
+    if softcap < 2:
+        uncapped = K11.decode_attention_int8_plain(*args, window=window)
+        assert not torch.allclose(uncapped.float(), want.float(), atol=1e-2)

@@ -22,6 +22,7 @@ import torch
 from repro.kernels import ref as R_ref
 from repro.kernels.decode_attention import decode_attention_int8 as R_k11
 from repro.models.attention import _dequantize_kv as R_deq
+from repro.models.attention import decode_attention as R_decode
 from repro.models.attention import _quantize_kv as R_quant
 from repro_torch import kernels as TK
 from repro_torch.kernels import _common as C
@@ -127,6 +128,32 @@ def test_bf16_q_and_scales_within_one_ulp_of_oracle(B, S, KV, G, Dh, window):
         j[i] = j[i].astype(jnp.bfloat16)
     want = f32(R_ref.decode_attention_int8_ref(*j, window=window))
     assert bf16_close(f32(got), want)
+
+
+@pytest.mark.parametrize("softcap", [1.5, 30.0])
+@pytest.mark.parametrize("B,S,KV,G,Dh,window", SHAPES)
+def test_plain_with_softcap_matches_reference_decode(B, S, KV, G, Dh, window,
+                                                     softcap):
+    """With a logit softcap the reference's int8 decode dequantizes the
+    cache and calls ``decode_attention(..., softcap=...)``
+    (``repro/models/attention.py``); K11's plain version caps the scores in
+    the same place, before the mask.  q is scaled so that scores reach
+    several units and a cap of 1.5 bends them all."""
+    arrays = list(inputs(8, B, S, KV, G, Dh))
+    arrays[0] = arrays[0] * 40.0
+    q, k_q, k_s, v_q, v_s, key_pos, q_pos = map(jnp.asarray, arrays)
+    want = R_decode(q[:, None], R_deq(k_q, k_s), R_deq(v_q, v_s), key_pos,
+                    q_pos, window=window, softcap=softcap)[:, 0]
+    got = K11.decode_attention_int8_plain(*port(*arrays), window=window,
+                                          softcap=softcap)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL)
+    same = K11.decode_attention_int8(*port(*arrays), window=window,
+                                     softcap=softcap)
+    assert torch.equal(same, got)
+    if softcap < 2:
+        uncapped = K11.decode_attention_int8_plain(*port(*arrays),
+                                                   window=window)
+        assert np.abs(f32(uncapped) - f32(got)).max() > 100 * TOL["atol"]
 
 
 def test_plain_matches_model_decode_case():

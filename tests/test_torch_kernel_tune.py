@@ -116,10 +116,10 @@ def test_candidates_are_launches_a_wrapper_makes(fmt, op, batch):
             kt, lanes, _ = C.rhs_tile(batch, g.block_k)
             assert g.block_k == kt <= batch
         else:
-            lanes = {"csr": C.csr_spmv_lanes(nnz_pad, n_rows),
-                     "ccs": C.csr_spmv_lanes(nnz_pad, n_rows), "ell_row": 32,
+            lanes = {"ccs": C.csr_spmv_lanes(nnz_pad, n_rows), "ell_row": 32,
                      "sell": 32}.get(fmt, 1)
-        if fmt.startswith("coo"):
+        if fmt.startswith("coo") or (fmt, op) == ("csr", "spmv"):
+            # entries per block: COO, and CSR SpMV's slices
             assert g.block_rows is None and g.block_nnz <= nnz_pad
         elif fmt == "bcsr" and op == "spmv":
             # a thread per scalar row, ``width`` the block size b
@@ -205,29 +205,32 @@ def test_tune_memoizes_per_profile(problem):
 
 
 def test_csr_winner_carries_the_reference_slab_bound(problem):
+    """CSR SpMV tunes its slice (entries per block); the winner carries the
+    reference's slab bound for that block_nnz and the reference's default
+    rows per block."""
     _, m = problem
     rec = KernelTuner(timer=fake_timer()).tune(m)
     g = rec.geometry
     ip = m.indptr.numpy()
-    assert g.block_rows is not None
-    assert g.slabs_per_block == ref_slabs_needed(ip, g.block_rows, 2048)
+    assert g.block_rows is None and g.block_nnz is not None
+    assert g.slabs_per_block == ref_slabs_needed(ip, 256, g.block_nnz)
 
 
 def test_force_retune_replaces_record_in_place(problem):
     _, m = problem
     db = empty_db(TA)
-    tuner = KernelTuner(db=db, timer=fake_timer(prefer_rows=4))
+    tuner = KernelTuner(db=db, timer=fake_timer(prefer_nnz=256))
     r1 = tuner.tune(m)
-    assert r1.geometry.block_rows == 4
-    tuner._timer = fake_timer(prefer_rows=32)
+    assert r1.geometry.block_nnz == 256
+    tuner._timer = fake_timer(prefer_nnz=1024)
     r2 = tuner.tune(m, force=True)
-    assert r2.geometry.block_rows == 32
+    assert r2.geometry.block_nnz == 1024
     assert len(db.geometries) == 1, "re-tune must not accumulate duplicates"
     db2 = TA.TuningDB.from_json(db.to_json())
     assert len(db2.geometries) == 1
     assert db2.geometries[0].geometry == r2.geometry
     assert nearest_geometry(db2.geometries, "csr", "spmv",
-                            d_mat=r2.d_mat).block_rows == 32
+                            d_mat=r2.d_mat).block_nnz == 1024
 
 
 def test_legacy_duplicate_records_healed_on_load():

@@ -306,6 +306,23 @@ def test_spmv_launch_shapes_are_chosen_on_the_host():
         assert rows == sorted(set(rows))
 
 
+@pytest.mark.parametrize("block_nnz", (None,) + GPU_NNZ_TILES + (100, 5000))
+@pytest.mark.parametrize("nnz_pad", [0, 1, 1003, 4096, 15466752])
+def test_csr_spmv_slices_are_chosen_on_the_host(nnz_pad, block_nnz):
+    """K2's launch: a slice of ``block_nnz`` entries a block (default
+    ``CSR_DEFAULT_BLOCK_NNZ``), COO's threads and entries per thread for it,
+    and slices that cover every stored slot (one for a matrix with no slot,
+    so its rows are still written)."""
+    from repro_torch.kernels import _common as C
+    threads, bn, chunk, n_slices = C.csr_slices(nnz_pad, block_nnz)
+    assert (threads, bn, chunk) == C.coo_launch(block_nnz or
+                                                C.CSR_DEFAULT_BLOCK_NNZ)
+    assert n_slices >= 1 and (n_slices - 1) * bn < max(nnz_pad, 1)
+    assert n_slices * bn >= nnz_pad
+    if (nnz_pad, block_nnz) == (15466752, None):   # xenon2@x4
+        assert (threads, bn, chunk, n_slices) == (256, 2048, 8, 7553)
+
+
 # ---------------------------------------------------------------------------
 # every ported format, both tiers, vs the reference and vs dense
 # ---------------------------------------------------------------------------

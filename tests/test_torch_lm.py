@@ -386,14 +386,36 @@ def test_attention_apply_branches_match_reference(quant, slots):
     np.testing.assert_allclose(f32(got), f32(want), **TOL)
 
 
-def test_int8_decode_refuses_a_logit_softcap():
-    cfg = TC.smoke_config(TC.get_config("qwen3-1.7b")).replace(
-        kv_quant=True, attn_logit_softcap=30.0)
-    p = TM.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    caches = TM.init_caches(cfg, 1, 8, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="softcap"):
-        TM.decode_step(p, torch.zeros((1, 1), dtype=torch.long), caches, 0,
-                       cfg)
+def test_int8_decode_applies_the_logit_softcap_as_the_reference():
+    """The int8 decode step with ``attn_logit_softcap`` set: the port caps
+    the scores inside K11 (its plain version here), the reference after
+    dequantizing the cache (``decode_attention(..., softcap=...)``); both
+    decode from the same filled cache and give the same logits, which the
+    cap moves."""
+    from test_torch_lm_model import reference_caches, reference_fns
+    rcfg, tcfg = configs("qwen3-1.7b", kv_quant=True, attn_logit_softcap=30.0)
+    rp, tp = both_params(rcfg, tcfg)
+    r_prefill, r_decode, _ = reference_fns(rcfg)
+    B, S = 2, 24
+    toks = np.random.default_rng(8).integers(0, tcfg.vocab_size,
+                                             (B, S)).astype(np.int32)
+    rc = RM.init_caches(rcfg, B, S + 2, jnp.float32)
+    tc = TM.init_caches(tcfg, B, S + 2, torch.float32, device="cpu")
+    _, rc = r_prefill(rp, {"tokens": jnp.asarray(toks[:, :-1])}, rc)
+    for t, r in zip(tc["layers"], reference_caches(rc, rcfg)):
+        for n, a in r.items():
+            t["attn"][n].copy_(torch.from_numpy(np.array(f32(a))))
+    uncapped = [{"attn": {n: a.clone() for n, a in c["attn"].items()}}
+                for c in tc["layers"]]
+    pos = S - 1
+    want, _ = r_decode(rp, jnp.asarray(toks[:, -1:]), rc,
+                       jnp.asarray(pos, jnp.int32))
+    got, _ = TM.decode_step(tp, t_(toks[:, -1:]).long(), tc, pos, tcfg)
+    np.testing.assert_allclose(f32(got), f32(want), **TOL)
+    plain, _ = TM.decode_step(tp, t_(toks[:, -1:]).long(),
+                              {"layers": uncapped}, pos,
+                              tcfg.replace(attn_logit_softcap=0.0))
+    assert np.abs(f32(plain) - f32(got)).max() > 10 * TOL["atol"]
 
 
 @pytest.mark.parametrize("quant", [False, True])
