@@ -88,6 +88,10 @@ COO_ORDER_MATRIX = ("xenon2", 1.0)
 #: on (D_mat 5.72; 857 rows of 4959 entries hold half of them): only those
 #: two formats, since its ELL panel would take gigabytes
 HEAVY = ("torso1", 1.0)
+#: the hash-scattered matrix ``ccs_spmv`` is also checked and timed on
+#: (SpMV, float32; 6.1 M entries, 91 % of them outside any warp's window of
+#: y rows): there the window must cost next to nothing
+SCATTERED = ("viscoplastic2", 16.0)
 
 KERNEL_INFO = {
     "ell_spmv": {"route": "cuda",
@@ -345,8 +349,7 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
                                                  xa, n),
             "bytes": nnz * (val + 4) + 4 * (csr.n_cols + 1) + xy_bytes,
             "flops": flops,
-            "info": {} if batch is None else ccs_flushes(layouts, layout,
-                                                         batch, block_k)})
+            "info": ccs_flushes(layouts, layout, batch, block_k)})
 
     if "bcsr" not in layouts:
         return cases, library_of(layouts, csr, x, dtype)
@@ -378,15 +381,19 @@ def library_of(layouts, csr, x, dtype):
 
 
 def ccs_flushes(layouts, layout, batch, block_k):
-    """K8's global atomics at this launch (``ccs_spmm_flushes``), counted
-    once per matrix, layout, B and column tile."""
-    from repro_torch.kernels.ccs_spmv import ccs_spmm_flushes
+    """K7's (``batch=None``: ``ccs_spmv_flushes``) or K8's
+    (``ccs_spmm_flushes``) global atomics at this launch, counted once per
+    matrix, layout, B and column tile."""
+    from repro_torch.kernels.ccs_spmv import (ccs_spmm_flushes,
+                                              ccs_spmv_flushes)
     memo = layouts.setdefault("flushes", {})
     key = (layout, batch, block_k)
     if key not in memo:
         m = layouts[layout]
-        memo[key] = ccs_spmm_flushes(m.rows, m.indptr, m.n_rows, batch,
-                                     block_k=block_k)
+        memo[key] = (ccs_spmv_flushes(m.rows, m.indptr, m.n_rows)
+                     if batch is None else
+                     ccs_spmm_flushes(m.rows, m.indptr, m.n_rows, batch,
+                                      block_k=block_k))
     return memo[key]
 
 
@@ -501,6 +508,64 @@ def shuffled_ccs_results(csr, layouts, label):
     return results
 
 
+def ell_nonfinite_results(csr, layouts, label):
+    """K4 held against its plain version where ``X[0, :]`` cycles through
+    +inf, 1.5, -inf and NaN: the kernel gathers no X row for a padded
+    ``(0, column 0)`` slot and adds ``0 * X[0]`` once a row, so NaN must sit
+    exactly where the plain version has it (the rows whose band holds such a
+    slot, where ``X[0, b]`` is not finite), infinities too; the finite
+    values are held to ``KERNEL_REL_TOL``.  ELL-Row, ELL-Col and each SELL
+    bucket, B = 1, 8 and ``SERVE_BATCH``, both value dtypes.  Not timed."""
+    from repro_torch.kernels import ell_spmv as K1
+
+    panels = [("ell_row", layouts["ell_row"].data, layouts["ell_row"].cols),
+              ("ell_col", layouts["ell_col"].data.t(),
+               layouts["ell_col"].cols.t())]
+    panels += [(f"sell[{i}]", b.data, b.cols)
+               for i, b in enumerate(layouts["sell"].buckets)]
+    rng = np.random.default_rng(99)
+    results = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in (1, 8, SERVE_BATCH):
+            x = rng.normal(size=(csr.n_cols, batch)).astype(np.float32)
+            x[0] = np.resize(np.array([np.inf, 1.5, -np.inf, np.nan],
+                                      np.float32), batch)
+            x = torch.from_numpy(x).to("cuda").to(dtype)
+            xa = torch.where(torch.isfinite(x), x, 0.0).abs()
+            for layout, d, c in panels:
+                d = d.to(dtype)
+                got = K1.ell_spmm(d, c, x)
+                want = K1.ell_spmm_plain(d, c, x)
+                mag = K1.ell_spmm_plain(d.abs(), c, xa)
+                torch.cuda.synchronize()
+                fin = torch.isfinite(want)
+                same = (torch.equal(torch.isnan(got), torch.isnan(want))
+                        and torch.equal(torch.isinf(got), torch.isinf(want))
+                        and torch.equal(got[torch.isinf(want)],
+                                        want[torch.isinf(want)]))
+                err = (got[fin] - want[fin]).abs()
+                rel = float((err / (mag[fin] + 1e-30)).max()) if err.numel() \
+                    else 0.0
+                if not same or rel > KERNEL_REL_TOL:
+                    raise AssertionError(
+                        f"ell_spmm/{layout} {label} {dtype} B={batch}, "
+                        f"non-finite X[0]: NaN or inf placed apart from the "
+                        f"plain version's ({same}) or rel err {rel}")
+                results.append({
+                    "name": "ell_spmm", "layout": f"{layout}[x0 non-finite]",
+                    "matrix": label, "batch": batch,
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "n_rows": int(got.shape[0]), "nnz": csr.nnz,
+                    "nan_rows": int(torch.isnan(want).any(dim=1).sum()),
+                    "max_abs_err": float(err.max()) if err.numel() else 0.0,
+                    "max_rel_err": rel, "tolerance": KERNEL_REL_TOL})
+                del got, want, mag
+    if not any(r["nan_rows"] for r in results):
+        raise AssertionError("ell_spmm: no padded slot met a non-finite "
+                             "X[0]; the check has no case")
+    return results
+
+
 def check_cases(cases, library, label, nnz, dtype, timed, reps, **extra):
     """Hold each case's kernel against its plain version (relative to the
     plain version on |data|, |x|); time the kernel, the plain version and
@@ -548,8 +613,9 @@ def phase_kernels(reps: int):
     B of ``SPMM_CHECKED``, and on ``BIG`` at B = ``SERVE_BATCH`` also at
     each column tile the tuner's grid launches; the COO kernels also on
     ``COO_ORDER_MATRIX``'s entries in every adversarial order, the CCS
-    kernels on its columns with their rows shuffled; the CSR and CCS kernels
-    on ``HEAVY``); time the SpMV cases of ``KERNEL_MATRICES`` and ``HEAVY``
+    kernels on its columns with their rows shuffled, K4 with a non-finite
+    ``X[0]``; the CSR and CCS kernels on ``HEAVY``, K7 on ``SCATTERED``);
+    time the SpMV cases of ``KERNEL_MATRICES``, ``HEAVY`` and ``SCATTERED``
     and the SpMM cases of ``BIG`` and ``HEAVY`` at each B of
     ``SPMM_TIMED``.  The phase line also gives the seconds spent on
     each matrix."""
@@ -589,6 +655,7 @@ def phase_kernels(reps: int):
         if (name, scale) == COO_ORDER_MATRIX:
             results += coo_order_results(csr, label)
             results += shuffled_ccs_results(csr, layouts, label)
+            results += ell_nonfinite_results(csr, layouts, label)
         del csr, layouts
         torch.cuda.empty_cache()
         seconds[label] = time.perf_counter() - t0
@@ -607,6 +674,18 @@ def phase_kernels(reps: int):
             results += check_cases(cases, library, label, csr.nnz, dtype,
                                    batch in SPMM_TIMED, reps, batch=batch)
     del csr, layouts
+    torch.cuda.empty_cache()
+    seconds[label] = time.perf_counter() - t0
+    # the scattered matrix: K7 alone, float32 SpMV, timed
+    t0 = time.perf_counter()
+    csr = suite.synthesize(specs[SCATTERED[0]], scale=SCATTERED[1])
+    layouts = {"csr": csr.to("cuda"),
+               "ccs": T.host_csr_to_ccs(csr).to("cuda")}
+    label = matrix_label(*SCATTERED)
+    cases, library = kernel_cases(csr, layouts, torch.float32)
+    results += check_cases([c for c in cases if c["name"] == "ccs_spmv"],
+                           library, label, csr.nnz, torch.float32, True, reps)
+    del csr, layouts, cases, library
     torch.cuda.empty_cache()
     seconds[label] = time.perf_counter() - t0
     emit("kernels", seconds=seconds, cases=results)

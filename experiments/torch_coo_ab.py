@@ -25,11 +25,18 @@ the kernel's plain version.  ``--kernels`` picks the set:
   bfloat16, and at B = 128, float32, at each columns-per-block tile of the
   tuner's grid; K11 ``decode_attention_int8`` at the LM server's shape
   (B 8, S 8192, KV 8, G 2, Dh 128, bfloat16 q).
+* ``ccs_ell``: K7 ``ccs_spmv`` on xenon2@x4, viscoplastic2@x16 and torso1,
+  float32 and bfloat16, and float32 at each columns-per-block candidate of
+  the checkout's own tuner grid (with the global atomics the launch issues,
+  ``ccs_spmv_flushes``, where the checkout counts them); K4 ``ell_spmm`` on
+  xenon2@x4's ELL-Row, ELL-Col (viewed transposed) and SELL (every bucket
+  in one call, as the batched path launches them) at B = 1, 8, 32 and 128,
+  float32 and bfloat16.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
-    python3 experiments/torch_coo_ab.py --other DIR [--kernels coo|csr_ccs]
-        [--out FILE]
+    python3 experiments/torch_coo_ab.py --other DIR
+        [--kernels coo|csr_ccs|ccs_ell] [--out FILE]
 
 It prints one line per case (median ms of each turn and the spread of this
 checkout's 40 times; a case only one checkout has, such as a tile of a grid
@@ -63,8 +70,8 @@ def rel_err(got, want, mag) -> float:
 def worker(kernels: str) -> None:
     """One turn: the ``repro_torch`` on ``sys.path`` times the kernels of
     the set ``kernels`` and prints one JSON line."""
-    cases, names = (coo_cases() if kernels == "coo"
-                    else csr_ccs_cases())
+    cases, names = {"coo": coo_cases, "csr_ccs": csr_ccs_cases,
+                    "ccs_ell": ccs_ell_cases}[kernels]()
     import hashlib
 
     import torch
@@ -265,6 +272,104 @@ def csr_ccs_cases():
     return cases, ("csr_spmv", "ccs_spmm", "decode_attention_int8")
 
 
+def ccs_ell_cases():
+    """K7 on xenon2@x4, viscoplastic2@x16 and torso1, K4 on xenon2@x4's
+    ELL-Row, ELL-Col and SELL (``--kernels ccs_ell``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import suite
+    from repro_torch.core import transform as T
+    from repro_torch.core.kernel_tune import candidate_geometries
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ccs_spmv as K7
+    from repro_torch.kernels import ell_spmv as K1
+
+    build.build_all(("ccs_spmv", "ell_spmm"), force=True)
+    specs = {s.name: s for s in suite.TABLE1}
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+
+    def case(key, call, plain, plain_abs, lib_ms, **info):
+        """``call`` gives the kernel's outputs as a list (a SELL product is
+        one launch a bucket), ``plain`` and ``plain_abs`` theirs joined."""
+        got, want, mag = torch.cat(call()), plain(), plain_abs()
+        rel = rel_err(got, want, mag)
+        if rel > KERNEL_REL_TOL:
+            raise AssertionError(f"{key}: rel err {rel}")
+        del got, want, mag
+        cases.append({"key": key, "max_rel_err": rel, "ms": times_of(call),
+                      "library_ms": lib_ms, **info})
+
+    def library_ms(m, x):
+        lib = torch.sparse_csr_tensor(m.indptr, m.cols[:m.nnz],
+                                      m.data[:m.nnz], size=m.shape)
+        return statistics.median(times_of(lambda: lib @ x))
+
+    # K7
+    for name, scale in (("xenon2", 4.0), ("viscoplastic2", 16.0),
+                        ("torso1", 1.0)):
+        csr = suite.synthesize(specs[name], scale=scale, device="cpu")
+        ccs = T.host_csr_to_ccs(csr).to(dev)
+        m = csr.to(dev)
+        label = name if scale == 1.0 else f"{name}@x{scale:g}"
+        n = ccs.n_rows
+        grid = candidate_geometries("ccs", "spmv", n_rows=ccs.n_cols,
+                                    nnz_pad=ccs.nnz_pad)
+        for dtype in (f32, bf16):
+            x = torch.from_numpy(np.random.default_rng(7).normal(
+                size=ccs.n_cols).astype(np.float32)).to(dev).to(dtype)
+            d = ccs.data.to(dtype)
+            lib_ms = library_ms(m, x) if dtype == f32 else None
+            want = K7.ccs_spmv_plain(d, ccs.rows, ccs.indptr, x, n)
+            mag = K7.ccs_spmv_plain(d.abs(), ccs.rows, ccs.indptr, x.abs(),
+                                    n)
+            for br in [None] + ([g.block_rows for g in grid]
+                                if dtype == f32 else []):
+                info = {}
+                if hasattr(K7, "ccs_spmv_flushes") and dtype == f32:
+                    info["flushes"] = K7.ccs_spmv_flushes(
+                        ccs.rows, ccs.indptr, n, br)
+                case(f"ccs_spmv/{label}/{dtype}/rows={br}"
+                     .replace("torch.", ""),
+                     lambda br=br: [K7.ccs_spmv(d, ccs.rows, ccs.indptr, x,
+                                                n, block_rows=br)],
+                     lambda: want, lambda: mag, lib_ms, **info)
+            del want, mag
+        del ccs, m, csr
+        torch.cuda.empty_cache()
+    # K4
+    csr = suite.synthesize(specs["xenon2"], scale=4.0, device="cpu")
+    m = csr.to(dev)
+    row = T.host_csr_to_ell(csr, order="row").to(dev)
+    col = T.host_csr_to_ell(csr, order="col").to(dev)
+    sell = T.host_csr_to_sell(csr).to(dev)
+    for dtype in (f32, bf16):
+        panels = {"ell_row": [(row.data.to(dtype), row.cols)],
+                  "ell_col": [(col.data.to(dtype).t(), col.cols.t())],
+                  "sell": [(b.data.to(dtype), b.cols) for b in sell.buckets]}
+        for batch in (1, 8, 32, 128):
+            X = torch.from_numpy(np.random.default_rng(8).normal(
+                size=(csr.n_cols, batch)).astype(np.float32)).to(
+                dev).to(dtype)
+            lib_ms = library_ms(m, X) if dtype == f32 else None
+            for layout, ps in panels.items():
+                def call(ps=ps):
+                    return [K1.ell_spmm(d, c, X) for d, c in ps]
+
+                def plain(ps=ps, f=K1.ell_spmm_plain):
+                    return torch.cat([f(d, c, X) for d, c in ps])
+
+                def plain_abs(ps=ps, f=K1.ell_spmm_plain):
+                    return torch.cat([f(d.abs(), c, X.abs()) for d, c in ps])
+                case(f"ell_spmm/xenon2@x4/{layout}/{dtype}/B={batch}"
+                     .replace("torch.", ""), call, plain, plain_abs, lib_ms)
+            del X
+        del panels
+    return cases, ("ccs_spmv", "ell_spmm")
+
+
 def turn(checkout: Path, kernels: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(checkout / "src"))
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -280,7 +385,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path,
                     help="root of the checkout to compare with")
-    ap.add_argument("--kernels", choices=("coo", "csr_ccs"), default="coo",
+    ap.add_argument("--kernels", choices=("coo", "csr_ccs", "ccs_ell"),
+                    default="coo",
                     help="the kernels to time (see the module's docstring)")
     ap.add_argument("--out", type=Path, help="where to write every time")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)

@@ -178,7 +178,8 @@ def _structure_sig(obj: Any) -> int:
 # ---------------------------------------------------------------------------
 #: rows per CUDA block (ELL, SELL buckets, CSR; CCS columns, BCSR block
 #: rows); the block holds that many rows times the lanes the wrapper gives
-#: a row (BCSR SpMV: times b), clamped to 1024 threads
+#: a row (BCSR SpMV: times b), clamped to 1024 threads (CCS SpMV: up to 8
+#: warps, each a run of the columns)
 GPU_ROW_TILES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 #: entries per CUDA block (COO; the slice of a CSR SpMV block)
 GPU_NNZ_TILES = (256, 1024, 4096, 16384)
@@ -191,18 +192,15 @@ GRID_FORMATS = ("ell_row", "ell_col", "sell", "coo_row", "coo_col", "csr",
                 "ccs", "bcsr")
 
 
-def _lanes_per_row(fmt: str, op: str, n_rows: int, width: int,
-                   nnz_pad: int, batch: int,
+def _lanes_per_row(fmt: str, op: str, width: int, batch: int,
                    block_k: Optional[int]) -> int:
     """Threads the wrapper gives one row (ELL, SELL bucket, CSR SpMM; a CCS
-    column, a BCSR block row in SpMM), from the same helpers the wrappers
-    call.  ``n_rows`` is the segmented axis (CCS: the column count).  CSR
-    SpMV cuts its work by entries, not rows: no lane group."""
+    column and a BCSR block row in SpMM), from the same helpers the wrappers
+    call.  CSR SpMV cuts its work by entries, CCS SpMV by runs of columns a
+    warp: no lane group."""
     from ..kernels import _common as C
     if op == "spmm":
         return C.rhs_tile(batch, block_k)[1]
-    if fmt == "ccs":
-        return C.csr_spmv_lanes(nnz_pad, n_rows)
     # ELL-Row and SELL buckets are row-major (a one-slot band has strides
     # (1, 1) and is not); ELL-Col is column-major
     return C.ell_spmv_lanes(width, row_major=fmt != "ell_col" and width > 1)
@@ -218,13 +216,17 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
     ``block_k``.  Each
     candidate holds the values its launch actually takes — rows per block as
     the whole warps the wrapper rounds to at its lane count (at most 1024
-    threads, at most the matrix's rows), entries per block at most
+    threads, at most the matrix's rows; CCS SpMV: columns per block rounded
+    to whole runs a warp of two columns or more, at most 1024 and about the
+    column count),
+    entries per block at most
     ``nnz_pad``, columns per block at most the batch — so de-duplicating
     the candidates de-duplicates the launches and the tuner never times the
     same launch twice.  ``n_rows`` is the segmented axis: the column count
     for CCS, the block-row count for BCSR; ``width`` is BCSR's block size
     b."""
-    from ..kernels._common import bcsr_spmv_launch, rhs_tile, rows_per_block
+    from ..kernels._common import (CCS_SPMV_WARPS, bcsr_spmv_launch,
+                                   ccs_spmv_launch, rhs_tile, rows_per_block)
     if fmt not in GRID_FORMATS:
         return []
     batch = max(int(batch), 1)
@@ -236,6 +238,15 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
             geoms.extend(TileGeometry(block_nnz=min(bn, nnz_pad or bn),
                                       block_k=k) for bn in GPU_NNZ_TILES)
             continue
+        if fmt == "ccs" and op == "spmv":
+            # columns per block, shared out to warps in equal runs of two
+            # columns or more: shorter runs were 3-6x slower on the card
+            # (PERF.md §6)
+            cap = min(1024, n_rows) if n_rows else 1024
+            geoms.extend(TileGeometry(block_rows=ccs_spmv_launch(
+                n_rows, n_rows, nnz_pad, min(r, cap))[1])
+                for r in GPU_ROW_TILES if r >= 2 * CCS_SPMV_WARPS)
+            continue
         if fmt == "bcsr" and op == "spmv":
             # a thread per scalar row: block_rows * b threads per block
             b = width or 8
@@ -246,7 +257,7 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
                 TileGeometry(block_rows=bcsr_spmv_launch(b, min(r, cap))[1])
                 for r in GPU_ROW_TILES)
             continue
-        lanes = _lanes_per_row(fmt, op, n_rows, width, nnz_pad, batch, k)
+        lanes = _lanes_per_row(fmt, op, width, batch, k)
         cap = 1024 // lanes
         if n_rows:
             cap = min(cap, n_rows)

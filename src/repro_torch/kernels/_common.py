@@ -82,6 +82,15 @@ CSR_DEFAULT_BLOCK_NNZ = 2048
 CCS_SPMM_COLS = 32
 #: most window rows a ``ccs_spmm`` lane group keeps in registers
 CCS_ROWS_PER_GROUP_MAX = 16
+#: warps a ``ccs_spmv`` block holds
+CCS_SPMV_WARPS = 8
+#: adjacent columns a ``ccs_spmv`` warp owns by default: 32 columns of a
+#: band hold ~14 entries on each row they touch, and runs of 16 or 64 were
+#: slower on xenon2 (PERF.md §6)
+CCS_SPMV_COLS_PER_WARP = 32
+#: fewest and most rows of a ``ccs_spmv`` warp's window
+CCS_SPMV_WINDOW_MIN = 128
+CCS_SPMV_WINDOW_MAX = 256
 #: grid.y limit of a CUDA launch
 MAX_GRID_Y = 65535
 #: elements of the largest ``(entries, B)`` temporary a plain SpMM version
@@ -111,17 +120,6 @@ def ell_spmv_lanes(width: int, row_major: bool) -> int:
     if not row_major:
         return 1
     return 32 if width >= 128 else 8
-
-
-def csr_spmv_lanes(nnz: int, n_rows: int) -> int:
-    """Lanes ``csr_spmv`` gives one row (``ccs_spmv`` one column, called
-    with the column count): the smallest power of two covering the mean
-    segment length, within [2, 32]."""
-    mean = nnz / max(n_rows, 1)
-    lanes = 2
-    while lanes < 32 and lanes < mean:
-        lanes *= 2
-    return lanes
 
 
 def bcsr_spmv_launch(block: int, block_rows=None):
@@ -226,12 +224,38 @@ def ccs_spmm_launch(batch: int, n_rows: int, n_cols: int, nnz_pad: int,
             max(1, min(rpg * groups, n_rows)), rpg)
 
 
-def ccs_window_base(block: int, cols: int, window: int, n_rows: int,
+def ccs_spmv_launch(n_rows: int, n_cols: int, nnz_pad: int,
+                    block_rows=None):
+    """``(threads, cols, cols_per_warp, window)`` of a CCS SpMV launch: a
+    CUDA block owns ``cols`` adjacent columns (``block_rows``, default
+    ``CCS_SPMV_WARPS * CCS_SPMV_COLS_PER_WARP``), cut into runs of
+    ``cols_per_warp`` for its warps (up to ``CCS_SPMV_WARPS`` of them: a
+    request is rounded up to whole runs, so a tuner candidate carrying
+    ``cols`` is the launch).  Each warp keeps windows (one per column mod
+    4, ``csrc/ccs_spmv.cu``) of ``window`` rows of y: the rows its columns
+    map to (``cols_per_warp * n_rows / n_cols``)
+    plus a mean column on either side — a band reaches that far — as a power
+    of two from ``CCS_SPMV_WINDOW_MIN`` to ``CCS_SPMV_WINDOW_MAX``, at most
+    ``n_rows``."""
+    want = max(1, int(block_rows)) if block_rows else (
+        CCS_SPMV_WARPS * CCS_SPMV_COLS_PER_WARP)
+    warps = min(CCS_SPMV_WARPS, want)
+    per_warp = -(-want // warps)
+    n_rows, n_cols = max(int(n_rows), 1), max(int(n_cols), 1)
+    span = -(-per_warp * n_rows // n_cols) + 2 * -(-int(nnz_pad) // n_cols)
+    window = CCS_SPMV_WINDOW_MIN
+    while window < CCS_SPMV_WINDOW_MAX and window < span:
+        window *= 2
+    return 32 * warps, warps * per_warp, per_warp, min(window, n_rows)
+
+
+def ccs_window_base(owner: int, cols: int, window: int, n_rows: int,
                     n_cols: int) -> int:
-    """First row of block ``block``'s window, as ``csrc/ccs_spmm.cu``
-    computes it: centred on the rows its ``cols`` columns map to, inside the
-    matrix."""
-    base = (2 * block * cols + cols) * n_rows // (2 * n_cols) - window // 2
+    """First row of a window, as ``csrc/ccs_spmm.cu`` computes it for block
+    ``owner`` and ``csrc/ccs_spmv.cu`` for warp ``owner`` (counted over the
+    grid): centred on the rows the owner's ``cols`` columns map to, inside
+    the matrix."""
+    base = (2 * owner * cols + cols) * n_rows // (2 * n_cols) - window // 2
     return max(0, min(base, n_rows - window))
 
 

@@ -53,9 +53,9 @@ SIGNATURES: Dict[str, Sequence] = {
     # block_nnz, run, data_bf16, x_bf16, stream
     "coo_spmm": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                  _I, _P),
-    # data, rows, indptr, x, y, n_cols, lanes, cols_per_block, data_bf16,
-    # x_bf16, stream
-    "ccs_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # data, rows, indptr, x, y, n_rows, n_cols, threads, cols_per_warp,
+    # window, data_bf16, x_bf16, stream
+    "ccs_spmv": (_P,) * 5 + (_I,) * 7 + (_P,),
     # data, rows, indptr, x, y, n_rows, n_cols, B, kt, lanes, per_lane,
     # threads, cols_per_block, window, rows_per_group, data_bf16, x_bf16,
     # stream

@@ -9,10 +9,16 @@ read.
 
 Bound on an H100: memory.  The least the card must move is
 ``nnz * (val + 4) + 4 * (n_cols + 1) + val * n_cols + 4 * n_rows`` bytes over
-3.35 TB/s.  The design gives each column a group of lanes (as wide as the
-mean column is long, the rule ``csr_spmv`` applies to rows), reads ``x[c]``
-once, walks the column's entries from IRP_T at run time and meets in global
-memory with float32 ``atomicAdd`` (columns scatter to arbitrary rows).  The
+3.35 TB/s.  Columns scatter to arbitrary rows and meet in global memory with
+float32 ``atomicAdd``, so the design issues few of them: a warp owns a run
+of adjacent columns (which in a band share most of their rows), walks their
+entries 32 a pass and adds those that fall in its private windows of y rows
+in shared memory with plain read-add-writes — one window per column mod 4,
+so the columns of a pass never share one, and rows checked to rise within a
+column; a pass that breaks either has its lanes on one row summed first —
+then adds each touched window row to y once; an entry outside the window
+goes to y with one atomic (``csrc/ccs_spmv.cu``).
+:func:`ccs_spmv_flushes` counts the global atomics on the host.  The
 atomics make the order of the sum, and so the last bits, differ from run to
 run: CCS results are compared to a tolerance, never bit for bit.
 
@@ -43,8 +49,8 @@ import torch
 from . import build as _build
 from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, check_contiguous,
                       check_current_device, check_index, check_same_device,
-                      ccs_spmm_launch, ccs_window_base, check_values,
-                      csr_spmv_lanes, current_stream_ptr, rows_per_block)
+                      ccs_spmm_launch, ccs_spmv_launch, ccs_window_base,
+                      check_values, current_stream_ptr)
 
 
 def _check(data, rows, indptr, x, ndim: int) -> None:
@@ -85,7 +91,8 @@ def ccs_spmv(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
     """``y = A @ x`` for CCS arrays; returns float32 ``(n_rows,)``.
 
     ``block_rows`` is the number of *columns* a CUDA block owns (the
-    segmented-axis tile, as the reference reads the knob for CCS).  CPU
+    segmented-axis tile, as the reference reads the knob for CCS), shared
+    out to its warps as :func:`~._common.ccs_spmv_launch` says.  CPU
     tensors run :func:`ccs_spmv_plain`; CUDA tensors launch the kernel or
     raise."""
     _check(data, rows, indptr, x, 1)
@@ -103,10 +110,11 @@ def ccs_spmv(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
     y = torch.zeros(n_rows, dtype=torch.float32, device=data.device)
     if n_cols == 0 or n_rows == 0 or data.shape[0] == 0:
         return y                 # nothing stored: no launch, none counted
-    lanes = csr_spmv_lanes(data.shape[0], n_cols)
+    threads, _, cols_per_warp, window = ccs_spmv_launch(
+        n_rows, n_cols, data.shape[0], block_rows)
     code = _build.launcher("ccs_spmv")(
         data.data_ptr(), rows.data_ptr(), indptr.data_ptr(), x.data_ptr(),
-        y.data_ptr(), n_cols, lanes, rows_per_block(lanes, block_rows),
+        y.data_ptr(), n_rows, n_cols, threads, cols_per_warp, window,
         int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
         current_stream_ptr())
     _build.check_launch("ccs_spmv", code)
@@ -116,6 +124,42 @@ def ccs_spmv(data: torch.Tensor, rows: torch.Tensor, indptr: torch.Tensor,
 
 #: number of kernel launches made by :func:`ccs_spmv` in this process
 ccs_spmv.launches = 0
+
+
+def _window_count(rows: torch.Tensor, indptr: torch.Tensor, n_rows: int,
+                  cols: int, window: int):
+    """``(flushed, outside)`` of windows of ``window`` rows, each owned by a
+    run of ``cols`` adjacent columns: the distinct window rows the entries
+    touch, and the entries outside their window."""
+    ip = indptr.cpu().numpy().astype(np.int64)
+    n_cols = ip.shape[0] - 1
+    nnz = int(ip[-1]) if n_cols > 0 else 0
+    r = rows[:nnz].cpu().numpy().astype(np.int64)
+    owner = np.repeat(np.arange(n_cols, dtype=np.int64) // cols, np.diff(ip))
+    n_owners = -(-n_cols // cols)
+    base = np.array([ccs_window_base(o, cols, window, n_rows, n_cols)
+                     for o in range(n_owners)], dtype=np.int64)
+    w = r - base[owner]
+    inside = (w >= 0) & (w < window)
+    touched = np.zeros(n_owners * window, dtype=bool)
+    touched[owner[inside] * window + w[inside]] = True
+    return int(touched.sum()), int(nnz - inside.sum())
+
+
+def ccs_spmv_flushes(rows: torch.Tensor, indptr: torch.Tensor, n_rows: int,
+                     block_rows: Optional[int] = None) -> dict:
+    """The global atomics :func:`ccs_spmv` issues at its launch, counted on
+    the host from the structure: ``cols`` adjacent columns a warp owns, its
+    ``window`` rows, ``flushed`` window rows (one per row an entry of the
+    warp touched inside its window), ``outside`` entries (one each), and
+    ``atomics``, their sum (the parent design's ``nnz``)."""
+    n_cols = indptr.shape[0] - 1
+    _, _, cols, window = ccs_spmv_launch(n_rows, n_cols, rows.shape[0],
+                                         block_rows)
+    flushed, outside = (_window_count(rows, indptr, n_rows, cols, window)
+                        if n_cols > 0 and n_rows > 0 else (0, 0))
+    return {"cols": cols, "window": window, "flushed": flushed,
+            "outside": outside, "atomics": flushed + outside}
 
 
 def ccs_spmm_plain(data: torch.Tensor, rows: torch.Tensor,
@@ -187,25 +231,15 @@ def ccs_spmm_flushes(rows: torch.Tensor, indptr: torch.Tensor, n_rows: int,
     inside its window), ``outside`` entries (one each, outside the window),
     and ``atomics``, their float32 additions, ``(flushed + outside) * B``
     (the parent design's ``nnz * B``)."""
-    ip = indptr.cpu().numpy().astype(np.int64)
-    n_cols = ip.shape[0] - 1
-    nnz = int(ip[-1]) if n_cols > 0 else 0
+    n_cols = indptr.shape[0] - 1
     _, _, _, _, cols, window, _ = ccs_spmm_launch(batch, n_rows, n_cols,
                                                   rows.shape[0], block_rows,
                                                   block_k)
     if window == 0:           # a narrow tile: every entry straight to Y
+        nnz = int(indptr[-1]) if n_cols > 0 else 0
         return {"cols": cols, "window": 0, "flushed": 0, "outside": nnz,
                 "atomics": nnz * batch}
-    r = rows[:nnz].cpu().numpy().astype(np.int64)
-    block = np.repeat(np.arange(n_cols, dtype=np.int64) // cols, np.diff(ip))
-    n_blocks = -(-n_cols // cols)
-    base = np.array([ccs_window_base(b, cols, window, n_rows, n_cols)
-                     for b in range(n_blocks)], dtype=np.int64)
-    w = r - base[block]
-    inside = (w >= 0) & (w < window)
-    touched = np.zeros(n_blocks * window, dtype=bool)
-    touched[block[inside] * window + w[inside]] = True
-    flushed, outside = int(touched.sum()), int(nnz - inside.sum())
+    flushed, outside = _window_count(rows, indptr, n_rows, cols, window)
     return {"cols": cols, "window": window, "flushed": flushed,
             "outside": outside, "atomics": (flushed + outside) * batch}
 
@@ -213,5 +247,5 @@ def ccs_spmm_flushes(rows: torch.Tensor, indptr: torch.Tensor, n_rows: int,
 #: number of kernel launches made by :func:`ccs_spmm` in this process
 ccs_spmm.launches = 0
 
-__all__ = ["ccs_spmv", "ccs_spmv_plain", "ccs_spmm", "ccs_spmm_flushes",
-           "ccs_spmm_plain"]
+__all__ = ["ccs_spmv", "ccs_spmv_flushes", "ccs_spmv_plain", "ccs_spmm",
+           "ccs_spmm_flushes", "ccs_spmm_plain"]

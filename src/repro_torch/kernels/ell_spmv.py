@@ -19,9 +19,16 @@ padding to any tile multiple: the ragged edge is masked.
 (``_ell_spmm_kernel``): ``Y[r, :] = sum_w data[r, w] * X[cols[r, w], :]``
 for an ``(n_cols, B)`` panel.  Bound on an H100: memory — the panel once,
 ``val * n_cols * B`` for X and ``4 * n_rows * B`` for Y, against
-``2 * nnz * B`` flops.  Threads sit along the right-hand-side columns, so
-the X gather and the Y store coalesce, and a row group reads the band once
-and shares it by shuffle (``csrc/ell_spmm.cu``).
+``2 * nnz * B`` flops.  Threads sit along the right-hand-side columns (four
+consecutive ones a thread, one vector load, where B and the pointers allow),
+so the X gather and the Y store coalesce; a row group reads the band once
+and shares it by shuffle.  A warp-wide group (B >= 17) gathers no X row for
+a padded slot: a row whose band holds a ``(±0, column 0)`` slot adds
+``0 * X[0, :]`` once, which gives the values of adding it at every such
+slot, but that a zero result may change sign (``csrc/ell_spmm.cu``).  So, as in :func:`ell_spmm_plain`, exactly the
+rows whose band holds such a slot turn NaN where ``X[0]`` is not finite.
+(The reference pads the band to a multiple of 8 for the TPU's tile, so there
+every row gains such slots.)
 """
 from __future__ import annotations
 

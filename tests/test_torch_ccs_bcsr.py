@@ -482,8 +482,13 @@ def test_cpu_tensors_launch_no_kernel():
 # the launch shapes and the reference's slab bound
 # ---------------------------------------------------------------------------
 def test_ccs_bcsr_launch_shapes_are_chosen_on_the_host():
-    assert C.csr_spmv_lanes(5000, 100) == 32       # CCS: mean column 50
-    assert C.csr_spmv_lanes(300, 100) == 4
+    # CCS SpMV: 8 warps of 32 columns by default, a window of 128 rows
+    # where a warp's columns and a mean column on either side fit (256 past)
+    assert C.ccs_spmv_launch(629856, 629856, 15466752) == (256, 256, 32, 128)
+    assert C.ccs_spmv_launch(116158, 116158, 8516500) == (256, 256, 32, 256)
+    assert C.ccs_spmv_launch(100, 100, 5000, 1) == (32, 1, 1, 100)
+    assert C.ccs_spmv_launch(10 ** 4, 10 ** 4, 10 ** 5, 12) == (256, 16, 2,
+                                                                128)
     assert C.bcsr_spmv_launch(8) == (256, 32)
     assert C.bcsr_spmv_launch(8, 1) == (32, 4)     # a whole warp
     assert C.bcsr_spmv_launch(8, 1000) == (1024, 128)
@@ -544,6 +549,44 @@ def test_ccs_spmm_window_is_chosen_on_the_host(shape, batch, block_rows,
         assert 0 <= base <= n_rows - window
 
 
+@pytest.mark.parametrize("block_rows", [None] + list(TKT.GPU_ROW_TILES)
+                         + [3, 12, 1000])
+@pytest.mark.parametrize("shape", [(629856, 629856, 15466752),
+                                   (524304, 524304, 6103216),
+                                   (116158, 116158, 8516500), (100, 61, 856),
+                                   (40, 30, 8), (7, 5000, 20000)])
+def test_ccs_spmv_launch_is_the_tuners_candidate(shape, block_rows):
+    """K7's launch: ``block_rows`` columns a block, rounded up to whole runs
+    of columns for at most 8 warps — so the columns a tuner candidate
+    carries give that candidate's launch again — and a window of a power of
+    two of rows from 128 to 256 covering a warp's columns' rows plus a mean
+    column either side, within the matrix, under 48 KB of shared memory.
+    Each ``GPU_ROW_TILES`` entry that gives a warp two columns or more is a
+    candidate of the grid."""
+    n_rows, n_cols, nnz_pad = shape
+    threads, cols, per_warp, window = C.ccs_spmv_launch(
+        n_rows, n_cols, nnz_pad, block_rows)
+    warps = threads // 32
+    assert threads % 32 == 0 and 1 <= warps <= C.CCS_SPMV_WARPS
+    assert cols == warps * per_warp >= (block_rows or 1)
+    assert (per_warp - 1) * warps < (block_rows or cols)
+    assert C.ccs_spmv_launch(n_rows, n_cols, nnz_pad, cols) == (
+        threads, cols, per_warp, window)
+    if block_rows is None:
+        assert per_warp == C.CCS_SPMV_COLS_PER_WARP
+    span = -(-per_warp * n_rows // n_cols) + 2 * -(-nnz_pad // n_cols)
+    full = min(max(C.CCS_SPMV_WINDOW_MIN, span), C.CCS_SPMV_WINDOW_MAX)
+    assert window == min(n_rows, 1 << (full - 1).bit_length())
+    assert warps * window * (4 * 4 + 1) <= 48 * 1024   # four windows, a flag
+    grid = [g.block_rows for g in TKT.candidate_geometries(
+        "ccs", "spmv", n_rows=n_cols, nnz_pad=nnz_pad)]
+    assert len(grid) == len(set(grid))
+    for g in grid:
+        assert C.ccs_spmv_launch(n_rows, n_cols, nnz_pad, g)[1] == g
+    if block_rows in TKT.GPU_ROW_TILES and block_rows <= n_cols:
+        assert (cols in grid) == (block_rows >= 2 * C.CCS_SPMV_WARPS)
+
+
 def brute_flushes(rows, indptr, n_rows, cols, window):
     """The global atomics of K8, entry by entry: one per distinct window row
     a block touches, one per entry outside its window."""
@@ -596,6 +639,91 @@ def test_ccs_spmm_flushes_counted_on_the_host(kind, batch, block_rows):
                    "atomics": (flushed + outside) * batch}
     if kind != "scattered" and block_rows is None and batch > 16:
         assert outside == 0 and flushed < m.nnz / 3
+
+
+def ccs_spmv_case(kind, rng):
+    """``(rows, indptr, n_rows)`` of a K7 flush-count case: ``band``,
+    ``scattered``, ``duplicates`` (columns holding one row many times),
+    ``empty`` (runs of empty columns) and ``edges`` (entries in the first
+    and last rows, where the windows are clamped to the matrix)."""
+    n = 700
+    lists = []
+    for c in range(n):
+        if kind == "band":
+            r = np.arange(max(0, c - 9), min(n, c + 10))
+        elif kind == "scattered":
+            r = np.sort(rng.choice(n, 5, replace=False))
+        elif kind == "duplicates":
+            r = np.concatenate([np.full(7, c), rng.integers(0, n, 3)])
+        elif kind == "empty":
+            r = (np.arange(c, min(n, c + 4)) if c % 90 < 40
+                 else np.array([], np.int64))
+        else:
+            r = np.array([0, 1, n - 2, n - 1, c])
+        lists.append(np.asarray(r, np.int64))
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in lists])])
+    rows = np.concatenate(lists + [np.zeros(5)]).astype(np.int32)  # pads
+    return torch.from_numpy(rows), torch.from_numpy(
+        indptr.astype(np.int32)), n
+
+
+@pytest.mark.parametrize("block_rows", [None, 1, 16, 1024])
+@pytest.mark.parametrize("kind", ["band", "scattered", "duplicates",
+                                  "empty", "edges"])
+def test_ccs_spmv_flushes_counted_on_the_host(kind, block_rows):
+    """``ccs_spmv_flushes`` equals an entry-by-entry count over each warp's
+    run of columns and its window; a band flushes few window rows."""
+    rows, indptr, n = ccs_spmv_case(kind, np.random.default_rng(29))
+    got = K7.ccs_spmv_flushes(rows, indptr, n, block_rows)
+    _, _, per_warp, window = C.ccs_spmv_launch(n, n, rows.shape[0],
+                                               block_rows)
+    flushed, outside = brute_flushes(rows, indptr, n, per_warp, window)
+    assert got == {"cols": per_warp, "window": window, "flushed": flushed,
+                   "outside": outside, "atomics": flushed + outside}
+    if kind == "band" and block_rows is None:
+        assert outside == 0 and flushed < int(indptr[-1]) / 8
+    if kind == "edges":
+        # the first and last warps' windows hold the matrix's first and
+        # last rows
+        assert C.ccs_window_base(0, per_warp, window, n, n) == 0
+        last = -(-n // per_warp) - 1
+        assert C.ccs_window_base(last, per_warp, window, n, n) == n - window
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["duplicates", "shuffled"])
+def test_ccs_spmv_plain_matches_reference_on_repeated_and_shuffled_rows(
+        kind, dtype):
+    """``ccs_spmv_plain`` against the reference's CCS kernel (interpret
+    mode) on columns that hold one row several times (``CCS.validate``
+    allows it) and on columns whose rows are in random order; tolerance
+    ``rel_tol(dtype)`` of sum |a x|."""
+    rng = np.random.default_rng(30)
+    if kind == "duplicates":
+        rows, indptr, n = ccs_spmv_case("duplicates", rng)
+    else:
+        rows, indptr, n = ccs_spmv_case("band", rng)
+        ip = indptr.numpy()
+        rows = rows.clone()
+        for a, b in zip(ip[:-1], ip[1:]):
+            rows[a:b] = rows[a:b][torch.from_numpy(rng.permutation(b - a))]
+    data = rng.normal(size=rows.shape[0]).astype(np.float32)
+    x = rng.normal(size=n).astype(np.float32)
+    nnz = int(indptr[-1])
+    ref = RF.CCS(data=jnp.asarray(data, JDT[dtype]),
+                 rows=jnp.asarray(rows.numpy()),
+                 indptr=jnp.asarray(indptr.numpy()), shape=(n, n), nnz=nnz)
+    ref.validate()
+    want = R_ops.spmv_ccs(ref, jnp.asarray(x))
+    got = K7.ccs_spmv_plain(t_(data, dtype), rows, indptr, t_(x), n)
+    dense = np.zeros((n, n), np.float64)
+    cols = np.repeat(np.arange(n), np.diff(indptr.numpy()))
+    np.add.at(dense, (rows.numpy()[:nnz], cols),
+              np.abs(as_dtype(data, dtype)[:nnz]))
+    mag = dense @ np.abs(x)
+    assert_rel_close(got, f32(want), mag, rel_tol(dtype))
+    assert_rel_close(got, np.asarray(ref.todense(), np.float64) @ x, mag,
+                     rel_tol(dtype))
 
 
 @pytest.mark.parametrize("g", [None, dict(block_rows=8, block_nnz=64),

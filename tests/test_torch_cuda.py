@@ -718,3 +718,193 @@ def test_cuda_decode_attention_int8_softcap_matches_plain(
     if softcap < 2:
         uncapped = K11.decode_attention_int8_plain(*args, window=window)
         assert not torch.allclose(uncapped.float(), want.float(), atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# K7: a warp's run of adjacent columns meets in a shared-memory window of y
+# ---------------------------------------------------------------------------
+def ccs_spmv_arrays(kind, seed, dtype):
+    """CPU ``(data, rows, indptr, n_rows)`` of one K7 case.  Beside
+    :func:`ccs_arrays`'s kinds: ``collide`` (40 copies of one row in one
+    column, inside its window, and 40 of another far outside it: lanes of
+    one pass on one row), ``boundary`` (runs of columns on the same 20 rows,
+    so a pass spans two columns with equal rows), ``long`` (columns of 600
+    entries, past 32 and past any window), ``outside`` (every entry far from
+    the rows its column maps to: none falls in a window, clamped ones at
+    either end included), ``pads`` (slots past IRP_T[-1] hold NaN: never
+    read) and ``unaligned`` (``data[1:]``, ``rows[1:]`` views)."""
+    rng = np.random.default_rng(seed)
+    if kind in CCS_KINDS:
+        return ccs_arrays(kind, seed, dtype)
+    if kind in ("collide", "boundary", "long", "outside", "pads",
+                "unaligned"):
+        n_rows = n_cols = 2000
+        cols_rows = []
+        for c in range(n_cols):
+            if kind == "collide":
+                r = np.sort(rng.choice(n_rows, 12, replace=False))
+                if c == 5:
+                    r = np.concatenate([r, np.full(40, 6),
+                                        np.full(40, 1700)])
+            elif kind == "boundary":
+                r = c // 64 * 64 % (n_rows - 20) + np.arange(20)
+            elif kind == "long":
+                r = (np.sort(rng.choice(n_rows, 600, replace=False))
+                     if c % 50 == 0 else np.array([c]))
+            elif kind == "outside":
+                r = np.array([(c + 1000 + d) % n_rows for d in (0, 7, 300)])
+            else:             # a band, as xenon2's
+                r = np.clip(c + np.arange(-8, 9), 0, n_rows - 1)
+                r = np.unique(r)
+            cols_rows.append(np.asarray(r, np.int64))
+        lens = np.array([len(r) for r in cols_rows])
+        indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        nnz = int(indptr[-1])
+        rows = np.concatenate(cols_rows).astype(np.int32)
+        data = rng.normal(size=nnz).astype(np.float32)
+        tail = 13             # pads past IRP_T[-1]
+        rows = np.concatenate([rows, np.zeros(tail, np.int32)])
+        data = np.concatenate([data, np.full(tail, np.nan if kind == "pads"
+                                             else 0.0, np.float32)])
+        data = torch.from_numpy(data).to(TDT[dtype])
+        rows = torch.from_numpy(rows)
+        if kind == "unaligned":
+            data = torch.cat([data[:1], data])[1:]
+            rows = torch.cat([rows[:1], rows])[1:]
+        return data, rows, torch.from_numpy(indptr), n_rows
+    raise ValueError(kind)
+
+
+CCS_SPMV_KINDS = CCS_KINDS + ("collide", "boundary", "long", "outside",
+                              "pads", "unaligned")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", CCS_SPMV_KINDS)
+def test_cuda_ccs_spmv_window_matches_plain(cuda, kind, dtype):
+    """K7 against its plain version at the default launch and at every
+    columns-per-block candidate of the tuner's grid (so windows of other
+    sizes and places, and runs of 1 to 128 columns a warp)."""
+    from repro_torch.core.kernel_tune import candidate_geometries
+    from repro_torch.kernels import ccs_spmv as K7
+    data, rows, indptr, n_rows = ccs_spmv_arrays(kind, 67, dtype)
+    x = torch.from_numpy(np.random.default_rng(68).normal(
+        size=indptr.shape[0] - 1).astype(np.float32)).to(TDT[dtype])
+    want = K7.ccs_spmv_plain(data, rows, indptr, x, n_rows)
+    mag = K7.ccs_spmv_plain(data.abs(), rows, indptr, x.abs(), n_rows)
+    args = on_card((data, rows, indptr, x), cuda)
+    if kind == "unaligned":
+        assert args[0].data_ptr() % 16 and args[1].data_ptr() % 16
+    flushes = K7.ccs_spmv_flushes(rows, indptr, n_rows)
+    if kind == "outside":
+        assert flushes["flushed"] == 0 and flushes["outside"] == int(
+            indptr[-1])
+    grid = candidate_geometries("ccs", "spmv", n_rows=indptr.shape[0] - 1,
+                                nnz_pad=data.shape[0])
+    for br in [None] + [g.block_rows for g in grid]:
+        before = K7.ccs_spmv.launches
+        got = K7.ccs_spmv(*args, n_rows, block_rows=br)
+        torch.cuda.synchronize()
+        assert K7.ccs_spmv.launches == before + 1
+        assert_kernel_close(got, want, mag)
+
+
+# ---------------------------------------------------------------------------
+# K4: no X gather for a padded slot, the same result
+# ---------------------------------------------------------------------------
+def ell_nonfinite_case(rng, batch):
+    """A 64-row ELL-Row panel of 7 slots over 50 columns, CPU tensors
+    ``(data, cols, x)``: rows 0-15 full and off column 0, 16-31 ending in
+    pads (0, column 0), 32-39 a stored +0 at column 0 mid-band, 40-47 a
+    stored -0 there, 48-55 a stored 0 at column 3, 56-63 a real entry at
+    column 0.  ``X[0, :]`` cycles through +inf, 1.5, -inf and NaN."""
+    n_rows, width, n_cols = 64, 7, 50
+    cols = rng.integers(1, n_cols, (n_rows, width)).astype(np.int32)
+    data = rng.normal(size=(n_rows, width)).astype(np.float32)
+    cols[16:32, 4:], data[16:32, 4:] = 0, 0.0
+    cols[32:48, 2] = 0
+    data[32:40, 2], data[40:48, 2] = 0.0, -0.0
+    cols[48:56, 5], data[48:56, 5] = 3, 0.0
+    cols[56:64, 1] = 0
+    x = rng.normal(size=(n_cols, batch)).astype(np.float32)
+    x[0] = np.resize(np.array([np.inf, 1.5, -np.inf, np.nan], np.float32),
+                     batch)
+    return (torch.from_numpy(data), torch.from_numpy(cols),
+            torch.from_numpy(x))
+
+
+def assert_same_nonfinite(got, want, mag):
+    """NaN and infinities in the same places (infinities of the same
+    sign); the finite values held as :func:`assert_kernel_close` holds
+    them."""
+    got = got.cpu()
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    err = (got[fin].double() - want[fin].double()).abs()
+    assert bool((err <= KERNEL_REL_TOL * mag[fin].double()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 4, 128, 129])
+def test_cuda_ell_spmm_pads_keep_non_finite_x0(cuda, batch, dtype):
+    """K4 skips the X gather of a (+-0, column 0) slot and adds 0 * X[0]
+    once a row: NaN exactly where the plain version has it (the rows
+    whose band holds such a slot, where X[0, b] is not finite), the
+    infinities of real column-0 entries, the rest within the tolerance."""
+    data, cols, x = ell_nonfinite_case(np.random.default_rng(71), batch)
+    data, x = data.to(TDT[dtype]), x.to(TDT[dtype])
+    want = K1.ell_spmm_plain(data, cols, x)
+    assert bool(torch.isnan(want[16:48, 0]).all())
+    assert not bool(torch.isnan(want[:16]).any())
+    xf = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    mag = K1.ell_spmm_plain(data.abs(), cols, xf.abs())
+    for block_k in (None,) + GPU_K_TILES:
+        got = K1.ell_spmm(data.to(cuda), cols.to(cuda), x.to(cuda),
+                          block_k=block_k)
+        torch.cuda.synchronize()
+        assert_same_nonfinite(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 4, 8, 31, 32, 128, 129])
+@pytest.mark.parametrize("fmt", ["ell_row", "ell_col", "sell"])
+def test_cuda_ell_spmm_every_tile_and_pitch(cuda, fmt, batch):
+    """K4 on ELL-Row, ELL-Col (viewed transposed) and each SELL bucket,
+    float32 and bfloat16, at the default column tile and each of the
+    tuner's, with X's rows at an odd pitch (odd B) and X at an address no
+    vector load aligns to; two launches give the same bits."""
+    rng = np.random.default_rng(72)
+    tf = TT.TRANSFORMS_HOST[fmt](TT.csr_from_dense(
+        heavy_tail_dense(rng), pad=8, device="cpu"))
+    if fmt == "sell":
+        panels = [(b.data, b.cols) for b in tf.buckets]
+    elif fmt == "ell_col":
+        panels = [(tf.data.t(), tf.cols.t())]
+    else:
+        panels = [(tf.data, tf.cols)]
+    for dtype in ("float32", "bfloat16"):
+        xs = torch.from_numpy(rng.normal(size=(200, batch)).astype(
+            np.float32)).to(TDT[dtype])
+        moved = torch.empty(200 * batch + 1, dtype=TDT[dtype],
+                            device=cuda)[1:].view(200, batch)
+        moved.copy_(xs)
+        for data, cols in panels:
+            data = data.to(TDT[dtype])
+            want = K1.ell_spmm_plain(data, cols, xs)
+            mag = K1.ell_spmm_plain(data.abs(), cols, xs.abs())
+            d, c = data.to(cuda), cols.to(cuda)
+            if fmt == "ell_col":
+                d, c = d.t().contiguous().t(), c.t().contiguous().t()
+            for X in (xs.to(cuda), moved):
+                for block_k in (None,) + GPU_K_TILES:
+                    got = K1.ell_spmm(d, c, X, block_k=block_k)
+                    again = K1.ell_spmm(d, c, X, block_k=block_k)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, again)
+                    assert_kernel_close(got, want, mag)

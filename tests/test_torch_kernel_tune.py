@@ -80,14 +80,16 @@ def test_candidates_bounded_and_deduped():
             for g in cands:
                 assert g.block_w is None and g.slabs_per_block is None
                 assert (g.block_k is not None) == (op == "spmm")
-    # CCS searches columns per block at its lane count (1800 entries over
-    # 150 columns: 16 lanes a column), BCSR SpMV block rows of b = 8 rows
+    # CCS SpMV searches columns per block in whole runs of two columns or
+    # more for up to 8 warps (at most about the 150 columns), BCSR SpMV block
+    # rows of
+    # b = 8 rows
     # (whole warps: at least 4), BCSR SpMM block-row groups at the RHS
     # tile's lanes; a container without a kernel of its own has no grid
     def rows(fmt, op, **kw):
         return [g.block_rows for g in candidate_geometries(
             fmt, op, n_rows=150, nnz_pad=1800, **kw)]
-    assert rows("ccs", "spmv") == [2, 4, 8, 16, 32, 64]
+    assert rows("ccs", "spmv") == [16, 32, 64, 128, 152]
     assert rows("bcsr", "spmv", width=8) == [4, 8, 16, 32, 64, 128]
     assert rows("bcsr", "spmv", width=16) == [2, 4, 8, 16, 32, 64]
     assert [(g.block_rows, g.block_k) for g in candidate_geometries(
@@ -116,11 +118,16 @@ def test_candidates_are_launches_a_wrapper_makes(fmt, op, batch):
             kt, lanes, _ = C.rhs_tile(batch, g.block_k)
             assert g.block_k == kt <= batch
         else:
-            lanes = {"ccs": C.csr_spmv_lanes(nnz_pad, n_rows), "ell_row": 32,
-                     "sell": 32}.get(fmt, 1)
+            lanes = {"ell_row": 32, "sell": 32}.get(fmt, 1)
         if fmt.startswith("coo") or (fmt, op) == ("csr", "spmv"):
             # entries per block: COO, and CSR SpMV's slices
             assert g.block_rows is None and g.block_nnz <= nnz_pad
+        elif fmt == "ccs" and op == "spmv":
+            # columns per block in whole runs a warp, about the column count
+            threads, cols, _, _ = C.ccs_spmv_launch(n_rows, n_rows, nnz_pad,
+                                                    g.block_rows)
+            assert cols == g.block_rows and threads <= 1024
+            assert g.block_rows < n_rows + threads // 32
         elif fmt == "bcsr" and op == "spmv":
             # a thread per scalar row, ``width`` the block size b
             threads, rows = C.bcsr_spmv_launch(width, g.block_rows)

@@ -273,12 +273,21 @@ def test_slabs_needed_matches_reference():
 
 
 def test_csr_lane_group_follows_mean_row_length():
-    from repro_torch.kernels._common import csr_spmv_lanes
-    assert csr_spmv_lanes(100, 100) == 2
-    assert csr_spmv_lanes(700, 100) == 8
-    assert csr_spmv_lanes(2500, 100) == 32
-    assert csr_spmv_lanes(10 ** 6, 100) == 32
-    assert csr_spmv_lanes(0, 0) == 2
+    """No lane group follows the mean segment length any more: ``csr_spmv``
+    cuts its work by entries and ``ccs_spmv`` by runs of columns a warp.
+    What follows the mean column length is K7's window: a warp's columns'
+    rows plus a mean column on either side, as a power of two from 128 to
+    256 rows, at most the matrix's rows (300 rows over 100 columns here:
+    a 32-column run maps to 96 rows)."""
+    from repro_torch.kernels._common import ccs_spmv_launch
+    assert ccs_spmv_launch(300, 100, 100) == (256, 256, 32, 128)
+    assert ccs_spmv_launch(300, 100, 700) == (256, 256, 32, 128)
+    assert ccs_spmv_launch(300, 100, 1600) == (256, 256, 32, 128)
+    assert ccs_spmv_launch(300, 100, 1700) == (256, 256, 32, 256)
+    assert ccs_spmv_launch(300, 100, 2500) == (256, 256, 32, 256)
+    assert ccs_spmv_launch(300, 100, 10 ** 6) == (256, 256, 32, 256)
+    assert ccs_spmv_launch(100, 100, 10 ** 6) == (256, 256, 32, 100)
+    assert ccs_spmv_launch(0, 0, 0) == (256, 256, 32, 1)
 
 
 def test_spmv_launch_shapes_are_chosen_on_the_host():

@@ -137,6 +137,47 @@ def test_ell_spmm_raw_matches_reference(n_rows, width, n_cols, batch, dtype):
                      rel_tol(dtype))
 
 
+@pytest.mark.parametrize("bad", [np.inf, np.nan])
+def test_ell_pads_turn_nan_only_in_their_rows_unlike_the_reference(bad):
+    """A non-finite ``X[0]`` meets every padded slot (value 0, column 0):
+    ``0 * inf`` and ``0 * NaN`` are NaN.  In the port's plain versions (and
+    its kernels, held to them on the card) exactly the rows whose band holds
+    such a slot turn NaN — the sparse reading: a row with no entry at
+    column 0 and no pad never reads ``X[0]``.  The reference pads the band
+    to a multiple of 8 for the TPU's tile (``repro/kernels/ops.py``,
+    ``ell_spmv_raw``/``ell_spmm_raw``), so at a width of 5 every row gains
+    pad slots and every row turns NaN.  The port keeps the sparse reading;
+    this pins both.  Exact: the checks are on NaN positions, and the finite
+    rows equal the dense product within 1e-5 of sum |a x|."""
+    n_rows, width, n_cols = 16, 5, 9
+    rng = np.random.default_rng(37)
+    cols = rng.integers(1, n_cols, (n_rows, width)).astype(np.int32)
+    data = rng.normal(size=(n_rows, width)).astype(np.float32)
+    cols[:8, 3:], data[:8, 3:] = 0, 0.0      # rows 0-7 end in pads
+    X = rng.normal(size=(n_cols, 3)).astype(np.float32)
+    X[0, 1] = bad
+    nan_rows = np.arange(n_rows) < 8
+    got = K1.ell_spmm_plain(t_(data), t_(cols), t_(X))
+    np.testing.assert_array_equal(np.isnan(f32(got)),
+                                  np.outer(nan_rows, [False, True, False]))
+    got_v = K1.ell_spmv_plain(t_(data), t_(cols), t_(X[:, 1].copy()))
+    np.testing.assert_array_equal(np.isnan(f32(got_v)), nan_rows)
+    fin = ~nan_rows
+    want = (data[:, :, None] * np.nan_to_num(X)[cols]).sum(axis=1)
+    mag = (np.abs(data)[:, :, None] * np.abs(np.nan_to_num(X))[cols]).sum(
+        axis=1)
+    assert_rel_close(f32(got)[fin], want[fin], mag[fin], 1e-5)
+    ref = np.asarray(R_ops.ell_spmm_raw(jnp.asarray(data), jnp.asarray(cols),
+                                        jnp.asarray(X), interpret=True))
+    assert width % 8 and np.isnan(ref[:, 1]).all()
+    assert not np.isnan(ref[:, [0, 2]]).any()
+    ref_v = np.asarray(R_ops.ell_spmv_raw(jnp.asarray(data),
+                                          jnp.asarray(cols),
+                                          jnp.asarray(X[:, 1].copy()),
+                                          interpret=True))
+    assert np.isnan(ref_v).all()
+
+
 @pytest.mark.parametrize("batch", [3, 128])
 @pytest.mark.parametrize("nnz,n_rows,n_cols,sort", [
     (4096, 128, 128, True),
