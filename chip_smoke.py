@@ -88,9 +88,10 @@ COO_ORDER_MATRIX = ("xenon2", 1.0)
 #: on (D_mat 5.72; 857 rows of 4959 entries hold half of them): only those
 #: two formats, since its ELL panel would take gigabytes
 HEAVY = ("torso1", 1.0)
-#: the hash-scattered matrix ``ccs_spmv`` is also checked and timed on
-#: (SpMV, float32; 6.1 M entries, 91 % of them outside any warp's window of
-#: y rows): there the window must cost next to nothing
+#: the hash-scattered matrix ``ccs_spmv`` (SpMV, float32; 6.1 M entries,
+#: 91 % of them outside any warp's window of y rows) and ``csr_spmm`` (its
+#: blocks keep no window of X rows) are also checked and timed on: there a
+#: window must cost next to nothing
 SCATTERED = ("viscoplastic2", 16.0)
 
 KERNEL_INFO = {
@@ -246,7 +247,8 @@ def matrix_layouts(csr):
             "bcsr": T.host_csr_to_bcsr(csr).to(dev)}
 
 
-def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
+def kernel_cases(csr, layouts, dtype, batch=None, block_k=None,
+                 with_band=False):
     """The calls the main path makes on one matrix (``layouts``: its
     formats, from :func:`matrix_layouts`) at one value dtype, as dicts:
     kernel ``name``, ``layout``, ``kernel`` / ``plain`` / ``mag`` thunks
@@ -259,8 +261,13 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
     once (``4 * n_rows * B``); ``flops`` is ``2 * nnz * B`` (BCSR:
     ``2 * nblocks * b * b * B``, the block products it computes, explicit
     zeros included).  Every format the offline and serve phases run is
-    here, each SELL bucket as the ELL panel it is launched on.  Also returns
-    the library call (a sparse CSR product, float32 only)."""
+    here, each SELL bucket as the ELL panel it is launched on.  The ELL SpMV
+    cases read each row up to its live extent, as the main path's bound
+    panels do: their ``bytes`` count the live slots, the extents, x and y
+    (``bound_ms_panel``: the whole band's); ``with_band`` adds each panel
+    read whole.  The CSR SpMM cases carry the entries their windows miss
+    (``csr_spmm_window_misses``).  Also returns the library call (a sparse
+    CSR product, float32 only)."""
     from repro_torch.core.formats import bcsr_fill_ratio
     from repro_torch.kernels import bcsr_spmv as K9
     from repro_torch.kernels import ccs_spmv as K7
@@ -294,12 +301,37 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
         if transposed:      # column-major storage, viewed (n_rows, width)
             d, c = d.t(), c.t()
         rows, width = d.shape
-        cases.append({
-            "name": f"ell_{op}", "layout": layout,
-            "kernel": lambda: ell(d, c, x, **kw),
-            "plain": lambda: ell_plain(d, c, x),
-            "mag": lambda: ell_plain(d.abs(), c, xa),
-            "bytes": rows * width * (val + 4) + xy_bytes, "flops": flops})
+        panel = rows * width * (val + 4) + xy_bytes
+        if batch is not None:
+            cases.append({
+                "name": "ell_spmm", "layout": layout,
+                "kernel": lambda: ell(d, c, x, **kw),
+                "plain": lambda: ell_plain(d, c, x),
+                "mag": lambda: ell_plain(d.abs(), c, xa),
+                "bytes": panel, "flops": flops})
+            return
+        # K1 as the main path launches it: each row up to its live extent
+        # where that pays (kernels.ops.prepare decides at bind time), else
+        # the whole band; with_band adds each reading forced
+        ext = K1.ell_extent(d, c)
+        live = int(ext.sum())
+
+        def add(tag, e):
+            cases.append({
+                "name": "ell_spmv", "layout": layout + tag,
+                "kernel": lambda: ell(d, c, x, extent=e, **kw),
+                "plain": lambda: ell_plain(d, c, x, e),
+                "mag": lambda: ell_plain(d.abs(), c, xa),
+                "bytes": panel if e is None
+                else live * (val + 4) + 4 * rows + xy_bytes,
+                "flops": flops,
+                "info": {"live_slots": live, "slots": rows * width,
+                         "extent_read": e is not None,
+                         "bound_ms_panel": panel / PEAK_BYTES_PER_S * 1e3}})
+        add("", ext if K1.extent_pays(ext, width) else None)
+        if with_band:
+            add("[extent]", ext)
+            add("[band]", None)
 
     for order in ("row", "col"):
         if f"ell_{order}" in layouts:
@@ -312,12 +344,17 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None):
 
     m = layouts["csr"]
     md = m.data.to(dtype)
+    # K5 in the kernel the main path picks for this bound matrix
+    ckw = dict(kw) if batch is None else {
+        **kw, "window": csr_window(m, batch, block_k)}
     cases.append({
         "name": f"csr_{op}", "layout": "csr",
-        "kernel": lambda: csr_k(md, m.cols, m.indptr, x, **kw),
+        "kernel": lambda: csr_k(md, m.cols, m.indptr, x, **ckw),
         "plain": lambda: csr_plain(md, m.cols, m.indptr, x),
         "mag": lambda: csr_plain(md.abs(), m.cols, m.indptr, xa),
-        "bytes": nnz * (val + 4) + 4 * (n + 1) + xy_bytes, "flops": flops})
+        "bytes": nnz * (val + 4) + 4 * (n + 1) + xy_bytes, "flops": flops,
+        "info": {} if batch is None else csr_windows(layouts, batch, block_k,
+                                                     dtype, ckw["window"])})
 
     for layout in ("coo_row", "coo_col"):
         if layout not in layouts:
@@ -378,6 +415,29 @@ def library_of(layouts, csr, x, dtype):
     a = torch.sparse_csr_tensor(m.indptr, m.cols[:csr.nnz],
                                 m.data[:csr.nnz], size=csr.shape)
     return lambda: a @ x
+
+
+def csr_window(m, batch, block_k):
+    """Whether the main path runs the bound CSR matrix ``m`` through K5's
+    window kernel at ``batch`` (``kernels.ops.prepare`` reads its structure
+    once, as ``bind`` does)."""
+    from repro_torch.kernels import ops
+    return ops.csr_window_of(ops.prepare(m), batch, block_k)
+
+
+def csr_windows(layouts, batch, block_k, dtype, window):
+    """K5's windows at this launch (``csr_spmm_window_misses``: the entries
+    whose X row comes from global; every entry outside the window kernel),
+    counted once per matrix, B, column tile and value size."""
+    from repro_torch.kernels.csr_spmv import csr_spmm_window_misses
+    memo = layouts.setdefault("windows", {})
+    key = (batch, block_k, dtype)
+    if key not in memo:
+        m = layouts["csr"]
+        memo[key] = {**csr_spmm_window_misses(
+            m.cols, m.indptr, m.n_cols, batch, block_k=block_k,
+            x_dtype=dtype, window=window), "window_kernel": window}
+    return memo[key]
 
 
 def ccs_flushes(layouts, layout, batch, block_k):
@@ -508,14 +568,42 @@ def shuffled_ccs_results(csr, layouts, label):
     return results
 
 
+def nonfinite_result(name, layout, got, want, mag, label, dtype, **extra):
+    """One kernel output held against its plain version's where inputs are
+    not finite: NaN and infinities (of the same sign) in the same places,
+    the finite values to ``KERNEL_REL_TOL``."""
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    same = (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), torch.isinf(want))
+            and torch.equal(got[torch.isinf(want)], want[torch.isinf(want)]))
+    err = (got[fin] - want[fin]).abs()
+    rel = float((err / (mag[fin] + 1e-30)).max()) if err.numel() else 0.0
+    if not same or rel > KERNEL_REL_TOL:
+        raise AssertionError(
+            f"{name}/{layout} {label} {dtype} {extra}: NaN or inf placed "
+            f"apart from the plain version's ({same}) or rel err {rel}")
+    nan = torch.isnan(want)
+    return {"name": name, "layout": layout, "matrix": label, **extra,
+            "dtype": str(dtype).replace("torch.", ""),
+            "n_rows": int(got.shape[0]),
+            "nan_rows": int((nan.any(dim=1) if nan.ndim > 1 else nan).sum()),
+            "max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_rel_err": rel, "tolerance": KERNEL_REL_TOL}
+
+
 def ell_nonfinite_results(csr, layouts, label):
-    """K4 held against its plain version where ``X[0, :]`` cycles through
-    +inf, 1.5, -inf and NaN: the kernel gathers no X row for a padded
-    ``(0, column 0)`` slot and adds ``0 * X[0]`` once a row, so NaN must sit
-    exactly where the plain version has it (the rows whose band holds such a
-    slot, where ``X[0, b]`` is not finite), infinities too; the finite
-    values are held to ``KERNEL_REL_TOL``.  ELL-Row, ELL-Col and each SELL
-    bucket, B = 1, 8 and ``SERVE_BATCH``, both value dtypes.  Not timed."""
+    """K4 and K1 held against their plain versions where x is not finite.
+    ``X[0, :]`` cycles through +inf, 1.5, -inf and NaN: K4 gathers no X row
+    for a padded ``(0, column 0)`` slot and K1 reads no slot past a row's
+    extent, each adding ``0 * X[0]`` once a row, so NaN must sit exactly
+    where the plain version has it (the rows whose band holds such a slot,
+    where ``X[0, b]`` is not finite), infinities too (K4: B = 1, 8 and
+    ``SERVE_BATCH``; K1, with extents: each of the four as x[0]).  K1 also
+    on the panel with stored zeros at one column c != 0 in every other row
+    that holds it and x[c] = +inf: those rows NaN, the others +-inf.
+    ELL-Row, ELL-Col and each SELL bucket, both value dtypes; the finite
+    values held to ``KERNEL_REL_TOL``.  Not timed."""
     from repro_torch.kernels import ell_spmv as K1
 
     panels = [("ell_row", layouts["ell_row"].data, layouts["ell_row"].cols),
@@ -534,35 +622,47 @@ def ell_nonfinite_results(csr, layouts, label):
             xa = torch.where(torch.isfinite(x), x, 0.0).abs()
             for layout, d, c in panels:
                 d = d.to(dtype)
-                got = K1.ell_spmm(d, c, x)
-                want = K1.ell_spmm_plain(d, c, x)
-                mag = K1.ell_spmm_plain(d.abs(), c, xa)
-                torch.cuda.synchronize()
-                fin = torch.isfinite(want)
-                same = (torch.equal(torch.isnan(got), torch.isnan(want))
-                        and torch.equal(torch.isinf(got), torch.isinf(want))
-                        and torch.equal(got[torch.isinf(want)],
-                                        want[torch.isinf(want)]))
-                err = (got[fin] - want[fin]).abs()
-                rel = float((err / (mag[fin] + 1e-30)).max()) if err.numel() \
-                    else 0.0
-                if not same or rel > KERNEL_REL_TOL:
-                    raise AssertionError(
-                        f"ell_spmm/{layout} {label} {dtype} B={batch}, "
-                        f"non-finite X[0]: NaN or inf placed apart from the "
-                        f"plain version's ({same}) or rel err {rel}")
-                results.append({
-                    "name": "ell_spmm", "layout": f"{layout}[x0 non-finite]",
-                    "matrix": label, "batch": batch,
-                    "dtype": str(dtype).replace("torch.", ""),
-                    "n_rows": int(got.shape[0]), "nnz": csr.nnz,
-                    "nan_rows": int(torch.isnan(want).any(dim=1).sum()),
-                    "max_abs_err": float(err.max()) if err.numel() else 0.0,
-                    "max_rel_err": rel, "tolerance": KERNEL_REL_TOL})
-                del got, want, mag
-    if not any(r["nan_rows"] for r in results):
-        raise AssertionError("ell_spmm: no padded slot met a non-finite "
-                             "X[0]; the check has no case")
+                results.append(nonfinite_result(
+                    "ell_spmm", f"{layout}[x0 non-finite]",
+                    K1.ell_spmm(d, c, x), K1.ell_spmm_plain(d, c, x),
+                    K1.ell_spmm_plain(d.abs(), c, xa), label, dtype,
+                    batch=batch, nnz=csr.nnz))
+            if batch != 8:
+                continue
+            for layout, d, c in panels:
+                d = d.to(dtype)
+                ext = K1.ell_extent(d, c)
+                for b in range(4):
+                    xv = x[:, b].contiguous()
+                    results.append(nonfinite_result(
+                        "ell_spmv", f"{layout}[x0 non-finite]",
+                        K1.ell_spmv(d, c, xv, extent=ext),
+                        K1.ell_spmv_plain(d, c, xv, ext),
+                        K1.ell_spmv_plain(d.abs(), c, xa[:, b]), label, dtype,
+                        x0=float(x[0, b]), nnz=csr.nnz))
+                # stored zeros at column c0 != 0 under x[c0] = +inf
+                c0 = int(c[c.shape[0] // 2, 0])
+                even = torch.arange(c.shape[0], device=c.device)[:, None] % 2
+                dz = torch.where((c == c0) & (even == 0),
+                                 torch.zeros((), dtype=dtype,
+                                             device=d.device), d)
+                cz = torch.empty_strided(dz.shape, dz.stride(),
+                                         dtype=c.dtype,
+                                         device=c.device).copy_(c)
+                ext = K1.ell_extent(dz, cz)
+                xv = x[:, 1].clone()            # x[0] = 1.5: finite
+                xv[c0] = float("inf")
+                xf = torch.where(torch.isfinite(xv), xv, 0.0).abs()
+                results.append(nonfinite_result(
+                    "ell_spmv", f"{layout}[stored 0 under inf]",
+                    K1.ell_spmv(dz, cz, xv, extent=ext),
+                    K1.ell_spmv_plain(dz, cz, xv, ext),
+                    K1.ell_spmv_plain(dz.abs(), cz, xf), label, dtype,
+                    column=c0, nnz=csr.nnz))
+    for name in ("ell_spmm", "ell_spmv"):
+        if not any(r["nan_rows"] for r in results if r["name"] == name):
+            raise AssertionError(f"{name}: no non-finite x met a padded "
+                                 f"slot; the check has no case")
     return results
 
 
@@ -613,11 +713,12 @@ def phase_kernels(reps: int):
     B of ``SPMM_CHECKED``, and on ``BIG`` at B = ``SERVE_BATCH`` also at
     each column tile the tuner's grid launches; the COO kernels also on
     ``COO_ORDER_MATRIX``'s entries in every adversarial order, the CCS
-    kernels on its columns with their rows shuffled, K4 with a non-finite
-    ``X[0]``; the CSR and CCS kernels on ``HEAVY``, K7 on ``SCATTERED``);
+    kernels on its columns with their rows shuffled, K4 and K1 with a
+    non-finite x; the CSR and CCS kernels on ``HEAVY``, K7 and K5 on
+    ``SCATTERED``; K1 on ``BIG`` also reading each band whole);
     time the SpMV cases of ``KERNEL_MATRICES``, ``HEAVY`` and ``SCATTERED``
-    and the SpMM cases of ``BIG`` and ``HEAVY`` at each B of
-    ``SPMM_TIMED``.  The phase line also gives the seconds spent on
+    and the SpMM cases of ``BIG``, ``HEAVY`` and ``SCATTERED`` (K5) at each
+    B of ``SPMM_TIMED``.  The phase line also gives the seconds spent on
     each matrix."""
     from repro_torch.core import suite
     from repro_torch.core import transform as T
@@ -635,7 +736,8 @@ def phase_kernels(reps: int):
         layouts = matrix_layouts(csr)
         label = matrix_label(name, scale)
         for dtype in (torch.float32, torch.bfloat16):
-            cases, library = kernel_cases(csr, layouts, dtype)
+            cases, library = kernel_cases(csr, layouts, dtype,
+                                          with_band=(name, scale) == BIG)
             results += check_cases(cases, library, label, csr.nnz, dtype,
                                    (name, scale) in KERNEL_MATRICES, reps)
             for batch in SPMM_CHECKED:
@@ -676,7 +778,8 @@ def phase_kernels(reps: int):
     del csr, layouts
     torch.cuda.empty_cache()
     seconds[label] = time.perf_counter() - t0
-    # the scattered matrix: K7 alone, float32 SpMV, timed
+    # the scattered matrix: K7 (float32 SpMV) and K5 (each B of
+    # SPMM_CHECKED, both value dtypes), timed as on the heavy-tailed one
     t0 = time.perf_counter()
     csr = suite.synthesize(specs[SCATTERED[0]], scale=SCATTERED[1])
     layouts = {"csr": csr.to("cuda"),
@@ -685,6 +788,13 @@ def phase_kernels(reps: int):
     cases, library = kernel_cases(csr, layouts, torch.float32)
     results += check_cases([c for c in cases if c["name"] == "ccs_spmv"],
                            library, label, csr.nnz, torch.float32, True, reps)
+    for dtype in (torch.float32, torch.bfloat16):
+        for batch in SPMM_CHECKED:
+            cases, library = kernel_cases(csr, layouts, dtype, batch)
+            results += check_cases(
+                [c for c in cases if c["name"] == "csr_spmm"], library,
+                label, csr.nnz, dtype, batch in SPMM_TIMED, reps,
+                batch=batch)
     del csr, layouts, cases, library
     torch.cuda.empty_cache()
     seconds[label] = time.perf_counter() - t0
@@ -720,7 +830,9 @@ def kernels_line(cases, k11_cases, launches):
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": shape,
-            "cases_checked": len(mine)})
+            "cases_checked": len(mine),
+            **{k: head[k] for k in ("bound_ms_panel", "window", "misses")
+               if k in head}})
     head = k11_cases[0]
     out.append({
         "name": "decode_attention_int8", **KERNEL_INFO["decode_attention_int8"],
@@ -856,6 +968,20 @@ def trans_seconds(plan, csr, label):
     return _T_TRANS[key]
 
 
+def check_extents(label, P):
+    """A bound ELL or SELL matrix carries each panel's live extents on the
+    card (``kernels.ops.prepare``, at bind time), so K1 reads each row up to
+    its extent on the main path."""
+    from repro_torch.kernels import ops
+    panels = {"ell_row": lambda m: (m,), "ell_col": lambda m: (m,),
+              "sell": lambda m: m.buckets}.get(P.plan.fmt, lambda m: ())
+    for p in panels(P.matrix):
+        ext = ops.ell_extent_of(p)
+        if ext is None or not ext.is_cuda:
+            raise AssertionError(f"{label} {P.plan.fmt}: a bound panel has "
+                                 f"no extents on the card")
+
+
 def serve_one(api, planner, csr, label, plan_kw, iters):
     from repro_torch import kernels
     from repro_torch.core.autotune import time_fn
@@ -873,6 +999,7 @@ def serve_one(api, planner, csr, label, plan_kw, iters):
     t_bind = time.perf_counter() - t0
     if P.tiers["spmv"] != "kernel":
         raise AssertionError(f"{label}: spmv resolved to {P.tiers['spmv']}")
+    check_extents(label, P)
     y = P @ x
     torch.cuda.synchronize()
     after = kernels.launch_counts()

@@ -32,11 +32,26 @@ the kernel's plain version.  ``--kernels`` picks the set:
   xenon2@x4's ELL-Row, ELL-Col (viewed transposed) and SELL (every bucket
   in one call, as the batched path launches them) at B = 1, 8, 32 and 128,
   float32 and bfloat16.
+* ``ell_csr``: K1 ``ell_spmv`` on ELL-Row, ELL-Col (viewed transposed) and
+  SELL (every bucket in one call) of xenon2@x4, torso2 and torso3
+  (``scale=1.0``: 115 067 rows of ~9 entries, few pads; 259 156 rows of
+  ~17, past the L2), float32 and bfloat16, read as the checkout's main path
+  reads them — up to each row's live extent where the wrapper takes one and
+  ``extent_pays`` says so (computed once, outside the timed call), else the
+  whole band — and, in a checkout with extents, each way forced
+  (``/extent``, ``/band``); K5 ``csr_spmm`` on xenon2@x4,
+  viscoplastic2@x16 and torso1 at B = 1, 8, 32 and 128, float32 and
+  bfloat16, with the entries its windows miss (``csr_spmm_window_misses``)
+  where the checkout counts them, launched as the main path launches it
+  (a checkout with the window kernel: by the bound matrix's structure,
+  ``ops.csr_window_of``) and, in such a checkout, also in each kernel
+  (``window``, ``row-groups``) and, at B = 32 and 128, in the window kernel
+  at 16, 32, 64 and 128 rows a block.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
     python3 experiments/torch_coo_ab.py --other DIR
-        [--kernels coo|csr_ccs|ccs_ell] [--out FILE]
+        [--kernels coo|csr_ccs|ccs_ell|ell_csr] [--out FILE]
 
 It prints one line per case (median ms of each turn and the spread of this
 checkout's 40 times; a case only one checkout has, such as a tile of a grid
@@ -71,7 +86,8 @@ def worker(kernels: str) -> None:
     """One turn: the ``repro_torch`` on ``sys.path`` times the kernels of
     the set ``kernels`` and prints one JSON line."""
     cases, names = {"coo": coo_cases, "csr_ccs": csr_ccs_cases,
-                    "ccs_ell": ccs_ell_cases}[kernels]()
+                    "ccs_ell": ccs_ell_cases,
+                    "ell_csr": ell_csr_cases}[kernels]()
     import hashlib
 
     import torch
@@ -370,6 +386,142 @@ def ccs_ell_cases():
     return cases, ("ccs_spmv", "ell_spmm")
 
 
+def ell_csr_cases():
+    """K1 on xenon2@x4, torso2 and torso3; K5 on xenon2@x4,
+    viscoplastic2@x16 and torso1 (``--kernels ell_csr``)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import suite
+    from repro_torch.core import transform as T
+    from repro_torch.kernels import build
+    from repro_torch.kernels import csr_spmv as K2
+    from repro_torch.kernels import ell_spmv as K1
+
+    build.build_all(("ell_spmv", "csr_spmm"), force=True)
+    specs = {s.name: s for s in suite.TABLE1}
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    extents = "extent" in inspect.signature(K1.ell_spmv).parameters
+    windows = hasattr(K2, "csr_spmm_structure")
+    cases = []
+
+    def case(key, call, plain, plain_abs, lib_ms, **info):
+        """``call`` gives the kernel's outputs as a list (a SELL product is
+        one launch a bucket), ``plain`` and ``plain_abs`` theirs joined."""
+        got, want, mag = torch.cat(call()), plain(), plain_abs()
+        rel = rel_err(got, want, mag)
+        if rel > KERNEL_REL_TOL:
+            raise AssertionError(f"{key}: rel err {rel}")
+        del got, want, mag
+        cases.append({"key": key, "max_rel_err": rel, "ms": times_of(call),
+                      "library_ms": lib_ms, **info})
+
+    def library_ms(m, x):
+        lib = torch.sparse_csr_tensor(m.indptr, m.cols[:m.nnz],
+                                      m.data[:m.nnz], size=m.shape)
+        return statistics.median(times_of(lambda: lib @ x))
+
+    # K1
+    for name, scale in (("xenon2", 4.0), ("torso2", 1.0), ("torso3", 1.0)):
+        csr = suite.synthesize(specs[name], scale=scale, device="cpu")
+        m = csr.to(dev)
+        label = name if scale == 1.0 else f"{name}@x{scale:g}"
+        row = T.host_csr_to_ell(csr, order="row").to(dev)
+        col = T.host_csr_to_ell(csr, order="col").to(dev)
+        sell = T.host_csr_to_sell(csr).to(dev)
+        for dtype in (f32, bf16):
+            x = torch.from_numpy(np.random.default_rng(7).normal(
+                size=csr.n_cols).astype(np.float32)).to(dev).to(dtype)
+            lib_ms = library_ms(m, x) if dtype == f32 else None
+            panels = {"ell_row": [(row.data.to(dtype), row.cols)],
+                      "ell_col": [(col.data.to(dtype).t(), col.cols.t())],
+                      "sell": [(b.data.to(dtype), b.cols)
+                               for b in sell.buckets]}
+            for layout, ps in panels.items():
+                ps = [(d, c, K1.ell_extent(d, c) if extents else None)
+                      for d, c in ps]
+                # the main path's reading (this checkout: up to the extents
+                # where they pay), then each reading forced
+                reads = [("", [e if extents and K1.extent_pays(e, d.shape[1])
+                               else None for d, _, e in ps])]
+                if extents:
+                    reads += [("/extent", [e for _, _, e in ps]),
+                              ("/band", [None for _ in ps])]
+                for tag, es in reads:
+                    def call(ps=ps, es=es):
+                        return [K1.ell_spmv(d, c, x, **({} if e is None
+                                                        else {"extent": e}))
+                                for (d, c, _), e in zip(ps, es)]
+
+                    def plain(ps=ps):
+                        return torch.cat([K1.ell_spmv_plain(d, c, x)
+                                          for d, c, _ in ps])
+
+                    def plain_abs(ps=ps):
+                        return torch.cat([K1.ell_spmv_plain(d.abs(), c,
+                                                            x.abs())
+                                          for d, c, _ in ps])
+                    info = {"slots": sum(d.numel() for d, _, _ in ps),
+                            "extent_read": sum(e is not None for e in es)}
+                    if extents:
+                        info["live_slots"] = sum(int(e.sum())
+                                                 for _, _, e in ps)
+                    case(f"ell_spmv/{label}/{layout}/{dtype}{tag}".replace(
+                        "torch.", ""), call, plain, plain_abs, lib_ms, **info)
+            del panels
+        del m, row, col, sell, csr
+        torch.cuda.empty_cache()
+    # K5
+    if windows:
+        from repro_torch.kernels import ops
+    for name, scale in (("xenon2", 4.0), ("viscoplastic2", 16.0),
+                        ("torso1", 1.0)):
+        csr = suite.synthesize(specs[name], scale=scale, device="cpu")
+        m = csr.to(dev)
+        label = name if scale == 1.0 else f"{name}@x{scale:g}"
+        if windows:
+            ops.prepare(m)
+        for dtype in (f32, bf16):
+            d = m.data.to(dtype)
+            for batch in (1, 8, 32, 128):
+                X = torch.from_numpy(np.random.default_rng(8).normal(
+                    size=(m.n_cols, batch)).astype(np.float32)).to(
+                    dev).to(dtype)
+                lib_ms = library_ms(m, X) if dtype == f32 else None
+                want = K2.csr_spmm_plain(d, m.cols, m.indptr, X)
+                mag = K2.csr_spmm_plain(d.abs(), m.cols, m.indptr, X.abs())
+                # default: as the main path launches it (a checkout with
+                # the window kernel: by the bound matrix's structure)
+                variants = [("default", {"window": ops.csr_window_of(
+                    m, batch)} if windows else {})]
+                if windows:
+                    variants += [("window", {"window": True}),
+                                 ("row-groups", {"window": False})]
+                if windows and batch >= 32:
+                    variants += [(f"rows={r}", {"block_rows": r,
+                                                "window": True})
+                                 for r in (16, 32, 64, 128)]
+                for vname, kw in variants:
+                    info = {}
+                    if windows:
+                        info["windows"] = K2.csr_spmm_window_misses(
+                            m.cols, m.indptr, m.n_cols, batch,
+                            x_dtype=dtype, **kw)
+
+                    def call(kw=kw):
+                        return [K2.csr_spmm(d, m.cols, m.indptr, X, **kw)]
+                    case(f"csr_spmm/{label}/{dtype}/B={batch}/{vname}"
+                         .replace("torch.", ""), call, lambda: want,
+                         lambda: mag, lib_ms, **info)
+                del X, want, mag
+        del m, csr
+        torch.cuda.empty_cache()
+    return cases, ("ell_spmv", "csr_spmm")
+
+
 def turn(checkout: Path, kernels: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(checkout / "src"))
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -385,7 +537,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path,
                     help="root of the checkout to compare with")
-    ap.add_argument("--kernels", choices=("coo", "csr_ccs", "ccs_ell"),
+    ap.add_argument("--kernels",
+                    choices=("coo", "csr_ccs", "ccs_ell", "ell_csr"),
                     default="coo",
                     help="the kernels to time (see the module's docstring)")
     ap.add_argument("--out", type=Path, help="where to write every time")

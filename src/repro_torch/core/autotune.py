@@ -137,6 +137,26 @@ def time_host(fn: Callable, *args, iters: int = 3) -> float:
     return best
 
 
+def _prepare(obj: Any) -> Any:
+    """``kernels.ops.prepare``: what the kernels read beside a container."""
+    from ..kernels.ops import prepare
+    return prepare(obj)
+
+
+def time_prepare(obj: Any) -> float:
+    """Seconds of ``kernels.ops.prepare(obj)`` on ``obj``'s device, host
+    clock around a call that ends in a synchronize (a CUDA device's work
+    included)."""
+    dev = obj.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _prepare(obj)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter() - t0
+
+
 # ---------------------------------------------------------------------------
 # records
 # ---------------------------------------------------------------------------
@@ -288,7 +308,11 @@ def offline_phase(
 
     ``device``: where SpMV is timed (``None`` = the CUDA device).  Each
     matrix is transformed on the host — ``t_trans`` is the host recipe's
-    time, as in the reference — and moved to ``device`` before it is timed.
+    time, as in the reference, plus, for a format whose impl is overridden
+    (the kernel tier), the time of ``kernels.ops.prepare`` on ``device``
+    (ELL extents) — and moved to ``device`` before it is timed.  With the
+    kernel tier's CSR impl the source itself is prepared (the choice of its
+    SpMM kernel) before ``t_crs`` is timed.
 
     ``batch``: number of right-hand sides per timed call.  ``batch > 1``
     times the SpMM path with an ``(n_cols, batch)`` panel instead of SpMV,
@@ -342,6 +366,9 @@ def offline_phase(
             csr_dev = csr.to(dev)
             csr_fn = impls.get("csr", default_op)
             if "csr" in impls:
+                # the source's own set-up (no transformation): what picks
+                # its SpMM kernel, as a bound CSR plan has it
+                _prepare(csr_dev)
                 csr_fn = tuned(csr_fn, csr_dev, stats, x)
             t_crs = time_fn(csr_fn, csr_dev, x, iters=iters)
             if tel.enabled:
@@ -356,6 +383,9 @@ def offline_phase(
                 fmt_obj = trans(csr).to(dev)
                 f_fn = impls.get(f, default_op)
                 if f in impls:
+                    # what the kernels read beside the container (ELL
+                    # extents) is part of the transformation's time
+                    t_trans += time_prepare(fmt_obj)
                     f_fn = tuned(f_fn, fmt_obj, stats, x)
                 t_f = time_fn(f_fn, fmt_obj, x, iters=iters)
                 sp = t_crs / t_f
@@ -527,7 +557,7 @@ def decide_cost_model(model: MachineModel, stats: MatrixStats,
 
 
 __all__ = [
-    "DEFAULT_FORMATS", "time_fn", "time_host",
+    "DEFAULT_FORMATS", "time_fn", "time_host", "time_prepare",
     "FormatMeasurement", "OfflineRecord", "TuningDB",
     "offline_phase", "Decision", "decide_paper", "decide_generalized",
     "MachineModel", "decide_cost_model",

@@ -225,8 +225,9 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
     same launch twice.  ``n_rows`` is the segmented axis: the column count
     for CCS, the block-row count for BCSR; ``width`` is BCSR's block size
     b."""
-    from ..kernels._common import (CCS_SPMV_WARPS, bcsr_spmv_launch,
-                                   ccs_spmv_launch, rhs_tile, rows_per_block)
+    from ..kernels._common import (CCS_SPMV_WARPS, CSR_SPMM_MIN_TUNE_ROWS,
+                                   bcsr_spmv_launch, ccs_spmv_launch,
+                                   csr_spmm_window, rhs_tile, rows_per_block)
     if fmt not in GRID_FORMATS:
         return []
     batch = max(int(batch), 1)
@@ -258,6 +259,14 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
                 for r in GPU_ROW_TILES)
             continue
         lanes = _lanes_per_row(fmt, op, width, batch, k)
+        if fmt == "csr" and op == "spmm" and csr_spmm_window(batch, k):
+            # rows a block owns beside its window of X rows, walked by up to
+            # 256 threads: not bound by the threads a block holds
+            geoms.extend(
+                TileGeometry(block_rows=min(r, n_rows) if n_rows else r,
+                             block_k=k)
+                for r in GPU_ROW_TILES if r >= CSR_SPMM_MIN_TUNE_ROWS)
+            continue
         cap = 1024 // lanes
         if n_rows:
             cap = min(cap, n_rows)
@@ -443,6 +452,10 @@ class KernelTuner:
 
         if impl is None:
             impl = _dispatch.get_impl(fmt, op, tier="kernel", fallback=False)
+        # the candidates run as a bound container runs them (ELL extents,
+        # the CSR SpMM kernel's choice)
+        from ..kernels.ops import prepare
+        prepare(obj)
         if x is None:
             shape = (obj.n_cols,) if op == "spmv" else (obj.n_cols, batch)
             x = torch.ones(shape, dtype=torch.float32, device=obj.device)

@@ -330,7 +330,9 @@ class ExecutionPlan:
              jit: bool = True) -> "PlannedMatrix":
         """Apply the plan to a concrete matrix: transform (host recipe),
         move the result to ``device`` (``None`` = the CUDA device), resolve
-        impls at the plan's tier, attach launch geometry, and return a
+        impls at the plan's tier, attach launch geometry (and, at the kernel
+        tier, what the kernels read beside the container:
+        ``kernels.ops.prepare``), and return a
         :class:`PlannedMatrix` serving ``P @ x``.
 
         If ``csr``'s fingerprint differs from the one the plan was tuned
@@ -399,6 +401,12 @@ class ExecutionPlan:
             fns[op] = fn
             used[op] = g
             tiers[op] = found
+        if "kernel" in tiers.values():
+            # what the kernels read beside the container (ELL extents, the
+            # CSR SpMM kernel's choice) is part of the transformation:
+            # computed here, never in a product
+            from ..kernels.ops import prepare
+            prepare(matrix)
         return PlannedMatrix(self, csr, matrix, fns, used, tiers,
                              fingerprint_matched=matched, jit=jit)
 

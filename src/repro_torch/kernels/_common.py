@@ -91,6 +91,33 @@ CCS_SPMV_COLS_PER_WARP = 32
 #: fewest and most rows of a ``ccs_spmv`` warp's window
 CCS_SPMV_WINDOW_MIN = 128
 CCS_SPMV_WINDOW_MAX = 256
+#: rows a ``csr_spmm`` block owns by default where it keeps a window of X
+#: rows: 32 rows of a band share ~75 X rows on xenon2, so each X row the
+#: window holds serves ~10 entries, and four such blocks fit on an SM (64
+#: rows was 13 % slower, 16 or 128 slower still: PERF.md §6)
+CSR_SPMM_ROWS = 32
+#: narrowest right-hand-side tile at which ``csr_spmm`` runs its window
+#: kernel on a matrix it knows nothing of: below it (X rows of at most 128
+#: bytes) the block's set-up costs more than the window saves on a band
+#: (xenon2 at B = 32: 7 % slower than a lane group a row, PERF.md §6)
+CSR_SPMM_WINDOW_MIN_COLS = 64
+#: least share of the entries the windows must serve for a bound matrix
+#: without heavy rows to take the window kernel
+CSR_SPMM_MIN_SERVED = 0.5
+#: fewest rows a block owns among the tuner's ``csr_spmm`` window candidates
+CSR_SPMM_MIN_TUNE_ROWS = 8
+#: most entries a ``csr_spmm`` window block stages in shared memory (32 KB);
+#: by default it stages 5/4 of its rows' mean share, and reads the rest of
+#: its entries (a heavy row's) from global
+CSR_SPMM_STAGE_MAX = 4096
+#: dynamic shared memory a block may take on an H100 (232 448 bytes),
+#: less room for the kernels' static shared memory
+SMEM_BLOCK_MAX = 232448 - 1024
+#: ``csr_spmm`` window blocks that should fit on one SM together: the
+#: window is cut to its share of the SM's shared memory (torso1, whose mean
+#: row is stretched by its heavy rows, ran at one block an SM and 1.6x
+#: slower: PERF.md §6)
+CSR_SPMM_BLOCKS_PER_SM = 3
 #: grid.y limit of a CUDA launch
 MAX_GRID_Y = 65535
 #: elements of the largest ``(entries, B)`` temporary a plain SpMM version
@@ -191,6 +218,63 @@ def row_group_launch(batch: int, block_rows=None, block_k=None):
     kt, lanes, per_lane = rhs_tile(batch, block_k)
     check_grid_y(batch, kt)
     return kt, lanes, per_lane, rows_per_block(lanes, block_rows)
+
+
+def csr_spmm_window(batch: int, block_k=None, heavy=None,
+                    served=None) -> bool:
+    """Whether a CSR SpMM launch runs the window kernel.  For a bound
+    matrix (``heavy``: it has a row longer than a window; ``served``: the
+    share of its entries the windows serve, both from
+    ``csr_spmv.csr_spmm_structure``): where it has heavy rows (which the
+    window kernel sums with a whole block), or where its windows serve at
+    least ``CSR_SPMM_MIN_SERVED`` of its entries at a tile of at least
+    ``CSR_SPMM_WINDOW_MIN_COLS`` columns.  Knowing nothing of the matrix:
+    from that tile on."""
+    wide = rhs_tile(batch, block_k)[0] >= CSR_SPMM_WINDOW_MIN_COLS
+    if heavy is None:
+        return wide
+    return bool(heavy) or (wide and served >= CSR_SPMM_MIN_SERVED)
+
+
+def csr_spmm_launch(batch: int, n_rows: int, n_cols: int, nnz_pad: int,
+                    block_rows=None, block_k=None, x_size: int = 4,
+                    window=None):
+    """``(kt, lanes, per_lane, threads, rows, window, stage)`` of a CSR SpMM
+    launch.  The column tile is :func:`rhs_tile`'s.  The window kernel
+    (``window``; ``None``: :func:`csr_spmm_window` knowing nothing of the
+    matrix) keeps a window of ``window`` X rows (of ``x_size`` bytes a
+    value) in shared memory: a CUDA block owns
+    ``rows`` consecutive rows (``block_rows``, default ``CSR_SPMM_ROWS`` or
+    a row a lane group, at most ``n_rows``), walked by up to
+    ``DEFAULT_THREADS`` threads in lane groups; it stages ``stage`` of
+    their entries in shared memory (5/4 of the rows' mean share, a multiple
+    of 32, at most ``CSR_SPMM_STAGE_MAX``), and the window spans the columns
+    those rows map to (``rows * n_cols / n_rows``) plus twice the mean
+    row's length — a band reaches that far — at most ``n_cols`` and what
+    fits in a ``CSR_SPMM_BLOCKS_PER_SM``-th of ``SMEM_BLOCK_MAX`` beside
+    the rows' IRP, the stage and the partial sums of a heavy row (a row
+    longer than the window, which all the block's lane groups sum
+    together).  Otherwise a lane group runs a row with every X row from
+    global (``window == stage == 0``): ``rows`` groups of ``lanes``
+    threads, as :func:`rows_per_block` rounds them."""
+    kt, lanes, per_lane = rhs_tile(batch, block_k)
+    check_grid_y(batch, kt)
+    if window is None:
+        window = csr_spmm_window(batch, block_k)
+    if not window:
+        groups = rows_per_block(lanes, block_rows)
+        return kt, lanes, per_lane, groups * lanes, groups, 0, 0
+    n_rows, n_cols = max(int(n_rows), 1), max(int(n_cols), 1)
+    rows = min(max(1, int(block_rows)) if block_rows
+               else max(CSR_SPMM_ROWS, DEFAULT_THREADS // lanes), n_rows)
+    threads = clamp_threads(min(DEFAULT_THREADS, rows * lanes))
+    mean = -(-int(nnz_pad) // n_rows)
+    stage = min(CSR_SPMM_STAGE_MAX, -(-5 * rows * mean // 4 // 32) * 32)
+    span = -(-rows * n_cols // n_rows) + 2 * mean
+    room = (SMEM_BLOCK_MAX // CSR_SPMM_BLOCKS_PER_SM - 4 * (rows + 4)
+            - 8 * stage - 4 * (threads // lanes) * kt)
+    return (kt, lanes, per_lane, threads, rows,
+            max(1, min(span, room // (kt * int(x_size)), n_cols)), stage)
 
 
 def ccs_spmm_launch(batch: int, n_rows: int, n_cols: int, nnz_pad: int,

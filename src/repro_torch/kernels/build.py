@@ -33,9 +33,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C signature of each library's entry point (every pointer and the stream
 #: are ``c_void_p`` — ctypes would otherwise cut a pointer to 32 bits)
 SIGNATURES: Dict[str, Sequence] = {
-    # data, cols, x, y, n_rows, width, row_stride, col_stride, lanes,
-    # rows_per_block, data_bf16, x_bf16, stream
-    "ell_spmv": (_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _P),
+    # data, cols, extent (null: the whole band), x, y, n_rows, width,
+    # row_stride, col_stride, lanes, rows_per_block, data_bf16, x_bf16, stream
+    "ell_spmv": (_P, _P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _P),
     # data, cols, indptr, x, y, scratch, n_rows, nnz_pad, n_slices, threads,
     # block_nnz, chunk, data_bf16, x_bf16, stream
     "csr_spmv": (_P,) * 6 + (_I,) * 8 + (_P,),
@@ -46,9 +46,9 @@ SIGNATURES: Dict[str, Sequence] = {
     # per_lane, rows_per_block, data_bf16, x_bf16, stream
     "ell_spmm": (_P, _P, _P, _P, _I, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I,
                  _P),
-    # data, cols, indptr, x, y, n_rows, B, kt, lanes, per_lane,
-    # rows_per_block, data_bf16, x_bf16, stream
-    "csr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # data, cols, indptr, x, y, n_rows, n_cols, B, kt, lanes, per_lane,
+    # threads, rows_per_block, window, stage, data_bf16, x_bf16, stream
+    "csr_spmm": (_P,) * 5 + (_I,) * 12 + (_P,),
     # data, rows, cols, x, y, nnz, B, kt, lanes, per_lane, threads,
     # block_nnz, run, data_bf16, x_bf16, stream
     "coo_spmm": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,

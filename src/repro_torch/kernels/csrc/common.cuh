@@ -101,6 +101,60 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
   }
 }
 
+// A thread's PER columns of row c of a row-major (rows, B) panel of X: the
+// SpMM kernels' gather of one X row per stored entry.  Consecutive from b0
+// (VEC: one vector load, 16 bytes for 4 float32), else b0 + i * stride;
+// zeros at or past k_end.  `x` may point to global or shared memory.
+template <typename TX, int PER, bool VEC>
+__device__ __forceinline__ void x_row(const TX* __restrict__ x, int c, int B,
+                                      int b0, int stride, int k_end,
+                                      float (&v)[PER]) {
+  const TX* xr = x + (long long)c * B;
+  if constexpr (VEC) {
+    if (b0 < k_end) {
+      load_row<PER>(xr + b0, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) v[i] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int b = b0 + i * stride;
+      v[i] = b < k_end ? to_f32<TX>(xr[b]) : 0.f;
+    }
+  }
+}
+
+// A thread's PER columns of a float32 Y row, laid out as x_row reads X.
+template <int PER, bool VEC>
+__device__ __forceinline__ void store_row(float* __restrict__ yr, int b0,
+                                          int stride, int k_end,
+                                          const float (&v)[PER]) {
+  if constexpr (VEC && PER == 4) {
+    if (b0 < k_end) {
+      *reinterpret_cast<float4*>(yr + b0) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else if constexpr (VEC && PER == 2) {
+    if (b0 < k_end) *reinterpret_cast<float2*>(yr + b0) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int b = b0 + i * stride;
+      if (b < k_end) yr[b] = v[i];
+    }
+  }
+}
+
+// Whether a thread's PER columns may be read and written as one vector:
+// B and the tile hold whole vectors and X's and Y's rows are aligned to them.
+static inline bool vector_rows(int per_lane, int B, int kt, const void* x,
+                               int x_size, const void* y) {
+  return per_lane > 1 && B % per_lane == 0 && kt % per_lane == 0 &&
+         (std::uintptr_t)x % (per_lane * x_size) == 0 &&
+         (std::uintptr_t)y % (per_lane * 4) == 0;
+}
+
 // One vector atomic add of PER consecutive floats (sm_90 adds float2 and
 // float4 atomics to global memory).
 template <int PER>

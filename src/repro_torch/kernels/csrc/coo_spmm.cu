@@ -93,22 +93,8 @@ __global__ void coo_spmm_runs(const TD* __restrict__ data,
         dj[u] = __shfl_sync(mask, dv, j, lanes);
         rj[u] = __shfl_sync(mask, rv, j, lanes);
         const int cj = __shfl_sync(mask, cv, j, lanes);
-        const TX* xr = x + (long long)cj * B + b0;
-        if (VEC) {
-          if (j < n && b0 < k_end) {
-            load_row<PER>(xr, xv[u]);
-          } else {
-#pragma unroll
-            for (int i = 0; i < PER; ++i) xv[u][i] = 0.f;
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < PER; ++i) {
-            xv[u][i] = j < n && b0 + i * stride < k_end
-                           ? to_f32<TX>(xr[i * stride])
-                           : 0.f;
-          }
-        }
+        x_row<TX, PER, VEC>(x, cj, B, b0, stride, j < n ? k_end : b0,
+                            xv[u]);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -143,12 +129,7 @@ extern "C" int coo_spmm_launch(const void* data, const void* rows,
       (long long)run * (threads / lanes) < block_nnz) {
     return (int)cudaErrorInvalidValue;
   }
-  // one vector per thread and row: B and the tile hold whole vectors and
-  // the panels are aligned to them
-  const int vec_bytes = per_lane * (x_bf16 ? 2 : 4);
-  const bool vec = per_lane > 1 && B % per_lane == 0 && kt % per_lane == 0 &&
-                   (std::uintptr_t)x % vec_bytes == 0 &&
-                   (std::uintptr_t)y % (per_lane * 4) == 0;
+  const bool vec = vector_rows(per_lane, B, kt, x, x_bf16 ? 2 : 4, y);
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((unsigned)((nnz + block_nnz - 1) / block_nnz),
                   (unsigned)((B + kt - 1) / kt));

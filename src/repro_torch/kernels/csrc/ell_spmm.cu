@@ -49,29 +49,6 @@
 
 #define ELL_UNROLL 4  // slots whose X rows a warp-wide group loads together
 
-// The thread's PER columns of X row c: consecutive from b0 (VEC), else b0 +
-// i * stride; zeros past the tile.
-template <typename TX, int PER, bool VEC>
-__device__ __forceinline__ void x_row(const TX* __restrict__ x, int c, int B,
-                                      int b0, int stride, int k_end,
-                                      float (&v)[PER]) {
-  const TX* xr = x + (long long)c * B;
-  if constexpr (VEC) {
-    if (b0 < k_end) {
-      load_row<PER>(xr + b0, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < PER; ++i) v[i] = 0.f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int b = b0 + i * stride;
-      v[i] = b < k_end ? to_f32<TX>(xr[b]) : 0.f;
-    }
-  }
-}
-
 template <typename TD, typename TX, int PER, bool VEC>
 __global__ void ell_spmm_rows(const TD* __restrict__ data,
                               const int* __restrict__ cols,
@@ -144,23 +121,7 @@ __global__ void ell_spmm_rows(const TD* __restrict__ data,
 #pragma unroll
     for (int i = 0; i < PER; ++i) acc[i] = fmaf(0.f, xv[i], acc[i]);
   }
-  float* yr = y + r * (long long)B;
-  if constexpr (VEC && PER == 4) {
-    if (b0 < k_end) {
-      *reinterpret_cast<float4*>(yr + b0) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-    }
-  } else if constexpr (VEC && PER == 2) {
-    if (b0 < k_end) {
-      *reinterpret_cast<float2*>(yr + b0) = make_float2(acc[0], acc[1]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int b = b0 + i * stride;
-      if (b < k_end) yr[b] = acc[i];
-    }
-  }
+  store_row<PER, VEC>(y + r * (long long)B, b0, stride, k_end, acc);
 }
 
 // kt: right-hand-side columns per CUDA block; lanes: threads per row (power
@@ -183,13 +144,7 @@ extern "C" int ell_spmm_launch(const void* data, const void* cols,
   const dim3 grid(
       (unsigned)(((long long)n_rows + rows_per_block - 1) / rows_per_block),
       (unsigned)((B + kt - 1) / kt));
-  // a thread's columns consecutive: B and the tile hold whole vectors and
-  // X's and Y's rows are aligned to them
-  const int x_size = x_bf16 ? 2 : 4;
-  const bool vec = per_lane > 1 && B % per_lane == 0 &&
-                   kt % per_lane == 0 &&
-                   (std::uintptr_t)x % (per_lane * x_size) == 0 &&
-                   (std::uintptr_t)y % (per_lane * 4) == 0;
+  const bool vec = vector_rows(per_lane, B, kt, x, x_bf16 ? 2 : 4, y);
 #define LAUNCH(TD, TX, P, V)                                                 \
   ell_spmm_rows<TD, TX, P, V><<<grid, (unsigned)threads, 0, s>>>(            \
       (const TD*)data, (const int*)cols, (const TX*)x, (float*)y, n_rows,    \

@@ -5,15 +5,22 @@ Replaces the TPU kernel ``repro/kernels/ell_spmv.py:ell_spmv``
 (``_ell_spmv_kernel``): ``y[r] = sum_w data[r, w] * x[cols[r, w]]`` with
 float32 accumulation; padded slots (val 0, col 0) add zero.
 
-Bound on an H100: memory.  The least the card must move is the panel once,
-``n_rows * width * (val + 4)`` bytes, plus ``val * n_cols`` for x and
-``4 * n_rows`` for y, over the card's 3.35 TB/s.  The design keeps to that
-by reading every panel element exactly once with coalesced loads — one thread
-per row for column-major storage (consecutive rows adjacent in memory), a
-group of lanes per row for row-major storage — keeping the sum in a register,
-and leaving the x gather to L2.  The panel is addressed by strides, so both
-ELL layouts and SELL buckets are served without a transpose copy and without
-padding to any tile multiple: the ragged edge is masked.
+Bound on an H100: memory.  A band padded to its longest row holds mostly
+pads (xenon2: 43 slots for 24.6 entries a row), so the design reads each
+row's *live extent* only — 1 + the last slot that is not a ``(±0, column
+0)`` pad, :func:`ell_extent`, computed once per panel when the panel is bound
+(``kernels/ops.py:prepare``) — and adds ``0 * x[0]`` once for a row whose
+extent is short of the band: the plain version's values, but that a zero
+result may change sign; exactly the rows whose band holds a pad turn NaN
+where ``x[0]`` is not finite.  The least the card must move is then the live
+slots, ``(val + 4)`` bytes each, the extents (4 bytes a row), ``val *
+n_cols`` for x and ``4 * n_rows`` for y, over 3.35 TB/s.  Loads coalesce —
+one thread per row for column-major storage (consecutive rows adjacent in
+memory), a group of lanes per row for row-major storage — the sum stays in
+a register and the x gather is left to L2.  The panel is addressed by
+strides, so both ELL layouts and SELL buckets are served without a
+transpose copy and without padding to any tile multiple.  Without an extent
+(a raw call, ``ell_spmv_ad``) the whole band is read.
 
 :func:`ell_spmm` replaces ``repro/kernels/ell_spmv.py:ell_spmm``
 (``_ell_spmm_kernel``): ``Y[r, :] = sum_w data[r, w] * X[cols[r, w], :]``
@@ -37,34 +44,91 @@ from typing import Optional
 import torch
 
 from . import build as _build
-from ._common import (INT32_MAX, check_contiguous, check_current_device,
-                      check_index, check_same_device, check_values,
-                      current_stream_ptr, ell_spmv_lanes, row_group_launch,
-                      rows_per_block)
+from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, check_contiguous,
+                      check_current_device, check_index, check_same_device,
+                      check_values, current_stream_ptr, ell_spmv_lanes,
+                      row_group_launch, rows_per_block)
 
 
-def ell_spmv_plain(data: torch.Tensor, cols: torch.Tensor,
-                   x: torch.Tensor) -> torch.Tensor:
+def ell_extent(data: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Each row's live extent of an ELL panel viewed ``(n_rows, width)``
+    (any strides): 1 + the last slot that is not a ``(±0, column 0)`` pad, 0
+    for a row of pads only; int32 ``(n_rows,)`` on the panel's device.  Exact
+    for any slot order: a stored zero at another column, or a non-zero (or
+    NaN) value at column 0, is live.  A torch reduction, rows taken in
+    chunks (no temporary above ``PLAIN_CHUNK_ELEMS`` slots)."""
+    n_rows, width = data.shape
+    out = torch.zeros(n_rows, dtype=torch.int32, device=data.device)
+    if width == 0:
+        return out
+    slot = torch.arange(1, width + 1, dtype=torch.int32, device=data.device)
+    step = max(1, PLAIN_CHUNK_ELEMS // width)
+    for r0 in range(0, n_rows, step):
+        d, c = data[r0:r0 + step], cols[r0:r0 + step]
+        live = (d != 0) | (c != 0)
+        out[r0:r0 + step] = torch.where(live, slot, 0).amax(dim=1)
+    return out
+
+
+#: the largest share of a panel's slots inside its rows' extents at which
+#: reading up to the extents pays: the extent is one more load a row ahead
+#: of the row's slots, and the card fetches whole 64-byte runs of a row, so
+#: a band with few pads reads faster whole (PERF.md §6)
+EXTENT_MAX_LIVE = 0.75
+
+
+def extent_pays(extent: torch.Tensor, width: int) -> bool:
+    """Whether :func:`ell_spmv` should read a panel up to ``extent``: at
+    most ``EXTENT_MAX_LIVE`` of its ``n_rows * width`` slots lie inside the
+    extents (one read back from the panel's device)."""
+    slots = extent.shape[0] * width
+    return slots > 0 and int(extent.sum()) <= EXTENT_MAX_LIVE * slots
+
+
+def _check_extent(extent: torch.Tensor, data: torch.Tensor) -> None:
+    if extent.dtype != torch.int32 or extent.shape != data.shape[:1]:
+        raise ValueError(f"extent must be int32 of shape ({data.shape[0]},); "
+                         f"got {extent.dtype} {tuple(extent.shape)}")
+
+
+def ell_spmv_plain(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                   extent: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: ``data``/``cols`` ``(n_rows, width)`` (any
-    strides), ``x`` ``(n_cols,)``; float32 accumulate, float32 result."""
-    return (data.float() * x.float()[cols]).sum(dim=1)
+    strides), ``x`` ``(n_cols,)``; float32 accumulate, float32 result.
+    With an ``extent`` (:func:`ell_extent`) it repeats the kernel's
+    arithmetic: the slots below a row's extent, plus ``0 * x[0]`` once where
+    the extent is short of the band."""
+    prod = data.float() * x.float()[cols]
+    if extent is None:
+        return prod.sum(dim=1)
+    width = data.shape[1]
+    slot = torch.arange(width, device=data.device)
+    y = torch.where(slot < extent[:, None], prod, 0.0).sum(dim=1)
+    if x.numel() == 0:
+        return y
+    return y + torch.where(extent < width, 0.0 * x[0].float(), 0.0)
 
 
 def ell_spmv(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
+             extent: Optional[torch.Tensor] = None,
              block_rows: Optional[int] = None) -> torch.Tensor:
     """``y = A @ x`` for an ELL panel viewed as ``(n_rows, width)``.
 
     ``data`` and ``cols`` may be any strided 2-D views with equal strides
     (pass ``m.data.t()`` for column-major storage); ``x`` is contiguous.
-    Returns float32 ``(n_rows,)``.  ``block_rows`` is the number of rows a
-    CUDA block owns.  CPU tensors run :func:`ell_spmv_plain`; CUDA tensors
-    launch the kernel or raise."""
+    ``extent`` (:func:`ell_extent` of the panel; ``None`` reads the whole
+    band) bounds the slots each row reads.  Returns float32 ``(n_rows,)``.
+    ``block_rows`` is the number of rows a CUDA block owns.  CPU tensors
+    run :func:`ell_spmv_plain`; CUDA tensors launch the kernel or raise."""
     check_values("data", data, 2)
     check_values("x", x, 1)
     check_index("cols", cols, data)
+    if extent is not None:
+        _check_extent(extent, data)
+        check_same_device(data, extent=extent)
     check_same_device(data, cols=cols, x=x)
     if data.device.type == "cpu":
-        return ell_spmv_plain(data, cols, x)
+        return ell_spmv_plain(data, cols, x, extent)
     if data.device.type != "cuda":
         raise ValueError(f"ell_spmv takes CPU or CUDA tensors; got "
                          f"{data.device}")
@@ -73,6 +137,8 @@ def ell_spmv(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
                          f"{data.stride()} vs {cols.stride()}")
     check_current_device(data)
     check_contiguous(x=x)
+    if extent is not None:
+        check_contiguous(extent=extent)
     n_rows, width = data.shape
     if data.numel() > INT32_MAX or x.numel() > INT32_MAX:
         raise ValueError("ELL panel or x exceeds 2^31 - 1 elements")
@@ -83,8 +149,9 @@ def ell_spmv(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
                            and data.stride(0) != 1)
     y = torch.empty(n_rows, dtype=torch.float32, device=data.device)
     code = _build.launcher("ell_spmv")(
-        data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-        n_rows, width, data.stride(0), data.stride(1), lanes,
+        data.data_ptr(), cols.data_ptr(),
+        None if extent is None else extent.data_ptr(), x.data_ptr(),
+        y.data_ptr(), n_rows, width, data.stride(0), data.stride(1), lanes,
         rows_per_block(lanes, block_rows),
         int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
         current_stream_ptr())
@@ -159,4 +226,5 @@ def ell_spmm(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
 #: number of kernel launches made by :func:`ell_spmm` in this process
 ell_spmm.launches = 0
 
-__all__ = ["ell_spmv", "ell_spmv_plain", "ell_spmm", "ell_spmm_plain"]
+__all__ = ["ell_extent", "extent_pays", "ell_spmv", "ell_spmv_plain", "ell_spmm",
+           "ell_spmm_plain"]

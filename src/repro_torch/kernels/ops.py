@@ -12,6 +12,11 @@ Responsibilities:
     ``block_k`` the number of right-hand-side columns a CUDA block owns
     (SpMM); ``block_w`` and ``slabs_per_block`` are ignored by these
     kernels;
+  * keep beside each bound container what its kernels read
+    (:func:`prepare`, cached by container identity, never a field of the
+    container): an ELL panel's live extents, so the ELL SpMV kernel reads
+    each row up to its last stored slot, and a CSR matrix's structure, which
+    picks its SpMM kernel;
   * provide a differentiable ELL SpMV (``ell_spmv_ad``: y = A@x  =>
     dx = A^T dy via a COO scatter; dA = dy_r * x_c at the stored positions);
   * register every format-level wrapper in the ``repro_torch.core.dispatch``
@@ -26,6 +31,7 @@ its SpMM twin).  SELL launches the ELL kernel once per bucket and accepts a
 """
 from __future__ import annotations
 
+import weakref
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -40,6 +46,7 @@ from . import ccs_spmv as _ccs
 from . import coo_spmv as _coo
 from . import csr_spmv as _csr
 from . import ell_spmv as _ell
+from ._common import csr_spmm_window
 
 
 def _knob(tuning: Optional[TileGeometry], name: str) -> Optional[int]:
@@ -60,9 +67,12 @@ def _geom(tuning: Optional[TileGeometry], name: str, default: int,
 # raw-array entry points
 # ---------------------------------------------------------------------------
 def ell_spmv_raw(data: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
-                 tuning: Optional[TileGeometry] = None) -> torch.Tensor:
-    """ELL SpMV on a ``(n_rows, width)`` panel (any strides)."""
-    y = _ell.ell_spmv(data, cols, x, block_rows=_knob(tuning, "block_rows"))
+                 tuning: Optional[TileGeometry] = None,
+                 extent: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """ELL SpMV on a ``(n_rows, width)`` panel (any strides), reading each
+    row up to its ``extent`` (``None``: the whole band)."""
+    y = _ell.ell_spmv(data, cols, x, extent=extent,
+                      block_rows=_knob(tuning, "block_rows"))
     return y.to(result_dtype(data.dtype, x.dtype))
 
 
@@ -132,10 +142,71 @@ def _ell_arrays(m: ELL):
     return m.data, m.cols
 
 
+#: ``(extent, read)`` of each ELL panel :func:`prepare` was given, by
+#: container (an ``ELL`` is a frozen dataclass compared by identity): its
+#: rows' live extents, and whether the SpMV kernel reads up to them; an entry
+#: goes with its container
+_EXTENTS: "weakref.WeakKeyDictionary[ELL, Tuple[torch.Tensor, bool]]" = \
+    weakref.WeakKeyDictionary()
+
+
+#: ``(heavy, served)`` of each CSR matrix :func:`prepare` was given, by
+#: container (``csr_spmv.csr_spmm_structure``)
+_CSR_STRUCTURE: "weakref.WeakKeyDictionary[CSR, Tuple[bool, float]]" = \
+    weakref.WeakKeyDictionary()
+
+
+def prepare(m):
+    """Attach what the kernels read beside a bound container, once: the
+    live extents (``kernels/ell_spmv.py:ell_extent``) of an ELL panel, or of
+    each SELL bucket, computed on the container's device, and whether
+    reading up to them pays (``ell_spmv.extent_pays``: the panel holds
+    enough pads); for a CSR matrix, what picks its SpMM kernel
+    (``csr_spmv.csr_spmm_structure``).  Part of the transformation's cost:
+    ``ExecutionPlan.bind`` and ``offline_phase`` call it and time it with
+    the transform.  Other containers pass through."""
+    if isinstance(m, BucketedELL):
+        for b in m.buckets:
+            prepare(b)
+    elif isinstance(m, ELL) and m not in _EXTENTS:
+        ext = _ell.ell_extent(*_ell_arrays(m))
+        _EXTENTS[m] = (ext, _ell.extent_pays(ext, m.width))
+    elif isinstance(m, CSR) and m not in _CSR_STRUCTURE:
+        _CSR_STRUCTURE[m] = _csr.csr_spmm_structure(m.cols, m.indptr,
+                                                    m.n_cols)
+    return m
+
+
+def csr_window_of(m: CSR, batch: int,
+                  block_k: Optional[int] = None) -> Optional[bool]:
+    """Whether :func:`spmm_csr` runs ``m`` through the window kernel at
+    ``batch`` right-hand sides: from its structure where :func:`prepare`
+    was given it, else ``None`` (the tile decides)."""
+    got = _CSR_STRUCTURE.get(m)
+    if got is None:
+        return None
+    return csr_spmm_window(batch, block_k, *got)
+
+
+def ell_extent_of(m: ELL) -> Optional[torch.Tensor]:
+    """The live extents :func:`prepare` attached to ``m``, else ``None``."""
+    got = _EXTENTS.get(m)
+    return None if got is None else got[0]
+
+
+def _extent_read(m: ELL) -> Optional[torch.Tensor]:
+    """The extents the SpMV kernel reads ``m`` up to (``None``: the whole
+    band — not prepared, or too few pads for the extent to pay)."""
+    got = _EXTENTS.get(m)
+    return got[0] if got is not None and got[1] else None
+
+
 def spmv_ell(m: ELL, x: torch.Tensor,
              tuning: Optional[TileGeometry] = None) -> torch.Tensor:
+    """ELL through the SpMV kernel; a prepared panel with enough pads is
+    read up to each row's extent, another one whole."""
     data, cols = _ell_arrays(m)
-    return ell_spmv_raw(data, cols, x, tuning)
+    return ell_spmv_raw(data, cols, x, tuning, _extent_read(m))
 
 
 def spmm_ell(m: ELL, x: torch.Tensor,
@@ -164,10 +235,14 @@ def spmv_csr(m: CSR, x: torch.Tensor,
 
 def spmm_csr(m: CSR, x: torch.Tensor,
              tuning: Optional[TileGeometry] = None) -> torch.Tensor:
-    """CSR SpMM through the native row-segmented kernel."""
+    """CSR SpMM through the native kernels: for a prepared matrix the
+    window kernel where its structure says it pays
+    (``_common.csr_spmm_window``), else by the tile alone."""
+    block_k = _knob(tuning, "block_k")
     y = _csr.csr_spmm(m.data, m.cols, m.indptr, x,
                       block_rows=_knob(tuning, "block_rows"),
-                      block_k=_knob(tuning, "block_k"))
+                      block_k=block_k,
+                      window=csr_window_of(m, x.shape[1], block_k))
     return y.to(result_dtype(m.data.dtype, x.dtype))
 
 
@@ -312,7 +387,7 @@ def spmv_sell(m: BucketedELL, x: torch.Tensor,
     # exactly zeros of (n_rows,) in x's dtype, not None
     y = torch.zeros(m.n_rows, dtype=x.dtype, device=x.device)
     for off, b, g in zip(m.row_offsets, m.buckets, _sell_tunings(m, tuning)):
-        yb = ell_spmv_raw(b.data, b.cols, x, g)
+        yb = ell_spmv_raw(b.data, b.cols, x, g, _extent_read(b))
         y[m.perm[off:off + b.n_rows]] = yb.to(y.dtype)
     return y
 
@@ -357,7 +432,7 @@ def __getattr__(name: str):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["ell_spmv_raw", "ell_spmm_raw", "coo_spmv_raw", "coo_spmm_raw",
+__all__ = ["prepare", "ell_extent_of", "csr_window_of", "ell_spmv_raw", "ell_spmm_raw", "coo_spmv_raw", "coo_spmm_raw",
            "ell_spmv_ad", "spmv_ell", "spmm_ell", "spmv_coo", "spmm_coo",
            "spmv_csr", "spmm_csr", "spmv_csr_via_coo", "spmm_csr_via_coo",
            "spmv_ccs", "spmm_ccs", "spmv_bcsr", "spmm_bcsr",

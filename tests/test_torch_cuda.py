@@ -908,3 +908,210 @@ def test_cuda_ell_spmm_every_tile_and_pitch(cuda, fmt, batch):
                     torch.cuda.synchronize()
                     assert torch.equal(got, again)
                     assert_kernel_close(got, want, mag)
+
+
+# ---------------------------------------------------------------------------
+# K1 read up to each row's live extent; K5's window of X rows
+# ---------------------------------------------------------------------------
+def extent_panel(kind, rng, width=11):
+    """A 300-row ELL-Row panel over 90 columns, CPU tensors ``(data,
+    cols)``: random row lengths, explicit zeros at column 0 and elsewhere,
+    empty rows, or every slot a pad."""
+    n_rows, n_cols = 300, 90
+    lens = rng.integers(0, width + 1, n_rows)
+    live = np.arange(width) < lens[:, None]
+    data = np.where(live, rng.normal(size=(n_rows, width)), 0.0).astype(
+        np.float32)
+    cols = np.where(live, rng.integers(1, n_cols, (n_rows, width)),
+                    0).astype(np.int32)
+    if kind == "explicit_zeros":
+        data[::7, 1], cols[::7, 1] = 0.0, 5
+        data[3::7, 2], cols[3::7, 2] = 0.0, 0
+        data[5::7, width - 1], cols[5::7, width - 1] = 0.0, 2
+    elif kind == "empty_rows":
+        data[::3], cols[::3] = 0.0, 0
+    elif kind == "all_pads":
+        data[:], cols[:] = 0.0, 0
+    return torch.from_numpy(data), torch.from_numpy(cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [11, 43, 130])
+@pytest.mark.parametrize("order", ["row", "col"])
+@pytest.mark.parametrize("kind", ["random", "explicit_zeros", "empty_rows",
+                                  "all_pads"])
+def test_cuda_ell_spmv_extent_matches_plain(cuda, kind, order, width):
+    """K1 with and without an extent against its plain version, float32 and
+    bfloat16, ELL-Row (8 or 32 lanes a row) and ELL-Col (a thread a row),
+    at the default launch and the tuner's rows per block."""
+    rng = np.random.default_rng(81)
+    data, cols = extent_panel(kind, rng, width)
+    for dtype in ("float32", "bfloat16"):
+        d = data.to(TDT[dtype])
+        x = torch.from_numpy(rng.normal(size=90).astype(np.float32)).to(
+            TDT[dtype])
+        ext = K1.ell_extent(d, cols)
+        want = K1.ell_spmv_plain(d, cols, x, ext)
+        mag = K1.ell_spmv_plain(d.abs(), cols, x.abs())
+        dc, cc = d.to(cuda), cols.to(cuda)
+        if order == "col":
+            dc, cc = dc.t().contiguous().t(), cc.t().contiguous().t()
+        ext_c = K1.ell_extent(dc, cc)
+        assert torch.equal(ext_c.cpu(), ext)
+        for br in (None, 1, 64, 1024):
+            for e in (ext_c, None):
+                before = K1.ell_spmv.launches
+                got = K1.ell_spmv(dc, cc, x.to(cuda), extent=e,
+                                  block_rows=br)
+                torch.cuda.synchronize()
+                assert K1.ell_spmv.launches == before + 1
+                assert_kernel_close(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["row", "col"])
+def test_cuda_ell_spmv_extent_keeps_non_finite_x(cuda, order):
+    """With an extent K1 turns NaN exactly the rows the plain version does:
+    those whose band holds a pad, where x[0] is not finite (+-inf, NaN),
+    and those with a stored zero under a non-finite x[c]; the infinities of
+    real entries stay infinities."""
+    rng = np.random.default_rng(82)
+    data, cols, X = ell_nonfinite_case(rng, 4)
+    for dtype in ("float32", "bfloat16"):
+        d = data.to(TDT[dtype])
+        dc, cc = d.to(cuda), cols.to(cuda)
+        if order == "col":
+            dc, cc = dc.t().contiguous().t(), cc.t().contiguous().t()
+        ext = K1.ell_extent(dc, cc)
+        for b in range(4):
+            x = X[:, b].contiguous().to(TDT[dtype])
+            for c in (None, 3):         # x[3] sits under stored zeros
+                if c is not None:
+                    x = x.clone()
+                    x[c] = float("inf")
+                want = K1.ell_spmv_plain(d, cols, x, ext.cpu())
+                assert torch.equal(torch.isnan(want), torch.isnan(
+                    K1.ell_spmv_plain(d, cols, x)))
+                xf = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+                mag = K1.ell_spmv_plain(d.abs(), cols, xf.abs())
+                got = K1.ell_spmv(dc, cc, x.to(cuda), extent=ext)
+                torch.cuda.synchronize()
+                assert_same_nonfinite(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["ell_row", "ell_col", "sell"])
+def test_cuda_prepared_ell_reads_its_extent(cuda, fmt):
+    """A bound ELL or SELL container carries its extents on the card and
+    its product launches K1 with them: the plain version's values."""
+    from repro_torch.kernels import ops as T_ops
+    rng = np.random.default_rng(83)
+    dense = heavy_tail_dense(rng)
+    tf = TT.TRANSFORMS_HOST[fmt](TT.csr_from_dense(dense, pad=8,
+                                                   device="cpu"))
+    m = T_ops.prepare(tf.to(cuda))
+    panels = m.buckets if fmt == "sell" else (m,)
+    assert all(T_ops.ell_extent_of(p).is_cuda for p in panels)
+    x = torch.from_numpy(rng.normal(size=200).astype(np.float32))
+    got = TD.spmv(m, x.to(cuda), tier="kernel")
+    torch.cuda.synchronize()
+    want = TD.spmv(tf, x, tier="kernel")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                               **TOL["float32"])
+
+
+def csr_window_case(kind, seed, dtype):
+    """CPU ``(data, cols, indptr)`` of a 3000-row matrix over 2600 columns:
+    a band of 0-40 entries a row about the diagonal, hash-scattered
+    columns, the band with rows of every column and empty rows (heavy
+    tail), or the band with each row's columns shuffled."""
+    rng = np.random.default_rng(seed)
+    n, n_cols = 3000, 2600
+    lens = rng.integers(0, 41, n)
+    if kind == "heavy_tail":
+        lens[::500] = n_cols
+        lens[3::11] = 0
+    cols = []
+    for r in range(n):
+        k = int(lens[r])
+        if kind == "scattered":
+            c = (r + np.arange(k) * 1009) % n_cols
+        else:
+            c0 = min(max(r * n_cols // n - k // 2, 0), n_cols - k)
+            c = np.arange(c0, c0 + k)
+            if kind == "unsorted":
+                c = rng.permutation(c)
+        cols.append(c)
+    cols = np.concatenate(cols).astype(np.int32)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    data = rng.normal(size=cols.shape[0]).astype(np.float32)
+    return (torch.from_numpy(data).to(TDT[dtype]), torch.from_numpy(cols),
+            torch.from_numpy(indptr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 8, 17, 32, 40, 128, 129])
+@pytest.mark.parametrize("kind", ["banded", "scattered", "heavy_tail",
+                                  "unsorted"])
+def test_cuda_csr_spmm_window_matches_plain(cuda, kind, batch):
+    """K5 against its plain version, float32 and bfloat16, at the default
+    launch and in the window kernel at every B, tiles narrower than B, rows
+    per block from 1 to a window past 48 KB of shared memory, with X
+    aligned (bulk copies) and at an odd address (plain loads); two launches
+    give the same bits."""
+    from repro_torch.kernels import csr_spmv as K2
+    n_cols = 2600
+    for dtype in ("float32", "bfloat16"):
+        data, cols, indptr = csr_window_case(kind, 84, dtype)
+        xs = torch.from_numpy(np.random.default_rng(85).normal(
+            size=(n_cols, batch)).astype(np.float32)).to(TDT[dtype])
+        want = K2.csr_spmm_plain(data, cols, indptr, xs)
+        mag = K2.csr_spmm_plain(data.abs(), cols, indptr, xs.abs())
+        args = on_card((data, cols, indptr), cuda)
+        moved = torch.empty(n_cols * batch + 1, dtype=TDT[dtype],
+                            device=cuda)[1:].view(n_cols, batch)
+        moved.copy_(xs)
+        for X in (xs.to(cuda), moved):
+            for g in (dict(), dict(window=True), dict(block_rows=1),
+                      dict(block_rows=256, window=True),
+                      dict(block_rows=1024, window=True),
+                      dict(block_k=32, window=True),
+                      dict(block_rows=37, block_k=8, window=True)):
+                before = K2.csr_spmm.launches
+                got = K2.csr_spmm(*args, X, **g)
+                again = K2.csr_spmm(*args, X, **g)
+                torch.cuda.synchronize()
+                assert K2.csr_spmm.launches == before + 2
+                assert torch.equal(got, again), g
+                assert_kernel_close(got, want, mag)
+
+
+@pytest.mark.cuda
+def test_cuda_csr_spmm_window_past_48k_and_its_misses(cuda, monkeypatch):
+    """At B = 128 float32 a block of 256 rows may keep 262 X rows (134 KB of
+    shared memory, past the 48 KB a launch gets without asking) where its
+    window may take all of an SM's; the banded matrix's windows serve every
+    entry, the scattered one's few."""
+    from repro_torch.kernels import _common as C
+    from repro_torch.kernels import csr_spmv as K2
+    monkeypatch.setattr(C, "CSR_SPMM_BLOCKS_PER_SM", 1)
+    for kind, served in (("banded", True), ("scattered", False)):
+        data, cols, indptr = csr_window_case(kind, 86, "float32")
+        _, _, _, _, rows, window, _ = C.csr_spmm_launch(
+            128, 3000, 2600, data.shape[0], block_rows=256)
+        assert window * 128 * 4 > 48 * 1024
+        X = torch.from_numpy(np.random.default_rng(87).normal(
+            size=(2600, 128)).astype(np.float32))
+        want = K2.csr_spmm_plain(data, cols, indptr, X)
+        mag = K2.csr_spmm_plain(data.abs(), cols, indptr, X.abs())
+        got = K2.csr_spmm(*on_card((data, cols, indptr), cuda), X.to(cuda),
+                          block_rows=256)
+        torch.cuda.synchronize()
+        assert_kernel_close(got, want, mag)
+        misses = K2.csr_spmm_window_misses(cols, indptr, 2600, 128,
+                                           block_rows=256)
+        if served:
+            assert misses["misses"] == 0
+            assert misses["windowed"] == misses["blocks"]
+        else:
+            assert misses["misses"] > 0.5 * misses["entries"]

@@ -133,6 +133,14 @@ def test_candidates_are_launches_a_wrapper_makes(fmt, op, batch):
             threads, rows = C.bcsr_spmv_launch(width, g.block_rows)
             assert rows == g.block_rows <= n_rows
             assert g.block_rows * width <= threads <= 1024
+        elif (fmt, op) == ("csr", "spmm") and C.csr_spmm_window(
+                batch, g.block_k):
+            # rows a block owns beside its window of X rows, at most the
+            # matrix's rows, walked by up to 256 threads
+            _, _, _, threads, rows, window, _ = C.csr_spmm_launch(
+                batch, n_rows, width, nnz_pad, g.block_rows, g.block_k)
+            assert g.block_nnz is None and window > 0
+            assert rows == g.block_rows <= n_rows and threads <= 256
         else:
             assert g.block_nnz is None
             assert g.block_rows * lanes == C.clamp_threads(

@@ -426,3 +426,244 @@ def test_batched_planner_matches_reference(case, tmp_path):
     rplan.save(str(path))
     Y2 = TPL.ExecutionPlan.load(str(path)).bind(tcsr, device="cpu") @ X
     assert_rel_close(Y2, Y_r, mag, tol)
+
+
+# ---------------------------------------------------------------------------
+# K5 csr_spmm: the shared-memory window of X rows
+# ---------------------------------------------------------------------------
+def csr_arrays(kind, rng):
+    """``(dense, order)``: a matrix and the within-row order of its CSR
+    columns (``None``: sorted).  Banded rows of 0-20 entries about the
+    diagonal; hash-scattered columns; a band with full rows and empty rows
+    (heavy tail); and the band with each row's columns shuffled."""
+    n, n_cols = 300, 260
+    dense = np.zeros((n, n_cols), np.float32)
+    for r in range(n):
+        k = int(rng.integers(0, 21))
+        if kind == "scattered":
+            c = (r + np.arange(k) * 101) % n_cols
+        else:
+            c0 = min(max(r * n_cols // n - k // 2, 0), n_cols - k)
+            c = np.arange(c0, c0 + k)
+        dense[r, c] = rng.normal(size=k)
+    if kind == "heavy_tail":
+        dense[[7, 150], :] = rng.normal(size=(2, n_cols))
+        dense[::9] = 0.0
+    return dense, ("shuffle" if kind == "unsorted" else None)
+
+
+def both_csr(dense, order, dtype, rng):
+    """The matrix in both packages' CSR, values in ``dtype``, columns within
+    each row in ``order``."""
+    rm, tm = both(dense, dtype)
+    if order == "shuffle":
+        ip = tm.indptr.numpy()
+        perm = np.arange(tm.nnz_pad)
+        for r in range(tm.n_rows):
+            perm[ip[r]:ip[r + 1]] = rng.permutation(
+                np.arange(ip[r], ip[r + 1]))
+        rm = dataclasses.replace(rm, data=rm.data[perm], cols=rm.cols[perm])
+        tm = dataclasses.replace(tm, data=tm.data[perm].contiguous(),
+                                 cols=tm.cols[perm].contiguous())
+    return rm, tm
+
+
+def np_windows(cols, ip, n_cols, rows, window, stage):
+    """The windows of ``csrc/csr_spmm.cu``, block by block in numpy."""
+    n_rows = ip.shape[0] - 1
+    lo, held = [], []
+    for r0 in range(0, n_rows, rows):
+        rs = range(r0, min(r0 + rows, n_rows))
+        fit = [r for r in rs if 1 <= ip[r + 1] - ip[r] <= window]
+        if not fit:
+            lo.append(0)
+            held.append(0)
+            continue
+        start = min(min(int(cols[ip[r]]) for r in fit),
+                    max(0, n_cols - window))
+        rows_held = min(window, n_cols - start)
+        first = ip[r0]
+        last = min(ip[rs[-1] + 1], first + stage)
+        hits = sum(0 <= int(c) - start < rows_held for c in cols[first:last])
+        if hits == 0 or hits < rows_held:
+            lo.append(0)
+            held.append(0)
+            continue
+        lo.append(start)
+        held.append(rows_held)
+    return np.array(lo), np.array(held)
+
+
+KINDS_K5 = ("banded", "scattered", "heavy_tail", "unsorted")
+
+
+def test_csr_spmm_launch_keeps_a_window_from_a_warp_wide_tile():
+    from repro_torch.kernels import _common as C
+    # xenon2 at scale 4: 32 rows a block, a window of 32 + 2 * 25 X rows,
+    # a stage of 5/4 of 32 mean rows' 25 entries
+    assert C.csr_spmm_launch(128, 629856, 629856, 15466752) == (
+        128, 32, 4, 256, 32, 82, 1024)
+    assert C.csr_spmm_launch(128, 629856, 629856, 15466752,
+                             x_size=2)[5] == 82
+    # a tile under 64 columns: the window kernel only when asked for
+    assert C.csr_spmm_launch(17, 100, 100, 800) == (17, 32, 1, 256, 8, 0, 0)
+    assert C.csr_spmm_launch(17, 100, 100, 800, window=True) == (
+        17, 32, 1, 256, 32, 48, 320)
+    assert C.csr_spmm_launch(128, 100, 100, 800, window=False) == (
+        128, 32, 4, 256, 8, 0, 0)
+    # rows a block owns: the knob, at most the matrix's rows; up to 256
+    # threads walk them
+    assert C.csr_spmm_launch(32, 20, 50, 100, block_rows=1000,
+                             window=True)[3:] == (256, 20, 50, 128)
+    assert C.csr_spmm_launch(32, 5000, 5000, 50000, block_rows=1,
+                             window=True)[3:] == (32, 1, 21, 32)
+    # the window fits in shared memory beside the rows' IRP and the stage
+    kt, lanes, _, threads, rows, window, stage = C.csr_spmm_launch(
+        128, 10 ** 6, 10 ** 6, 10 ** 9, block_rows=512)
+    assert stage == C.CSR_SPMM_STAGE_MAX
+    assert (window * kt * 4 + 4 * (rows + 4) + 8 * stage
+            + 4 * threads // lanes * kt) <= C.SMEM_BLOCK_MAX
+    # a tile narrower than a warp: the first port's lane group a row
+    assert C.csr_spmm_launch(8, 100, 100, 800) == (8, 8, 1, 256, 32, 0, 0)
+    assert C.csr_spmm_launch(1, 100, 100, 800, block_rows=64) == (
+        1, 1, 1, 64, 64, 0, 0)
+    # a narrow tile in the window kernel: a row a lane group by default
+    assert C.csr_spmm_launch(1, 1000, 1000, 8000, window=True)[3:5] == (
+        256, 256)
+
+
+@pytest.mark.parametrize("block_rows", [None, 1, 8, 37, 1000])
+@pytest.mark.parametrize("batch", [17, 128])
+@pytest.mark.parametrize("kind", KINDS_K5)
+def test_csr_spmm_windows_and_misses_match_numpy(kind, batch, block_rows):
+    rng = np.random.default_rng(41)
+    dense, order = csr_arrays(kind, rng)
+    _, tm = both_csr(dense, order, "float32", rng)
+    ip, cols = tm.indptr.numpy(), tm.cols.numpy()
+    _, _, _, _, rows, window, stage = _C().csr_spmm_launch(
+        batch, tm.n_rows, tm.n_cols, tm.nnz_pad, block_rows, window=True)
+    lo, held = K2.csr_spmm_windows(tm.cols, tm.indptr, tm.n_cols, rows,
+                                   window, stage)
+    want_lo, want_held = np_windows(cols, ip, tm.n_cols, rows, window,
+                                    stage)
+    np.testing.assert_array_equal(lo.numpy(), want_lo)
+    np.testing.assert_array_equal(held.numpy(), want_held)
+    assert (lo.numpy() + held.numpy() <= tm.n_cols).all()
+    # the entries outside their block's window, one by one
+    misses = 0
+    for r in range(tm.n_rows):
+        b = r // rows
+        for k in range(ip[r], ip[r + 1]):
+            misses += not 0 <= cols[k] - want_lo[b] < want_held[b]
+    got = K2.csr_spmm_window_misses(tm.cols, tm.indptr, tm.n_cols, batch,
+                                    block_rows=block_rows, window=True)
+    assert got == {"rows": rows, "window": window,
+                   "blocks": -(-tm.n_rows // rows),
+                   "windowed": int((want_held > 0).sum()),
+                   "window_x_rows": int(want_held.sum()),
+                   "entries": tm.nnz, "misses": misses}
+    if kind == "banded" and block_rows in (None, 37):
+        # every block but a short last one keeps its window, which serves
+        # all its entries
+        last = ip[-1] - ip[(got["blocks"] - 1) * rows]
+        assert got["windowed"] >= got["blocks"] - 1 and misses <= last
+    if kind == "scattered" and block_rows is None:
+        # a window serves few of a scattered block's entries
+        assert misses > tm.nnz // 2
+
+
+def _C():
+    from repro_torch.kernels import _common as C
+    return C
+
+
+def test_csr_spmm_window_misses_without_the_window_kernel_are_every_entry():
+    rng = np.random.default_rng(43)
+    dense, _ = csr_arrays("banded", rng)
+    _, tm = both(dense)
+    for batch, window in ((8, None), (128, False)):
+        got = K2.csr_spmm_window_misses(tm.cols, tm.indptr, tm.n_cols,
+                                        batch, window=window)
+        assert got["window"] == 0
+        assert got["misses"] == got["entries"] == tm.nnz
+
+
+@pytest.mark.parametrize("kind", KINDS_K5)
+def test_csr_spmm_structure_picks_the_kernel(kind):
+    """A bound CSR matrix takes the window kernel where it has heavy rows
+    (at every B) or where its windows serve half its entries (from B = 64
+    on); ``ops.prepare`` keeps what decides it beside the container."""
+    from repro_torch.kernels import _common as C
+    rng = np.random.default_rng(59)
+    dense, order = csr_arrays(kind, rng)
+    _, tm = both_csr(dense, order, "float32", rng)
+    heavy, served = K2.csr_spmm_structure(tm.cols, tm.indptr, tm.n_cols)
+    _, _, _, _, rows, window, _ = C.csr_spmm_launch(
+        128, tm.n_rows, tm.n_cols, tm.nnz_pad, window=True)
+    lens = np.diff(tm.indptr.numpy())
+    assert heavy == bool(lens.max() > window)
+    misses = K2.csr_spmm_window_misses(tm.cols, tm.indptr, tm.n_cols, 128,
+                                       window=True)
+    assert served == pytest.approx(1 - misses["misses"] / tm.nnz)
+    assert heavy == (kind == "heavy_tail")
+    if kind in ("banded", "unsorted"):
+        assert served > 0.9
+    assert T_ops.csr_window_of(tm, 128) is None      # not prepared
+    T_ops.prepare(tm)
+    for batch in (1, 8, 32, 64, 128):
+        want = heavy or (batch >= 64 and served >= C.CSR_SPMM_MIN_SERVED)
+        assert T_ops.csr_window_of(tm, batch) is want
+    assert T_ops.csr_window_of(tm, 128, block_k=32) is (heavy or False)
+    # the product is the same whichever kernel runs
+    x = t_(rng.normal(size=(dense.shape[1], 40)).astype(np.float32))
+    np.testing.assert_allclose(f32(T_ops.spmm_csr(tm, x)),
+                               dense.astype(np.float64) @ f32(x),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [1, 3, 8, 17, 128])
+@pytest.mark.parametrize("kind", KINDS_K5)
+def test_csr_spmm_window_plain_matches_reference(kind, batch, dtype):
+    """K5's windowed plain version (what the CPU wrapper runs, reading X
+    through the kernel's windows) against the JAX package's CSR SpMM."""
+    rng = np.random.default_rng(batch + 47)
+    dense, order = csr_arrays(kind, rng)
+    rm, tm = both_csr(dense, order, dtype, rng)
+    x = rng.normal(size=(dense.shape[1], batch)).astype(np.float32)
+    want = R_ops.spmm_csr(rm, jnp.asarray(x, JDT[dtype]), interpret=True)
+    d, xx = as_dtype(dense, dtype), as_dtype(x, dtype)
+    mag = np.abs(d) @ np.abs(xx)
+    # the kernel the tile picks, and the window kernel at every tile
+    for window in (None, True):
+        got = K2.csr_spmm(tm.data, tm.cols, tm.indptr, t_(x, dtype),
+                          window=window)
+        plain = K2.csr_spmm_window_plain(tm.data, tm.cols, tm.indptr,
+                                         t_(x, dtype), window=window)
+        assert got.dtype == torch.float32 and got.shape == (300, batch)
+        assert torch.equal(got, plain)
+        assert_rel_close(got, want, mag, rel_tol(dtype))
+        assert_rel_close(got, d.astype(np.float64) @ xx, mag,
+                         rel_tol(dtype))
+
+
+@pytest.mark.parametrize("block", [dict(), dict(block_rows=1),
+                                   dict(block_rows=13, block_k=32),
+                                   dict(block_rows=1000, block_k=40)],
+                         ids=["default", "r1", "r13-k32", "r1000-k40"])
+@pytest.mark.parametrize("kind", KINDS_K5)
+def test_csr_spmm_window_plain_reads_inside_its_windows(kind, block):
+    """Every launch shape of the window gives the product: the windows are
+    built with NaN past the rows they hold, so a read outside would show."""
+    rng = np.random.default_rng(53)
+    dense, order = csr_arrays(kind, rng)
+    _, tm = both_csr(dense, order, "float32", rng)
+    x = rng.normal(size=(dense.shape[1], 128)).astype(np.float32)
+    got = K2.csr_spmm_window_plain(tm.data, tm.cols, tm.indptr, t_(x),
+                                   window=True, **block)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(
+        f32(got), f32(K2.csr_spmm_plain(tm.data, tm.cols, tm.indptr, t_(x))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(f32(got), dense.astype(np.float64) @ x,
+                               rtol=1e-4, atol=1e-4)
