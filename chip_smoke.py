@@ -84,14 +84,15 @@ BIG = ("xenon2", 4.0)
 #: order of ``suite.COO_ORDERS``, and the CCS kernels with each column's rows
 #: in random order
 COO_ORDER_MATRIX = ("xenon2", 1.0)
-#: the heavy-tailed matrix the CSR and CCS kernels are also checked and timed
-#: on (D_mat 5.72; 857 rows of 4959 entries hold half of them): only those
-#: two formats, since its ELL panel would take gigabytes
+#: the heavy-tailed matrix the CSR, CCS and BCSR kernels are also checked
+#: and timed on (D_mat 5.72; 857 rows of 4959 entries hold half of them):
+#: only those formats, since its ELL panel would take gigabytes
 HEAVY = ("torso1", 1.0)
 #: the hash-scattered matrix ``ccs_spmv`` (SpMV, float32; 6.1 M entries,
-#: 91 % of them outside any warp's window of y rows) and ``csr_spmm`` (its
-#: blocks keep no window of X rows) are also checked and timed on: there a
-#: window must cost next to nothing
+#: 91 % of them outside any warp's window of y rows), ``csr_spmm`` (its
+#: blocks keep no window of X rows) and ``bcsr_spmm`` (3 % of its blocks'
+#: scalars are entries, 1.7 a block) are also checked and timed on: there a
+#: window must cost next to nothing, and a block product next to nothing
 SCATTERED = ("viscoplastic2", 16.0)
 
 KERNEL_INFO = {
@@ -393,6 +394,13 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None,
     bm = layouts["bcsr"]
     bd = bm.data.to(dtype)
     nblocks, blk = int(bm.indptr[-1]), bm.block
+    info = {"block": blk, "nblocks": nblocks,
+            "fill_ratio": bcsr_fill_ratio(bm)}
+    if batch is not None:
+        # K10 as the main path launches it: the tensor-core kernel where
+        # _common.bcsr_spmm_mma says so
+        from repro_torch.kernels import _common as KC
+        info["mma"] = KC.bcsr_spmm_mma(batch, blk, block_k)
     cases.append({
         "name": f"bcsr_{op}", "layout": "bcsr",
         "kernel": lambda: bcsr_k(bd, bm.block_cols, bm.indptr, x, n, **kw),
@@ -400,11 +408,66 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None,
         "mag": lambda: bcsr_plain(bd.abs(), bm.block_cols, bm.indptr, xa, n),
         "bytes": nblocks * (blk * blk * val + 4) + 4 * (bm.n_block_rows + 1)
         + xy_bytes,
-        "flops": 2 * nblocks * blk * blk * b,
-        "info": {"block": blk, "nblocks": nblocks,
-                 "fill_ratio": bcsr_fill_ratio(bm)}})
+        "flops": 2 * nblocks * blk * blk * b, "info": info})
 
     return cases, library_of(layouts, csr, x, dtype)
+
+
+def bcsr_probe_results(label):
+    """The 3xTF32 probe: K10's tensor-core kernel on values whose bits below
+    TF32's tenth matter (1 + 2^-12 (1 + r/2), positive, so a single TF32
+    product errs by ~2^-12 of every term, one way), in every pairing with a
+    float32 operand, at b = 8 and B = 32 and 128: within ``KERNEL_REL_TOL``
+    of the plain version, where the plain version on operands rounded to
+    TF32 is shown to miss it."""
+    from repro_torch.core import transform as T
+    from repro_torch.kernels import bcsr_spmv as K9
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(77)
+
+    def probe(shape):
+        return torch.from_numpy((1.0 + 2.0 ** -12 * (
+            1.0 + 0.5 * rng.random(shape))).astype(np.float32))
+
+    def tf32(t):
+        bits = t.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    dense = (torch.from_numpy(rng.random((4000, 3000)) < 0.01)
+             * probe((4000, 3000))).numpy()
+    csr = T.csr_from_dense(dense, pad=8, device="cpu")
+    bm = T.host_csr_to_bcsr(csr).to(dev)
+    results = []
+    for dd, xd in ((torch.float32, torch.float32),
+                   (torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.float32)):
+        d = bm.data.to(dd)
+        for batch in (32, 128):
+            x = probe((csr.n_cols, batch)).to(dev).to(xd)
+            args = (d, bm.block_cols, bm.indptr)
+            got = K9.bcsr_spmm(*args, x, bm.n_rows, mma=True)
+            want = K9.bcsr_spmm_plain(*args, x, bm.n_rows)
+            mag = K9.bcsr_spmm_plain(d.abs(), bm.block_cols, bm.indptr,
+                                     x.abs(), bm.n_rows)
+            single = K9.bcsr_spmm_plain(tf32(d), bm.block_cols, bm.indptr,
+                                        tf32(x), bm.n_rows)
+            torch.cuda.synchronize()
+            rel = float(((got - want).abs() / (mag + 1e-30)).max())
+            rel_single = float(((single - want).abs() / (mag + 1e-30)).max())
+            if rel > KERNEL_REL_TOL or rel_single <= KERNEL_REL_TOL:
+                raise AssertionError(
+                    f"bcsr_spmm 3xTF32 probe {dd}/{xd} B={batch}: rel err "
+                    f"{rel} (a single TF32 product: {rel_single})")
+            results.append({
+                "name": "bcsr_spmm", "layout": "bcsr[tf32 probe]",
+                "matrix": label, "batch": batch,
+                "dtype": f"{dd}/{xd}".replace("torch.", ""),
+                "max_abs_err": float((got - want).abs().max()),
+                "max_rel_err": rel, "single_tf32_rel_err": rel_single,
+                "tolerance": KERNEL_REL_TOL})
+            del got, want, mag, single
+    return results
 
 
 def library_of(layouts, csr, x, dtype):
@@ -714,11 +777,12 @@ def phase_kernels(reps: int):
     each column tile the tuner's grid launches; the COO kernels also on
     ``COO_ORDER_MATRIX``'s entries in every adversarial order, the CCS
     kernels on its columns with their rows shuffled, K4 and K1 with a
-    non-finite x; the CSR and CCS kernels on ``HEAVY``, K7 and K5 on
-    ``SCATTERED``; K1 on ``BIG`` also reading each band whole);
+    non-finite x; the CSR, CCS and BCSR kernels on ``HEAVY``, K7, K5 and
+    K10 on ``SCATTERED``; K1 on ``BIG`` also reading each band whole; K10's
+    3xTF32 probe);
     time the SpMV cases of ``KERNEL_MATRICES``, ``HEAVY`` and ``SCATTERED``
-    and the SpMM cases of ``BIG``, ``HEAVY`` and ``SCATTERED`` (K5) at each
-    B of ``SPMM_TIMED``.  The phase line also gives the seconds spent on
+    and the SpMM cases of ``BIG``, ``HEAVY`` and ``SCATTERED`` (K5, K10) at
+    each B of ``SPMM_TIMED``.  The phase line also gives the seconds spent on
     each matrix."""
     from repro_torch.core import suite
     from repro_torch.core import transform as T
@@ -765,7 +829,8 @@ def phase_kernels(reps: int):
     t0 = time.perf_counter()
     csr = suite.synthesize(specs[HEAVY[0]], scale=HEAVY[1])
     layouts = {"csr": csr.to("cuda"),
-               "ccs": T.host_csr_to_ccs(csr).to("cuda")}
+               "ccs": T.host_csr_to_ccs(csr).to("cuda"),
+               "bcsr": T.host_csr_to_bcsr(csr).to("cuda")}
     label = matrix_label(*HEAVY)
     for dtype in (torch.float32, torch.bfloat16):
         cases, library = kernel_cases(csr, layouts, dtype)
@@ -783,7 +848,8 @@ def phase_kernels(reps: int):
     t0 = time.perf_counter()
     csr = suite.synthesize(specs[SCATTERED[0]], scale=SCATTERED[1])
     layouts = {"csr": csr.to("cuda"),
-               "ccs": T.host_csr_to_ccs(csr).to("cuda")}
+               "ccs": T.host_csr_to_ccs(csr).to("cuda"),
+               "bcsr": T.host_csr_to_bcsr(csr).to("cuda")}
     label = matrix_label(*SCATTERED)
     cases, library = kernel_cases(csr, layouts, torch.float32)
     results += check_cases([c for c in cases if c["name"] == "ccs_spmv"],
@@ -792,12 +858,16 @@ def phase_kernels(reps: int):
         for batch in SPMM_CHECKED:
             cases, library = kernel_cases(csr, layouts, dtype, batch)
             results += check_cases(
-                [c for c in cases if c["name"] == "csr_spmm"], library,
+                [c for c in cases if c["name"] in ("csr_spmm", "bcsr_spmm")],
+                library,
                 label, csr.nnz, dtype, batch in SPMM_TIMED, reps,
                 batch=batch)
     del csr, layouts, cases, library
     torch.cuda.empty_cache()
     seconds[label] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results += bcsr_probe_results("tf32_probe")
+    seconds["tf32_probe"] = time.perf_counter() - t0
     emit("kernels", seconds=seconds, cases=results)
     return results
 
@@ -842,7 +912,7 @@ def kernels_line(cases, k11_cases, launches):
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": {k: head[k] for k in ("case", "B", "S", "KV", "G", "Dh",
-                                       "window", "dtype")},
+                                       "window", "dtype", "valid_share")},
         "cases_checked": len(k11_cases)})
     return {"kernels": out}
 
@@ -1209,20 +1279,30 @@ def lm_prompt_lengths():
     return [int(n) for n in rng.choice(LM_PROMPTS, size=LM_SLOTS)]
 
 
-#: (label, B, S, KV, G, Dh, window, q dtype, logit softcap): the first is
-#: the shape the serve_lm phase launches K11 at (qwen3-1.7b, 8 slots of 8192,
-#: bfloat16 q); the softcap cases cap the scores (of about one unit here)
-#: at 1.0, so that the cap bends most of them
+#: (label, B, S, KV, G, Dh, window, q dtype, logit softcap, cache): the
+#: first is the shape the serve_lm phase launches K11 at (qwen3-1.7b, 8 slots
+#: of 8192, bfloat16 q); the softcap cases cap the scores (of about one unit
+#: here) at 1.0, so that the cap bends most of them.  ``cache``: ``prefix``
+#: (sequence b holds positions 0 .. lens[b] - 1, queried at the last),
+#: ``ring`` (a full ring: every slot written, at positions S + lens[b] - S
+#: .. S + lens[b] - 1, key_pos from models/attention.py's formula),
+#: ``masked_row`` (prefix, but sequence 1 holds no valid slot: its output is
+#: the mean of V)
 K11_CASES = (
-    ("served", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0),
-    ("served_f32", 8, 8192, 8, 2, 128, None, torch.float32, 0.0),
-    ("window", 8, 8192, 8, 2, 128, 4096, torch.bfloat16, 0.0),
-    ("g1", 8, 8192, 8, 1, 128, None, torch.bfloat16, 0.0),
-    ("g6", 4, 4096, 4, 6, 128, None, torch.bfloat16, 0.0),
-    ("ragged", 8, 8000, 8, 2, 128, None, torch.bfloat16, 0.0),
-    ("ragged_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32, 0.0),
-    ("softcap", 8, 8192, 8, 2, 128, None, torch.bfloat16, 1.0),
-    ("softcap_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32, 1.0),
+    ("served", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0, "prefix"),
+    ("served_f32", 8, 8192, 8, 2, 128, None, torch.float32, 0.0, "prefix"),
+    ("window", 8, 8192, 8, 2, 128, 4096, torch.bfloat16, 0.0, "prefix"),
+    ("g1", 8, 8192, 8, 1, 128, None, torch.bfloat16, 0.0, "prefix"),
+    ("g6", 4, 4096, 4, 6, 128, None, torch.bfloat16, 0.0, "prefix"),
+    ("ragged", 8, 8000, 8, 2, 128, None, torch.bfloat16, 0.0, "prefix"),
+    ("ragged_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32, 0.0,
+     "prefix"),
+    ("softcap", 8, 8192, 8, 2, 128, None, torch.bfloat16, 1.0, "prefix"),
+    ("softcap_f32_window", 3, 1000, 2, 3, 64, 256, torch.float32, 1.0,
+     "prefix"),
+    ("ring_window", 8, 4096, 8, 2, 128, 1024, torch.bfloat16, 0.0, "ring"),
+    ("masked_row", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0,
+     "masked_row"),
 )
 
 
@@ -1244,6 +1324,28 @@ def k11_inputs(B, S, KV, G, Dh, q_dtype, lens, seed):
             lens_t - 1]
 
 
+def k11_case_inputs(i):
+    """``(args, kw)`` of ``K11_CASES[i]`` on the card: the served cases at
+    the serve_lm phase's sequence lengths, mid-decode, the others at lengths
+    drawn from a seed, and the cache of the case's kind."""
+    label, B, S, KV, G, Dh, window, q_dtype, cap, cache = K11_CASES[i]
+    if label.startswith("served"):
+        lens = [n + LM_MAX_NEW // 2 for n in lm_prompt_lengths()]
+    else:
+        lens = np.random.default_rng(100 + i).integers(
+            S // 2, S, size=B).tolist()
+    args = k11_inputs(B, S, KV, G, Dh, q_dtype, lens, 200 + i)
+    if cache == "ring":
+        pos = args[6] + S
+        idx = torch.arange(S, dtype=torch.int32, device=pos.device)
+        args[5] = (pos[:, None] - ((pos[:, None] - idx[None, :]) % S)
+                   ).contiguous()
+        args[6] = pos
+    elif cache == "masked_row":
+        args[5][1] = -1
+    return args, {"window": window, "softcap": cap}
+
+
 def k11_bytes_flops(args, window):
     """What one call must move and compute on these inputs: a sequence with
     a valid slot needs the codes and scales of its valid slots only (a
@@ -1263,6 +1365,15 @@ def k11_bytes_flops(args, window):
                       for n in n_valid)
     flops = sum(4 * KV * G * Dh * (n or S) for n in n_valid)
     return needed, flops, io + B * S * per_slot
+
+
+def k11_valid_share(args, window):
+    """The share of the cache's slots a query may read."""
+    key_pos, q_pos = args[5], args[6]
+    valid = (key_pos >= 0) & (key_pos <= q_pos[:, None])
+    if window is not None:
+        valid &= key_pos > (q_pos[:, None] - window)
+    return float(valid.float().mean())
 
 
 #: bfloat16 outputs: besides one bfloat16 ulp, the float32 sums' own error
@@ -1295,15 +1406,9 @@ def phase_decode_attention(reps: int):
     from repro_torch.kernels import decode_attention as K11
 
     results = []
-    for i, (label, B, S, KV, G, Dh, window, q_dtype, cap) in enumerate(
-            K11_CASES):
-        if label.startswith("served"):
-            lens = [n + LM_MAX_NEW // 2 for n in lm_prompt_lengths()]
-        else:
-            lens = np.random.default_rng(100 + i).integers(
-                S // 2, S, size=B).tolist()
-        args = k11_inputs(B, S, KV, G, Dh, q_dtype, lens, 200 + i)
-        kw = {"window": window, "softcap": cap}
+    for i, (label, B, S, KV, G, Dh, window, q_dtype, cap, cache) in \
+            enumerate(K11_CASES):
+        args, kw = k11_case_inputs(i)
         got = K11.decode_attention_int8(*args, **kw)
         want = K11.decode_attention_int8_plain(*args, **kw)
         torch.cuda.synchronize()
@@ -1321,7 +1426,9 @@ def phase_decode_attention(reps: int):
         results.append({
             "name": "decode_attention_int8", "case": label, "B": B, "S": S,
             "KV": KV, "G": G, "Dh": Dh, "window": window, "softcap": cap,
-            "dtype": str(q_dtype).replace("torch.", ""), "lens": lens,
+            "dtype": str(q_dtype).replace("torch.", ""), "cache": cache,
+            "q_pos": args[6].tolist(),
+            "valid_share": k11_valid_share(args, window),
             "max_abs_err": err,
             "tolerance": "2e-4" if q_dtype == torch.float32
             else f"1 bf16 ulp + {K11_BF16_ATOL}",

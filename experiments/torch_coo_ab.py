@@ -47,11 +47,24 @@ the kernel's plain version.  ``--kernels`` picks the set:
   ``ops.csr_window_of``) and, in such a checkout, also in each kernel
   (``window``, ``row-groups``) and, at B = 32 and 128, in the window kernel
   at 16, 32, 64 and 128 rows a block.
+* ``bcsr_k11``: K10 ``bcsr_spmm`` on xenon2@x4, viscoplastic2@x16 and
+  torso1 (8 x 8 blocks, as the main path transforms them) at B = 1, 8, 32
+  and 128, float32 and bfloat16, launched as the checkout's main path
+  launches it and, in a checkout with the tensor-core kernel, in each
+  kernel forced (``mma``, ``rows`` — the first port's lane groups); K11
+  ``decode_attention_int8`` at every case of ``chip_smoke.K11_CASES`` (this
+  checkout's list, inputs built as ``chip_smoke.py`` builds them).
+* ``decode_step``: the LM server's decode step, as ``chip_smoke.py``'s
+  ``serve_lm`` phase serves it (this checkout's phase, the checkout's
+  ``repro_torch``: qwen3-1.7b at full width and depth, 8 requests into 8
+  slots of 8192, 32 new tokens each): the host-clock ms of each decode step
+  and the card's busy ms a step from its ``torch.profiler`` trace.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
     python3 experiments/torch_coo_ab.py --other DIR
-        [--kernels coo|csr_ccs|ccs_ell|ell_csr] [--out FILE]
+        [--kernels coo|csr_ccs|ccs_ell|ell_csr|bcsr_k11|decode_step]
+        [--out FILE]
 
 It prints one line per case (median ms of each turn and the spread of this
 checkout's 40 times; a case only one checkout has, such as a tile of a grid
@@ -87,7 +100,9 @@ def worker(kernels: str) -> None:
     the set ``kernels`` and prints one JSON line."""
     cases, names = {"coo": coo_cases, "csr_ccs": csr_ccs_cases,
                     "ccs_ell": ccs_ell_cases,
-                    "ell_csr": ell_csr_cases}[kernels]()
+                    "ell_csr": ell_csr_cases,
+                    "bcsr_k11": bcsr_k11_cases,
+                    "decode_step": decode_step_cases}[kernels]()
     import hashlib
 
     import torch
@@ -522,6 +537,117 @@ def ell_csr_cases():
     return cases, ("ell_spmv", "csr_spmm")
 
 
+def bcsr_k11_cases():
+    """K10 on xenon2@x4, viscoplastic2@x16 and torso1; K11 at every case of
+    ``chip_smoke.K11_CASES`` (``--kernels bcsr_k11``)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import suite
+    from repro_torch.core import transform as T
+    from repro_torch.kernels import bcsr_spmv as K9
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as K11
+    from repro_torch.kernels import ops
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as smoke
+
+    build.build_all(("bcsr_spmm", "decode_attention_int8"), force=True)
+    specs = {s.name: s for s in suite.TABLE1}
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    mma = "mma" in inspect.signature(K9.bcsr_spmm).parameters
+    cases = []
+
+    def case(key, call, plain, plain_abs, lib_ms, **info):
+        got, want, mag = call(), plain(), plain_abs()
+        rel = rel_err(got, want, mag)
+        if rel > KERNEL_REL_TOL:
+            raise AssertionError(f"{key}: rel err {rel}")
+        del got, want, mag
+        cases.append({"key": key, "max_rel_err": rel, "ms": times_of(call),
+                      "library_ms": lib_ms, **info})
+
+    # K10
+    for name, scale in (("xenon2", 4.0), ("viscoplastic2", 16.0),
+                        ("torso1", 1.0)):
+        csr = suite.synthesize(specs[name], scale=scale, device="cpu")
+        m = csr.to(dev)
+        bm = T.host_csr_to_bcsr(csr).to(dev)
+        ops.prepare(bm)
+        label = name if scale == 1.0 else f"{name}@x{scale:g}"
+        lib = torch.sparse_csr_tensor(m.indptr, m.cols[:m.nnz],
+                                      m.data[:m.nnz], size=csr.shape)
+        nblocks = int(bm.indptr[-1])
+        for dtype in (f32, bf16):
+            d = bm.data.to(dtype)
+            for batch in (1, 8, 32, 128):
+                X = torch.from_numpy(np.random.default_rng(8).normal(
+                    size=(bm.n_cols, batch)).astype(np.float32)).to(
+                    dev).to(dtype)
+                lib_ms = (statistics.median(times_of(lambda: lib @ X))
+                          if dtype == f32 else None)
+                args = (d, bm.block_cols, bm.indptr)
+                want = K9.bcsr_spmm_plain(*args, X, bm.n_rows)
+                mag = K9.bcsr_spmm_plain(d.abs(), bm.block_cols, bm.indptr,
+                                         X.abs(), bm.n_rows)
+                # as the main path launches it (ops.spmm_bcsr)
+                variants = [("default", lambda: K9.bcsr_spmm(
+                    *args, X, bm.n_rows))]
+                if mma:
+                    variants += [
+                        ("mma", lambda: K9.bcsr_spmm(*args, X, bm.n_rows,
+                                                     mma=True)),
+                        ("rows", lambda: K9.bcsr_spmm(*args, X, bm.n_rows,
+                                                      mma=False))]
+                for vname, call in variants:
+                    case(f"bcsr_spmm/{label}/{dtype}/B={batch}/{vname}"
+                         .replace("torch.", ""), lambda call=call:
+                         call(), lambda: want, lambda: mag, lib_ms,
+                         nblocks=nblocks)
+                del X, want, mag
+        del m, bm, lib, csr
+        torch.cuda.empty_cache()
+    # K11 at every case of chip_smoke.py, its inputs built as it builds them
+    for i, (label, B, S, KV, G, Dh, window, q_dtype, cap, *rest) in \
+            enumerate(smoke.K11_CASES):
+        args, kw = smoke.k11_case_inputs(i)
+        want = K11.decode_attention_int8_plain(*args, **kw)
+        got = K11.decode_attention_int8(*args, **kw)
+        err, ok = smoke.k11_close(got, want, q_dtype)
+        if not ok:
+            raise AssertionError(f"decode_attention_int8/{label}: max abs "
+                                 f"err {err}")
+        cases.append({"key": f"decode_attention_int8/{label}",
+                      "max_abs_err": err,
+                      "ms": times_of(lambda: K11.decode_attention_int8(
+                          *args, **kw)),
+                      "library_ms": None})
+        del args, got, want
+    return cases, ("bcsr_spmm", "decode_attention_int8")
+
+
+def decode_step_cases():
+    """The LM server's decode steps, served as ``chip_smoke.py``'s
+    ``serve_lm`` phase serves them (``--kernels decode_step``): the
+    host-clock ms of every step and the card's busy ms a step."""
+    import repro_torch       # the checkout's, before chip_smoke adds ROOT/src
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as smoke
+
+    out, _ = smoke.phase_serve_lm()
+    return ([{"key": "serve_lm/decode_ms_step", "ms": out["decode_ms_steps"],
+              "library_ms": None},
+             {"key": "serve_lm/device_ms_step",
+              "ms": [out["trace"]["device_ms_per_step"]],
+              "library_ms": None}],
+            ("decode_attention_int8",))
+
+
 def turn(checkout: Path, kernels: str) -> dict:
     env = dict(os.environ, PYTHONPATH=str(checkout / "src"))
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -530,7 +656,11 @@ def turn(checkout: Path, kernels: str) -> dict:
                          timeout=900)
     if out.returncode != 0:
         raise RuntimeError(f"turn in {checkout} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if not Path(got["repro_torch"]).resolve().is_relative_to(
+            (checkout / "src").resolve()):
+        raise RuntimeError(f"turn in {checkout} ran {got['repro_torch']}")
+    return got
 
 
 def main() -> int:
@@ -538,7 +668,8 @@ def main() -> int:
     ap.add_argument("--other", type=Path,
                     help="root of the checkout to compare with")
     ap.add_argument("--kernels",
-                    choices=("coo", "csr_ccs", "ccs_ell", "ell_csr"),
+                    choices=("coo", "csr_ccs", "ccs_ell", "ell_csr",
+                             "bcsr_k11", "decode_step"),
                     default="coo",
                     help="the kernels to time (see the module's docstring)")
     ap.add_argument("--out", type=Path, help="where to write every time")

@@ -225,7 +225,8 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
     same launch twice.  ``n_rows`` is the segmented axis: the column count
     for CCS, the block-row count for BCSR; ``width`` is BCSR's block size
     b."""
-    from ..kernels._common import (CCS_SPMV_WARPS, CSR_SPMM_MIN_TUNE_ROWS,
+    from ..kernels._common import (BCSR_MMA_ROWS, CCS_SPMV_WARPS,
+                                   CSR_SPMM_MIN_TUNE_ROWS, bcsr_spmm_mma,
                                    bcsr_spmv_launch, ccs_spmv_launch,
                                    csr_spmm_window, rhs_tile, rows_per_block)
     if fmt not in GRID_FORMATS:
@@ -257,6 +258,15 @@ def candidate_geometries(fmt: str, op: str = "spmv", *, n_rows: int = 0,
             geoms.extend(
                 TileGeometry(block_rows=bcsr_spmv_launch(b, min(r, cap))[1])
                 for r in GPU_ROW_TILES)
+            continue
+        if fmt == "bcsr" and op == "spmm" and bcsr_spmm_mma(batch,
+                                                           width or 8, k):
+            # the tensor-core kernel: block rows a block owns, a warp each,
+            # up to BCSR_MMA_ROWS (16 ran slower on the card: PERF.md §6)
+            geoms.extend(
+                TileGeometry(block_rows=min(r, n_rows) if n_rows else r,
+                             block_k=k)
+                for r in GPU_ROW_TILES if r <= BCSR_MMA_ROWS)
             continue
         lanes = _lanes_per_row(fmt, op, width, batch, k)
         if fmt == "csr" and op == "spmm" and csr_spmm_window(batch, k):

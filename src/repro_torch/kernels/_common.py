@@ -118,6 +118,25 @@ SMEM_BLOCK_MAX = 232448 - 1024
 #: row is stretched by its heavy rows, ran at one block an SM and 1.6x
 #: slower: PERF.md §6)
 CSR_SPMM_BLOCKS_PER_SM = 3
+#: narrowest right-hand-side tile at which ``bcsr_spmm`` runs its
+#: tensor-core kernel (for b = 4, 8, 16); below it the first port's kernel
+#: runs (at B = 32 it was 9-32 % faster on xenon2, viscoplastic2 and torso1,
+#: at B = 8 and 1 1.5-2.7x: PERF.md §6)
+BCSR_MMA_MIN_COLS = 64
+#: block sizes the tensor-core kernel takes
+BCSR_MMA_BLOCKS = (4, 8, 16)
+#: block rows a tensor-core ``bcsr_spmm`` block owns by default, a warp
+#: each (16 ran slower on xenon2 in float32 and on torso1: PERF.md §6); also
+#: the most the tuner tries
+BCSR_MMA_ROWS = 8
+#: most warps a tensor-core ``bcsr_spmm`` block holds (a warp a block row)
+BCSR_MMA_WARPS = 8
+#: most slices (and mbarriers) such a block keeps in shared memory
+BCSR_MMA_MAX_SLOTS = 32
+#: slices each warp keeps in flight at least (ring mode)
+BCSR_MMA_STAGES = 2
+#: tensor-core ``bcsr_spmm`` blocks that should fit on one SM together
+BCSR_MMA_BLOCKS_PER_SM = 3
 #: grid.y limit of a CUDA launch
 MAX_GRID_Y = 65535
 #: elements of the largest ``(entries, B)`` temporary a plain SpMM version
@@ -218,6 +237,45 @@ def row_group_launch(batch: int, block_rows=None, block_k=None):
     kt, lanes, per_lane = rhs_tile(batch, block_k)
     check_grid_y(batch, kt)
     return kt, lanes, per_lane, rows_per_block(lanes, block_rows)
+
+
+def bcsr_spmm_mma(batch: int, block: int, block_k=None) -> bool:
+    """Whether a BCSR SpMM launch runs the tensor-core kernel: a block size
+    it takes (``BCSR_MMA_BLOCKS``) and a column tile of at least
+    ``BCSR_MMA_MIN_COLS``; otherwise the first port's lane groups."""
+    return (int(block) in BCSR_MMA_BLOCKS
+            and rhs_tile(batch, block_k)[0] >= BCSR_MMA_MIN_COLS)
+
+
+def bcsr_spmm_launch(batch: int, block: int, block_rows=None, block_k=None,
+                     x_size: int = 4, data_size: int = 4):
+    """``(kt, threads, rows, slots, stride)`` of a tensor-core BCSR SpMM
+    launch: ``kt`` columns a CUDA block (:func:`rhs_tile`), ``rows``
+    consecutive block rows it owns (``block_rows``, default
+    ``BCSR_MMA_ROWS``) on up to ``BCSR_MMA_WARPS`` warps, ``slots`` slices
+    of ``block`` X rows of ``stride`` bytes (``kt`` rounded up to 16 values
+    of ``x_size`` bytes, padded to a pitch of 8 words mod 32 for float32
+    and 4 for bfloat16, so the fragment loads of 4 rows and bfloat16's
+    ``ldmatrix`` of 8 hit every bank) beside their ``block * block`` values of
+    ``data_size`` bytes: ``BCSR_MMA_STAGES`` a warp at least, else what
+    fits ``BCSR_MMA_BLOCKS_PER_SM`` blocks on an SM, at most
+    ``BCSR_MMA_MAX_SLOTS`` (fewer warps where two slices a warp would not
+    fit)."""
+    kt = rhs_tile(batch, block_k)[0]
+    check_grid_y(batch, kt)
+    b = int(block)
+    rows = max(1, int(block_rows)) if block_rows else BCSR_MMA_ROWS
+    kt16 = -(-kt // 16) * 16
+    stride = -(-kt16 * int(x_size) // 128) * 128 + 8 * int(x_size)
+    slice_bytes = b * stride + b * b * int(data_size)
+    warps = min(rows, BCSR_MMA_WARPS)
+    while warps > 1 and BCSR_MMA_STAGES * warps * slice_bytes > \
+            SMEM_BLOCK_MAX:
+        warps //= 2
+    share = SMEM_BLOCK_MAX // BCSR_MMA_BLOCKS_PER_SM // slice_bytes
+    slots = min(BCSR_MMA_MAX_SLOTS, SMEM_BLOCK_MAX // slice_bytes,
+                max(BCSR_MMA_STAGES * warps, share))
+    return kt, 32 * warps, rows, max(slots, warps), stride
 
 
 def csr_spmm_window(batch: int, block_k=None, heavy=None,
@@ -353,13 +411,22 @@ def check_grid_y(batch: int, kt: int) -> None:
 # ---------------------------------------------------------------------------
 # decode attention (K11)
 # ---------------------------------------------------------------------------
-#: threads per block of the split kernel of ``decode_attention_int8``
-DECODE_THREADS = 128
-#: resident blocks per SM the split count aims at: enough 16-byte loads in
-#: flight per SM to cover device-memory latency
-DECODE_BLOCKS_PER_SM = 8
+#: threads per block of the split kernel of ``decode_attention_int8``: 8
+#: warps, each streaming its own tiles of the split's valid keys
+DECODE_THREADS = 256
+#: threads per block where a block keeps 4 query rows (their registers,
+#: about 200 a thread, leave room for one block of 256 on an SM)
+DECODE_THREADS_G4 = 128
+#: blocks per SM the split count aims at (2 of 256 threads are resident):
+#: 4 (9 splits of the served cache) beat 8 and 16 by 23-42 % at the served
+#: case, where a block whose split holds no valid slot exits at once
+#: (PERF.md §6)
+DECODE_BLOCKS_PER_SM = 4
 #: fewest keys one split reads (below this the partials' merge dominates)
 DECODE_MIN_KEYS = 64
+#: keys of a split each thread lists at most: the split kernel lists its
+#: valid slots in shared memory
+DECODE_KEYS_PER_THREAD = 8
 #: widest head the 16-byte-per-thread key groups take (32 lanes)
 DECODE_MAX_HEAD_DIM = 512
 #: streaming multiprocessors of an H100 SXM
@@ -376,7 +443,9 @@ def decode_attention_launch(batch: int, kv_heads: int, group: int,
     ``slots`` axis cut into ``splits`` of ``keys_per_split`` keys so that
     the grid, ``batch * kv_heads * tiles * splits`` blocks, holds about
     ``DECODE_BLOCKS_PER_SM`` blocks per SM, with at least
-    ``DECODE_MIN_KEYS`` keys a split."""
+    ``DECODE_MIN_KEYS`` and at most ``DECODE_KEYS_PER_THREAD`` keys a
+    thread in a split; ``threads`` is ``DECODE_THREADS``, or
+    ``DECODE_THREADS_G4`` where a block keeps 4 query rows."""
     if head_dim % 16 or not 16 <= head_dim <= DECODE_MAX_HEAD_DIM:
         raise ValueError(f"decode_attention_int8 reads heads of a multiple "
                          f"of 16 up to {DECODE_MAX_HEAD_DIM}; got {head_dim}")
@@ -388,7 +457,9 @@ def decode_attention_launch(batch: int, kv_heads: int, group: int,
         g_tile *= 2
     heads = batch * kv_heads * -(-group // g_tile)
     want = -(-DECODE_BLOCKS_PER_SM * sms // max(heads, 1))
-    splits = max(1, min(want, slots // DECODE_MIN_KEYS))
+    threads = DECODE_THREADS if g_tile <= 2 else DECODE_THREADS_G4
+    splits = max(1, -(-slots // (DECODE_KEYS_PER_THREAD * threads)),
+                 min(want, slots // DECODE_MIN_KEYS))
     keys_per_split = -(-slots // splits)
-    return lanes, DECODE_THREADS, g_tile, keys_per_split, -(-slots //
-                                                           keys_per_split)
+    return lanes, threads, g_tile, keys_per_split, -(-slots //
+                                                    keys_per_split)

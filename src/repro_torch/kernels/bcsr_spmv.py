@@ -18,9 +18,16 @@ run time; block rows are disjoint, so there are no atomics and the result
 is deterministic.
 
 :func:`bcsr_spmm` replaces ``repro/kernels/bcsr_spmv.py:bcsr_spmm``: the
-same product against an ``(n_cols, B)`` panel.  A group of lanes owns one
-(block row, column tile), loads each block's ``b x kt`` slice of X coalesced
-along B and keeps ``b x per_lane`` accumulators in registers; no atomics.
+same product against an ``(n_cols, B)`` panel.  For b = 4, 8 and 16 at a
+column tile of 64 or more (``_common.bcsr_spmm_mma``) it runs each block
+product on the tensor cores (``mma.sync`` with 3xTF32 for a float32
+operand; for bfloat16 x bfloat16 at b = 8 and 16, ``m16n8k16`` on two 8 x 8
+blocks or one 16 x 16 a step), a warp streaming its block rows' X slices
+and values through a ring in shared memory filled by bulk asynchronous
+copies.  Any other b or tile runs the first port's kernel: a group of lanes
+owns one (block row, column tile), loads each block's ``b x kt`` slice of X
+coalesced along B and keeps ``b x per_lane`` accumulators in registers.  No
+atomics either way.
 """
 from __future__ import annotations
 
@@ -29,10 +36,10 @@ from typing import Optional
 import torch
 
 from . import build as _build
-from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, bcsr_spmv_launch,
-                      check_contiguous, check_current_device,
-                      check_same_device, check_values, current_stream_ptr,
-                      row_group_launch)
+from ._common import (INT32_MAX, PLAIN_CHUNK_ELEMS, bcsr_spmm_launch,
+                      bcsr_spmm_mma, bcsr_spmv_launch, check_contiguous,
+                      check_current_device, check_same_device, check_values,
+                      current_stream_ptr, row_group_launch)
 
 
 def _check(data, block_cols, indptr, x, n_rows: int, ndim: int) -> int:
@@ -154,12 +161,15 @@ def bcsr_spmm_plain(data: torch.Tensor, block_cols: torch.Tensor,
 def bcsr_spmm(data: torch.Tensor, block_cols: torch.Tensor,
               indptr: torch.Tensor, x: torch.Tensor, n_rows: int, *,
               block_rows: Optional[int] = None,
-              block_k: Optional[int] = None) -> torch.Tensor:
+              block_k: Optional[int] = None,
+              mma: Optional[bool] = None) -> torch.Tensor:
     """``Y = A @ X`` for BCSR arrays and a contiguous ``(n_cols, B)``
     panel; returns float32 ``(n_rows, B)``.  ``block_rows`` is the number of
     block rows and ``block_k`` the number of right-hand-side columns a CUDA
-    block owns.  CPU tensors run :func:`bcsr_spmm_plain`; CUDA tensors
-    launch the kernel or raise."""
+    block owns.  ``mma`` picks the tensor-core kernel (``None``:
+    ``_common.bcsr_spmm_mma`` decides from b and the tile; True needs b in
+    ``BCSR_MMA_BLOCKS``).  CPU tensors run :func:`bcsr_spmm_plain`; CUDA
+    tensors launch the kernel or raise."""
     b = _check(data, block_cols, indptr, x, n_rows, 2)
     if data.device.type == "cpu":
         return bcsr_spmm_plain(data, block_cols, indptr, x, n_rows)
@@ -177,14 +187,24 @@ def bcsr_spmm(data: torch.Tensor, block_cols: torch.Tensor,
         # no output element to write: no launch, none counted
         return torch.zeros((n_rows, batch), dtype=torch.float32,
                            device=data.device)
-    kt, lanes, per_lane, groups = row_group_launch(batch, block_rows,
-                                                   block_k)
+    if mma is None:
+        mma = bcsr_spmm_mma(batch, b, block_k)
+    if mma:
+        kt, threads, groups, slots, stride = bcsr_spmm_launch(
+            batch, b, block_rows, block_k, x.element_size(),
+            data.element_size())
+        lanes = per_lane = 0
+    else:
+        kt, lanes, per_lane, groups = row_group_launch(batch, block_rows,
+                                                       block_k)
+        threads = slots = stride = 0
     y = torch.empty((n_rows, batch), dtype=torch.float32, device=data.device)
     code = _build.launcher("bcsr_spmm")(
         data.data_ptr(), block_cols.data_ptr(), indptr.data_ptr(),
         x.data_ptr(), y.data_ptr(), n_rows, x.shape[0], nbr, b, batch, kt,
-        lanes, per_lane, groups, int(data.dtype == torch.bfloat16),
-        int(x.dtype == torch.bfloat16), current_stream_ptr())
+        lanes, per_lane, groups, threads, slots, stride,
+        int(data.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16),
+        current_stream_ptr())
     _build.check_launch("bcsr_spmm", code)
     bcsr_spmm.launches += 1
     return y

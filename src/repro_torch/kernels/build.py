@@ -64,13 +64,13 @@ SIGNATURES: Dict[str, Sequence] = {
     # data_bf16, x_bf16, stream
     "bcsr_spmv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # data, block_cols, indptr, x, y, n_rows, n_cols, n_block_rows, block,
-    # B, kt, lanes, per_lane, rows_per_block, data_bf16, x_bf16, stream
-    "bcsr_spmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _I, _I, _P),
+    # B, kt, lanes, per_lane, rows_per_block, mma_threads, slots, stride,
+    # data_bf16, x_bf16, stream
+    "bcsr_spmm": (_P,) * 5 + (_I,) * 14 + (_P,),
     # q, k_q, k_s, v_q, v_s, key_pos, q_pos, part_m, part_l, part_acc, out,
-    # B, S, KV, G, Dh, lanes, threads, g_tile, keys_per_split, splits,
-    # window, has_window, scale, softcap, q_bf16, stream
-    "decode_attention_int8": (_P,) * 11 + (_I,) * 12 + (_F, _F, _I, _P),
+    # counters, B, S, KV, G, Dh, lanes, threads, g_tile, keys_per_split,
+    # splits, window, has_window, scale, softcap, q_bf16, stream
+    "decode_attention_int8": (_P,) * 12 + (_I,) * 12 + (_F, _F, _I, _P),
 }
 
 _lock = threading.Lock()

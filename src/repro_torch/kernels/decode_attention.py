@@ -15,17 +15,19 @@ online softmax runs in float32 and the output is cast to q's dtype.
 
 The TPU kernel walked the sequence in order, carrying ``(m, l, acc)`` across
 chunks.  Hopper blocks share no state, so the kernel splits the sequence
-(flash-decoding): each block writes a partial ``(m, l, acc)`` of its split
-to float32 scratch allocated here, and a second kernel of the same source
-merges the splits.  ``S`` need not be a multiple of anything (the reference
-wrapper padded to its chunk); the launch shape, the number of splits
-included, is chosen in :func:`~repro_torch.kernels._common.
+(flash-decoding): each block lists its split's valid slots, streams their
+codes through a ring in shared memory (``cp.async``), rescales once a tile
+and writes a partial ``(m, l, acc)`` to float32 scratch allocated here; the
+last split of each head to finish merges them (a row with no valid slot
+gets the mean of V).  ``S`` need not be a multiple of anything
+(the reference wrapper padded to its chunk); the launch shape, the number of
+splits included, is chosen in :func:`~repro_torch.kernels._common.
 decode_attention_launch`.  Bound on an H100: bytes (the codes and scales of
-the cache, read once); see the source's header.
+the valid slots, read once); see the source's header.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -36,6 +38,19 @@ from ._common import (INT32_MAX, check_contiguous, check_current_device,
                       decode_attention_launch)
 
 NEG_INF = -1e30
+
+#: per CUDA device, the kernel's split counters: one int32 per (sequence, kv
+#: head, tile of query rows) of a launch, 0 between launches (the last split
+#: of each sets its count back), so launches on one stream share them
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def _check(q, k_q, k_s, v_q, v_s, key_pos, q_pos):
@@ -136,13 +151,15 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     part_acc = torch.empty((B, KV, G, splits, Dh), dtype=torch.float32,
                            device=q.device)
     out = torch.empty_like(q)
+    counters = _counters(q.device, B * KV * -(-G // g_tile))
     has_window = window is not None
     scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
     code = _build.launcher("decode_attention_int8")(
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), key_pos.data_ptr(), q_pos.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), B, S, KV, G, Dh, lanes, threads, g_tile,
+        out.data_ptr(), counters.data_ptr(), B, S, KV, G, Dh, lanes, threads,
+        g_tile,
         keys_per_split, splits,
         min(max(int(window), -INT32_MAX), INT32_MAX) if has_window else 0,
         int(has_window), scale, float(max(softcap, 0.0)),

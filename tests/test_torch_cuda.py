@@ -1115,3 +1115,271 @@ def test_cuda_csr_spmm_window_past_48k_and_its_misses(cuda, monkeypatch):
             assert misses["windowed"] == misses["blocks"]
         else:
             assert misses["misses"] > 0.5 * misses["entries"]
+
+
+# ---------------------------------------------------------------------------
+# K10: block products on the tensor cores over X slices in shared memory
+# ---------------------------------------------------------------------------
+#: (data, x) value types: every pairing the kernels take
+K10_PAIRS = [("float32", "float32"), ("float32", "bfloat16"),
+             ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+
+
+def bcsr_case(kind, block, seed, data_dtype):
+    """A CPU BCSR matrix of one K10 case: ``ragged`` (ragged_dense: its last
+    block column runs past n_cols, its last block row past n_rows),
+    ``empty_rows`` (the same with runs of empty block rows), ``zero`` (no
+    stored block) and ``band`` (a band three blocks wide over 90 block
+    rows)."""
+    rng = np.random.default_rng(seed)
+    if kind == "zero":
+        dense = np.zeros((37, 29), np.float32)
+    elif kind == "band":
+        n = 90 * block + 3
+        dense = np.zeros((n, n), np.float32)
+        for r in range(n):
+            lo = max(0, r - block - 2)
+            dense[r, lo:r + block + 2] = rng.normal(size=len(range(
+                lo, min(n, r + block + 2))))
+    else:
+        dense = ragged_dense(rng)
+        if kind == "empty_rows":
+            dense[8:40] = 0.0
+            dense[70:] = 0.0
+    tm = TT.csr_from_dense(dense, pad=8, device="cpu")
+    tm = dataclasses.replace(tm, data=tm.data.to(TDT[data_dtype]))
+    return TT.host_csr_to_bcsr(tm, block=block)
+
+
+def assert_k10_close(m, x, got):
+    """K10 against its plain version on the CPU, within 1e-4 of the plain
+    version on |data|, |x|."""
+    from repro_torch.kernels import bcsr_spmv as K9
+    args = (m.data, m.block_cols, m.indptr)
+    want = K9.bcsr_spmm_plain(*args, x, m.n_rows)
+    mag = K9.bcsr_spmm_plain(m.data.abs(), m.block_cols, m.indptr, x.abs(),
+                             m.n_rows)
+    assert_kernel_close(got, want, mag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", K10_PAIRS, ids="-".join)
+@pytest.mark.parametrize("batch", [1, 5, 8, 15, 16, 17, 32, 128, 200])
+@pytest.mark.parametrize("block", [3, 4, 8, 16])
+def test_cuda_bcsr_spmm_matches_plain_at_every_block_and_batch(
+        cuda, block, batch, pair):
+    """K10 against its plain version at every b, B (200 walks two column
+    tiles) and value-type pairing, on a ragged matrix, one with empty block
+    rows and an all-zero one: as the wrapper routes it and, for b = 4, 8,
+    16, in each kernel forced; one launch counted a call."""
+    from repro_torch.kernels import bcsr_spmv as K9
+    data_dtype, x_dtype = pair
+    routes = [None] + ([True, False] if block in (4, 8, 16) else [])
+    for kind in ("ragged", "empty_rows", "zero"):
+        m = bcsr_case(kind, block, 90 + block, data_dtype)
+        x = torch.from_numpy(np.random.default_rng(91).normal(
+            size=(m.n_cols, batch)).astype(np.float32)).to(TDT[x_dtype])
+        args = [t.to(cuda) for t in (m.data, m.block_cols, m.indptr)]
+        for mma in routes:
+            before = K9.bcsr_spmm.launches
+            got = K9.bcsr_spmm(*args, x.to(cuda), m.n_rows, mma=mma)
+            torch.cuda.synchronize()
+            assert K9.bcsr_spmm.launches == before + 1
+            assert_k10_close(m, x, got)
+            if kind == "zero":
+                assert not got.any()
+
+
+def tf32_probe(shape, rng):
+    """Positive values 1 + 2^-12 (1 + r / 2), r in [0, 1): rounded to TF32
+    (10 bits) they are 1, so a single TF32 product is off by ~2^-12 of
+    |a.x| in the same direction for every term — more than 1e-4 of the sum
+    of |a.x|."""
+    return (1.0 + 2.0 ** -12 * (1.0 + 0.5 * rng.random(shape))).astype(
+        np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", K10_PAIRS[:3], ids="-".join)
+@pytest.mark.parametrize("block", [4, 8, 16])
+def test_cuda_bcsr_spmm_keeps_float32_digits_on_the_tensor_cores(
+        cuda, block, pair):
+    """The 3xTF32 probe: values whose bits below TF32's tenth matter, in
+    every pairing with a float32 operand, held to 1e-4 of sum |a.x| (a
+    single TF32 product misses it: tests/test_torch_bcsr_mma.py)."""
+    from repro_torch.kernels import bcsr_spmv as K9
+    data_dtype, x_dtype = pair
+    rng = np.random.default_rng(92)
+    dense = (rng.random((150, 140)) < 0.3) * tf32_probe((150, 140), rng)
+    tm = TT.csr_from_dense(dense.astype(np.float32), pad=8, device="cpu")
+    tm = dataclasses.replace(tm, data=tm.data.to(TDT[data_dtype]))
+    m = TT.host_csr_to_bcsr(tm, block=block)
+    for batch in (16, 32, 128):
+        x = torch.from_numpy(tf32_probe((140, batch), rng)).to(TDT[x_dtype])
+        got = K9.bcsr_spmm(*[t.to(cuda) for t in (m.data, m.block_cols,
+                                                  m.indptr)],
+                           x.to(cuda), m.n_rows, mma=True)
+        torch.cuda.synchronize()
+        assert_k10_close(m, x, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [16, 32, 128, 200])
+@pytest.mark.parametrize("block", [4, 8, 16])
+def test_cuda_bcsr_spmm_ring_matches_plain(cuda, block, batch):
+    """On a band (three blocks a block row: bfloat16 x bfloat16 at b = 8
+    pairs two and takes the third alone) the tensor-core kernel matches the
+    plain version at other block rows a CUDA block and column tiles, X
+    aligned (bulk copies) and at an odd address (plain loads), float32 and
+    bfloat16; two launches give the same bits."""
+    from repro_torch.kernels import bcsr_spmv as K9
+    for dtype in ("float32", "bfloat16"):
+        m = bcsr_case("band", block, 93, dtype)
+        x = torch.from_numpy(np.random.default_rng(94).normal(
+            size=(m.n_cols, batch)).astype(np.float32)).to(TDT[dtype])
+        moved = torch.empty(m.n_cols * batch + 1, dtype=TDT[dtype],
+                            device=cuda)[1:].view(m.n_cols, batch)
+        moved.copy_(x)
+        args = [t.to(cuda) for t in (m.data, m.block_cols, m.indptr)]
+        for X in (x.to(cuda), moved):
+            for kw in (dict(), dict(block_rows=1), dict(block_rows=3),
+                       dict(block_rows=16), dict(block_k=16)):
+                kw["mma"] = True
+                before = K9.bcsr_spmm.launches
+                got = K9.bcsr_spmm(*args, X, m.n_rows, **kw)
+                again = K9.bcsr_spmm(*args, X, m.n_rows, **kw)
+                torch.cuda.synchronize()
+                assert K9.bcsr_spmm.launches == before + 2
+                assert torch.equal(got, again), kw
+                assert_k10_close(m, x, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_bound_bcsr_matches_plain(cuda, dtype):
+    """A bound BCSR matrix through ``ops.spmm_bcsr`` (``ops.prepare`` passes
+    it through: K10 keeps nothing beside it), a band and a scattered one, at
+    the tiles of both kernels, is the kernel's result in the product's
+    value type, and that matches the plain version."""
+    from repro_torch.kernels import bcsr_spmv as K9
+    from repro_torch.kernels import ops as T_ops
+    band = bcsr_case("band", 8, 95, dtype)
+    rng = np.random.default_rng(96)
+    scattered = ((rng.random((400, 400)) < 0.01)
+                 * rng.normal(size=(400, 400))).astype(np.float32)
+    tm = TT.csr_from_dense(scattered, pad=8, device="cpu")
+    sm = TT.host_csr_to_bcsr(dataclasses.replace(
+        tm, data=tm.data.to(TDT[dtype])))
+    for m in (band, sm):
+        bound = m.to(cuda)
+        assert T_ops.prepare(bound) is bound
+        for batch in (32, 64, 128):
+            x = torch.from_numpy(np.random.default_rng(97).normal(
+                size=(m.n_cols, batch)).astype(np.float32)).to(TDT[dtype])
+            got = T_ops.spmm_bcsr(bound, x.to(cuda))
+            raw = K9.bcsr_spmm(bound.data, bound.block_cols, bound.indptr,
+                               x.to(cuda), bound.n_rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got, raw.to(got.dtype))
+            assert_k10_close(m, x, raw)
+
+
+# ---------------------------------------------------------------------------
+# K11: masked slots skipped, one rescale a tile, codes through a ring
+# ---------------------------------------------------------------------------
+def k11_cache(kind, rng, B, S, KV, G, Dh, q_dtype):
+    """K11 inputs (``k11_inputs``) with the cache of one kind and the
+    window it is read with: ``prefix`` (valid prefixes), ``ring`` (a full
+    ring: key_pos from ``models/attention.py``'s formula at positions past
+    the slots), ``ring_window`` (the same read through a window shorter than
+    the ring), ``last_slot`` (rows whose only valid slot is the last),
+    ``masked_row`` (a row with no valid slot beside valid ones)."""
+    args = k11_inputs(rng, B, S, KV, G, Dh, q_dtype)
+    window = None
+    if kind in ("ring", "ring_window"):
+        pos = rng.integers(S, 4 * S, size=B).astype(np.int64)
+        idx = np.arange(S)
+        args[5] = torch.from_numpy((pos[:, None] - (
+            (pos[:, None] - idx[None, :]) % S)).astype(np.int32))
+        args[6] = torch.from_numpy(pos.astype(np.int32))
+        window = S // 3 if kind == "ring_window" else None
+    elif kind == "last_slot":
+        args[5][:] = -1
+        args[5][:, -1] = args[6]
+    elif kind == "masked_row":
+        args[5][1] = -1
+    return args, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [3, 20, 700, 5000])
+@pytest.mark.parametrize("kind", ["prefix", "ring", "ring_window",
+                                  "last_slot", "masked_row"])
+def test_cuda_decode_attention_int8_every_cache(cuda, kind, S, q_dtype):
+    """K11 against its plain version on every kind of cache the server
+    holds, with fewer slots than one tile (3, 20) and more than one split's
+    (5000); one launch counted a call."""
+    from repro_torch.kernels import decode_attention as K11
+    rng = np.random.default_rng(98)
+    args, window = k11_cache(kind, rng, 3, S, 2, 2, 64, q_dtype)
+    before = TK.launch_counts()["decode_attention_int8"]
+    got = K11.decode_attention_int8(*[a.to(cuda) for a in args],
+                                    window=window)
+    torch.cuda.synchronize()
+    assert TK.launch_counts()["decode_attention_int8"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert_k11_close(got, K11.decode_attention_int8_plain(*args,
+                                                          window=window),
+                     q_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 2.0])
+@pytest.mark.parametrize("G", [1, 2, 3, 5, 6])
+@pytest.mark.parametrize("Dh", [16, 64, 80, 128, 256, 512])
+def test_cuda_decode_attention_int8_every_head_and_group(cuda, Dh, G,
+                                                         softcap):
+    """K11 at every head width (16 to 512, 80 not a power of two) and every
+    group the configs use, with the logit softcap on and off, float32 and
+    bfloat16 q; q scaled by 4, so that scores of several units sharpen the
+    softmax and the cap bends them (``experiments/torch_k11_accuracy.py``
+    prints these cases against a float64 oracle)."""
+    from repro_torch.kernels import decode_attention as K11
+    for q_dtype in ("float32", "bfloat16"):
+        args = k11_inputs(np.random.default_rng(99), 2, 300, 2, G, Dh,
+                          q_dtype)
+        args[0] = args[0] * 4
+        got = K11.decode_attention_int8(*[a.to(cuda) for a in args],
+                                        softcap=softcap)
+        torch.cuda.synchronize()
+        assert_k11_close(got, K11.decode_attention_int8_plain(
+            *args, softcap=softcap), q_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefix", "ring_window", "last_slot"])
+def test_cuda_decode_attention_int8_reads_no_masked_slot(cuda, kind):
+    """Scales of NaN in every masked slot of a row that has a valid one
+    change nothing: the kernel reads neither their codes' scales nor, so,
+    their codes (the plain version, which reads every slot, is run on the
+    clean cache)."""
+    from repro_torch.kernels import decode_attention as K11
+    rng = np.random.default_rng(100)
+    args, window = k11_cache(kind, rng, 3, 1500, 2, 2, 128, "bfloat16")
+    key_pos, q_pos = args[5], args[6]
+    valid = (key_pos >= 0) & (key_pos <= q_pos[:, None])
+    if window is not None:
+        valid &= key_pos > (q_pos[:, None] - window)
+    assert bool(valid.any(dim=1).all()) and not bool(valid.all())
+    dirty = list(args)
+    for i in (2, 4):
+        dirty[i] = torch.where(valid[:, :, None], args[i],
+                               torch.full_like(args[i], float("nan")))
+    got = K11.decode_attention_int8(*[a.to(cuda) for a in dirty],
+                                    window=window)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert_k11_close(got, K11.decode_attention_int8_plain(*args,
+                                                          window=window),
+                     "bfloat16")

@@ -283,7 +283,8 @@ def test_wrapper_rejects_bad_operands():
 @pytest.mark.parametrize("B,S,KV,G,Dh", [
     (8, 8192, 8, 2, 128),      # qwen3-1.7b served: B 8, max_len 8192
     (1, 1024, 4, 1, 128), (3, 640, 2, 6, 64), (2, 48, 2, 2, 16),
-    (1, 100_000, 8, 4, 80), (64, 4096, 8, 2, 128)])
+    (1, 100_000, 8, 4, 80), (64, 4096, 8, 2, 128), (1, 1_000_000, 1, 1, 64),
+    (256, 32768, 8, 1, 128)])
 def test_decode_launch_fills_the_card_and_covers_the_cache(B, S, KV, G, Dh):
     lanes, threads, g_tile, per_split, splits = C.decode_attention_launch(
         B, KV, G, S, Dh)
@@ -295,6 +296,10 @@ def test_decode_launch_fills_the_card_and_covers_the_cache(B, S, KV, G, Dh):
     if S >= C.DECODE_MIN_KEYS * C.DECODE_BLOCKS_PER_SM * C.H100_SMS:
         assert blocks >= C.DECODE_BLOCKS_PER_SM * C.H100_SMS
     assert splits == 1 or per_split >= C.DECODE_MIN_KEYS
+    # a split lists its valid slots in shared memory, 8 a thread; a block
+    # of 4 query rows runs 128 threads, any other 256
+    assert per_split <= C.DECODE_KEYS_PER_THREAD * threads
+    assert threads == (128 if g_tile == 4 else 256)
     if (B, S, KV, G) == (8, 8192, 8, 2):          # the served shape
         assert blocks >= C.H100_SMS and splits > 1
 

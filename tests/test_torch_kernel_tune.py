@@ -133,6 +133,10 @@ def test_candidates_are_launches_a_wrapper_makes(fmt, op, batch):
             threads, rows = C.bcsr_spmv_launch(width, g.block_rows)
             assert rows == g.block_rows <= n_rows
             assert g.block_rows * width <= threads <= 1024
+        elif (fmt, op) == ("bcsr", "spmm") and C.bcsr_spmm_mma(
+                batch, width, g.block_k):
+            # block rows a tensor-core block owns, a warp each
+            assert_bcsr_mma_candidate(g, batch, width, n_rows)
         elif (fmt, op) == ("csr", "spmm") and C.csr_spmm_window(
                 batch, g.block_k):
             # rows a block owns beside its window of X rows, at most the
@@ -146,6 +150,45 @@ def test_candidates_are_launches_a_wrapper_makes(fmt, op, batch):
             assert g.block_rows * lanes == C.clamp_threads(
                 g.block_rows * lanes) <= 1024
             assert g.block_rows * lanes <= max(32, n_rows * lanes + 31)
+
+
+def assert_bcsr_mma_candidate(g, batch, block, n_rows):
+    """A BCSR SpMM candidate of the tensor-core kernel: block rows a CUDA
+    block owns, at most ``BCSR_MMA_ROWS`` and the block-row count, as
+    ``bcsr_spmm_launch`` takes them."""
+    assert g.block_nnz is None
+    assert 1 <= g.block_rows <= min(C.BCSR_MMA_ROWS, n_rows)
+    kt, threads, rows, _, _ = C.bcsr_spmm_launch(batch, block, g.block_rows,
+                                                 g.block_k)
+    assert rows == g.block_rows and kt == g.block_k
+    assert threads == 32 * min(rows, C.BCSR_MMA_WARPS)
+
+
+@pytest.mark.parametrize("n_rows", [3, 20])
+@pytest.mark.parametrize("batch", [3, 32, 64, 128, 200])
+@pytest.mark.parametrize("block", [3, 4, 8, 16])
+def test_bcsr_spmm_candidates_follow_the_kernel_they_launch(block, batch,
+                                                            n_rows):
+    """BCSR SpMM candidates at tiles where the wrapper runs the tensor-core
+    kernel are its block rows a CUDA block (up to ``BCSR_MMA_ROWS``, the
+    default among them); at narrower tiles and other b, lane groups of
+    whole warps, as for the first port's kernel."""
+    cands = candidate_geometries("bcsr", "spmm", n_rows=n_rows, width=block,
+                                 batch=batch)
+    assert cands
+    mma = [g for g in cands if C.bcsr_spmm_mma(batch, block, g.block_k)]
+    for g in mma:
+        assert_bcsr_mma_candidate(g, batch, block, n_rows)
+    for g in cands:
+        if g not in mma:
+            kt, lanes, _ = C.rhs_tile(batch, g.block_k)
+            assert g.block_k == kt <= batch
+            assert g.block_rows * lanes == C.clamp_threads(
+                g.block_rows * lanes) <= 1024
+    if block in C.BCSR_MMA_BLOCKS and batch >= C.BCSR_MMA_MIN_COLS:
+        assert min(C.BCSR_MMA_ROWS, n_rows) in {g.block_rows for g in mma}
+    else:
+        assert not mma
 
 
 @pytest.mark.parametrize("fmt", ["coo_row", "coo_col"])
