@@ -34,6 +34,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,7 +46,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-REPS = 20     # timed repetitions per kernel case (median)
+REPS = 10     # timed repetitions per kernel case (median)
+#: timed repetitions of a sparse kernel's plain version (10-400x slower than
+#: the kernel, so a median of a few settles it)
+PLAIN_REPS = 3
 ITERS = 20    # launches per timing in the offline and serve phases
 
 #: a float32 product against the float64 oracle, relative to
@@ -58,12 +62,13 @@ KERNEL_REL_TOL = 1e-4
 
 OFFLINE_MATRICES = ("chem_master1", "torso2", "xenon2", "torso3",
                     "poisson3Db", "epb2", "viscoplastic2", "memplus")
-OFFLINE_FORMATS = ("ell_row", "ell_col", "coo_row", "sell", "ccs", "bcsr")
+OFFLINE_FORMATS = ("ell_row", "ell_col", "coo_row", "sell", "ccs", "bcsr",
+                   "hybrid")
 #: (matrix, scale) each kernel is timed at (it is held against its plain
-#: version on every matrix of the offline and serve phases).  The last
-#: exceeds the 50 MB L2, so its times are the ones a bound stated against
-#: device memory applies to.
-KERNEL_MATRICES = (("xenon2", 1.0), ("memplus", 1.0), ("xenon2", 4.0))
+#: version on every matrix of the offline and serve phases): past the 50 MB
+#: L2, so its times are the ones a bound stated against device memory
+#: applies to.
+KERNEL_MATRICES = (("xenon2", 4.0),)
 #: (matrix, scale) served through the planner; the last exceeds the 50 MB L2
 SERVED = (("xenon2", 1.0), ("torso3", 1.0), ("memplus", 1.0), ("xenon2", 4.0))
 #: formats forced through the planner so every kernel serves at least once
@@ -149,6 +154,26 @@ LM_SEED = 0
 #: bfloat16 ulp (2^-8 relative) between the two, and 28 bfloat16 layers carry
 #: that to the logits; a wrong head, mask or scale moves them by O(1)
 LM_STEP_REL_TOL = 4e-2
+#: (matrix, scale) served as hybrid plans (``None``: the power-law matrix
+#: ``synthesize_power_law(n=8192, alpha=1.3)``), with the four partition
+#: strategies of ``benchmarks/hybrid_blocks.py``'s sweep
+HYBRID_MATRICES = (("memplus", 1.0), ("torso1", 1.0), None, ("xenon2", 4.0))
+HYBRID_SWEEP = (("fixed_256", "fixed", {"block_rows": 256}),
+                ("fixed_1024", "fixed", {"block_rows": 1024}),
+                ("balanced_8", "balanced_nnz", {"n_blocks": 8}),
+                ("variance_16", "variance", {"max_blocks": 16,
+                                             "min_rows": 64}))
+#: launches per timing in the serve_hybrid phase (a product there is up to
+#: thousands of launches)
+HYBRID_ITERS = 3
+#: a call whose host enqueue takes longer than this outruns the longest head
+#: start of ``autotune.time_device``: its device time is not measured
+HYBRID_MAX_ENQUEUE_S = 0.05
+#: the SpMV kernel a block of each format a hybrid container holds (CSR and
+#: ``partition.hybrid.BLOCK_FORMATS``) launches (SELL: once a bucket)
+SPMV_KERNEL_OF = {"csr": "csr_spmv", "coo_row": "coo_spmv",
+                  "coo_col": "coo_spmv", "ell_row": "ell_spmv",
+                  "ell_col": "ell_spmv", "sell": "ell_spmv"}
 #: the SpMM kernel each format's batched product launches
 SPMM_KERNEL_OF = {"csr": "csr_spmm", "coo_row": "coo_spmm",
                   "coo_col": "coo_spmm", "ell_row": "ell_spmm",
@@ -223,6 +248,14 @@ def time_events_ms(fn, reps: int = 20, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_normal(shape, seed: int) -> torch.Tensor:
+    """Standard normal float32 values of ``shape`` made on the card from
+    ``seed`` (the host's generator takes seconds for an ``(n_cols, 128)``
+    panel of a matrix past the L2)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda")
+
+
 def bound(bytes_moved: int, flops: int):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -285,11 +318,8 @@ def kernel_cases(csr, layouts, dtype, batch=None, block_k=None,
     bcsr_k = getattr(K9, f"bcsr_{op}")
     bcsr_plain = getattr(K9, f"bcsr_{op}_plain")
     kw = {} if block_k is None else {"block_k": block_k}
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(1234 + b)
     shape = (csr.n_cols,) if batch is None else (csr.n_cols, batch)
-    x = torch.from_numpy(
-        rng.normal(size=shape).astype(np.float32)).to(dev).to(dtype)
+    x = device_normal(shape, 1234 + b).to(dtype)
     xa = x.abs()
     val = x.element_size()
     n, nnz = csr.n_rows, csr.nnz
@@ -522,10 +552,11 @@ def ccs_flushes(layouts, layout, batch, block_k):
 
 def coo_segments(rows, batch=None, block_k=None):
     """The runs of equal rows a COO kernel flushes at its launch for
-    ``batch`` (``None``: SpMV) and ``block_k``, host-computed from ``rows``:
+    ``batch`` (``None``: SpMV) and ``block_k``, computed from ``rows``:
     one per maximal run inside each warp's span (SpMV, ``32 * chunk``
-    entries) or each lane group's sub-run (SpMM).  ``atomics`` is the float32
-    atomics that makes (SpMM: one per run and column)."""
+    entries) or each lane group's sub-run (SpMM), counted on ``rows``'s
+    device.  ``atomics`` is the float32 atomics that makes (SpMM: one per
+    run and column)."""
     from repro_torch.kernels._common import coo_launch
     from repro_torch.kernels.coo_spmv import coo_spmm_launch
 
@@ -534,13 +565,12 @@ def coo_segments(rows, batch=None, block_k=None):
         span = 32 * chunk
     else:
         _, _, _, _, bn, span = coo_spmm_launch(batch, None, block_k)
-    r = rows.cpu().numpy()
-    k = np.arange(r.shape[0])
+    k = torch.arange(rows.shape[0], device=rows.device)
     starts = k % bn % span == 0
-    starts[1:] |= r[1:] != r[:-1]
+    starts[1:] |= rows[1:] != rows[:-1]
     segments = int(starts.sum())
     return {"segments": segments,
-            "segments_per_block": segments / -(-r.shape[0] // bn),
+            "segments_per_block": segments / -(-rows.shape[0] // bn),
             "atomics": segments * (batch or 1)}
 
 
@@ -566,14 +596,14 @@ def coo_order_results(csr, label):
         rows = torch.from_numpy(rows).to(dev)
         cols = torch.from_numpy(cols).to(dev)
         data = torch.from_numpy(data).to(dev)
-        rng = np.random.default_rng(4321 + i)
+        seed = 4321 + 4 * i
         for dtype in (torch.float32, torch.bfloat16):
             d = data.to(dtype)
             for batch in (None, SERVE_BATCH):
                 shape = (csr.n_cols,) if batch is None else (csr.n_cols,
                                                              batch)
-                x = torch.from_numpy(rng.normal(size=shape).astype(
-                    np.float32)).to(dev).to(dtype)
+                x = device_normal(shape, seed).to(dtype)
+                seed += 1
                 kern, plain = ((K3.coo_spmv, K3.coo_spmv_plain)
                                if batch is None
                                else (K3.coo_spmm, K3.coo_spmm_plain))
@@ -763,7 +793,7 @@ def check_cases(cases, library, label, nnz, dtype, timed, reps, **extra):
             result.update({
                 "ms": time_ms(case["kernel"], reps),
                 "ms_cold_l2": time_ms(case["kernel"], reps, cold=True),
-                "plain_ms": time_events_ms(case["plain"], reps),
+                "plain_ms": time_events_ms(case["plain"], PLAIN_REPS),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "bytes": case["bytes"], "library_ms": library_ms})
         results.append(result)
@@ -1056,9 +1086,7 @@ def serve_one(api, planner, csr, label, plan_kw, iters):
     from repro_torch import kernels
     from repro_torch.core.autotune import time_fn
 
-    rng = np.random.default_rng(99)
-    x = torch.from_numpy(
-        rng.normal(size=csr.n_cols).astype(np.float32)).cuda()
+    x = device_normal(csr.n_cols, 99)
     t0 = time.perf_counter()
     plan = planner.plan(csr, **plan_kw)
     t_plan = time.perf_counter() - t0
@@ -1128,9 +1156,10 @@ def phase_serve(db, iters: int):
     return served
 
 
-def check_product(label, y, csr, x):
-    """``y`` against the float64 oracle, relative to sum |a x|."""
-    want, scale = oracle_f64(csr, x)
+def close_to(label, y, oracle):
+    """``y`` against ``(float64 product, sum |a x|)``, relative to the
+    latter."""
+    want, scale = oracle
     if y.shape != want.shape or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"{label}: bad product {tuple(y.shape)}")
     rel = float(((y.double() - want).abs() / (scale + 1e-30)).max())
@@ -1140,6 +1169,24 @@ def check_product(label, y, csr, x):
     return rel
 
 
+def check_product(label, y, csr, x, oracle=None):
+    """``y`` against the float64 oracle (``oracle``, else computed here),
+    relative to sum |a x|."""
+    return close_to(label, y, oracle if oracle is not None
+                    else oracle_f64(csr, x))
+
+
+#: float64 oracles of the batched path, by (matrix, seed of x, shape of x):
+#: each call makes its x anew from the same seed
+_ORACLES = {}
+
+
+def oracle_of(key, csr, x):
+    if key not in _ORACLES:
+        _ORACLES[key] = oracle_f64(csr, x)
+    return _ORACLES[key]
+
+
 def serve_spmm_one(api, planner, csr, label, batch, plan_kw, iters):
     """``planner.plan(csr, batch=B).bind(csr) @ X`` on the card: the SpMM
     must resolve to the kernel tier, launch the format's SpMM kernel and
@@ -1147,9 +1194,7 @@ def serve_spmm_one(api, planner, csr, label, batch, plan_kw, iters):
     from repro_torch import kernels
     from repro_torch.core.autotune import time_fn
 
-    rng = np.random.default_rng(98)
-    x = torch.from_numpy(rng.normal(size=(csr.n_cols, batch)).astype(
-        np.float32)).cuda()
+    x = device_normal((csr.n_cols, batch), 98)
     t0 = time.perf_counter()
     plan = planner.plan(csr, batch=batch, **plan_kw)
     t_plan = time.perf_counter() - t0
@@ -1167,13 +1212,14 @@ def serve_spmm_one(api, planner, csr, label, batch, plan_kw, iters):
     if not risen.get(SPMM_KERNEL_OF[plan.fmt]):
         raise AssertionError(f"{label} {plan.fmt}: {SPMM_KERNEL_OF[plan.fmt]}"
                              f" was not launched ({risen})")
-    rel = check_product(f"{label} B={batch} {plan.fmt}", y, csr, x)
+    oracle = oracle_of((label, 98, tuple(x.shape)), csr, x)
+    rel = check_product(f"{label} B={batch} {plan.fmt}", y, csr, x, oracle)
     del y
     plan2 = api.ExecutionPlan.from_json(plan.to_json())
     if plan2.to_dict() != plan.to_dict():
         raise AssertionError(f"{label}: plan JSON round trip changed it")
     check_product(f"{label} re-bound", plan2.bind(csr, db=planner.db) @ x,
-                  csr, x)
+                  csr, x, oracle)
     t_trans = trans_seconds(plan, csr, label)
     t_spmm = time_fn(P.spmm, x, iters=iters)
     return {"matrix": label, "n": csr.n_rows, "nnz": csr.nnz, "batch": batch,
@@ -1207,6 +1253,7 @@ def phase_serve_spmm(dbs, iters: int):
     for f in FORCED_FORMATS:
         served.append(serve_spmm_one(api, paper, big, label, SERVE_BATCH,
                                      {"fmt": f}, iters))
+    _ORACLES.clear()
     emit("serve_spmm", served=served)
     return big
 
@@ -1221,9 +1268,8 @@ def phase_tune(db, csr):
     label = matrix_label(*BIG)
     tuner = api.KernelTuner(db)
     stats = MatrixStats.of(csr)
-    rng = np.random.default_rng(97)
-    x = torch.from_numpy(rng.normal(size=(csr.n_cols, SERVE_BATCH)).astype(
-        np.float32)).cuda()
+    x = device_normal((csr.n_cols, SERVE_BATCH), 97)
+    oracle_m, oracle_v = oracle_f64(csr, x), oracle_f64(csr, x[:, 0])
     tuned, served = [], []
     for f in FORCED_FORMATS:
         obj = api.TRANSFORMS_HOST[f](csr).to("cuda")
@@ -1259,8 +1305,9 @@ def phase_tune(db, csr):
                     rec.geometry.without_slab_bound():
                 raise AssertionError(f"tune {f}/{op}: bound {bound}, "
                                      f"tuned {rec.geometry}")
-        rel = check_product(f"tune {f} spmm", P @ x, csr, x)
-        rel_v = check_product(f"tune {f} spmv", P @ x[:, 0], csr, x[:, 0])
+        rel = check_product(f"tune {f} spmm", P @ x, csr, x, oracle_m)
+        rel_v = check_product(f"tune {f} spmv", P @ x[:, 0], csr, x[:, 0],
+                              oracle_v)
         served.append({"fmt": f, "tunings": {
                            op: g.to_dict() if g is not None else None
                            for op, g in P.tunings.items()},
@@ -1268,6 +1315,223 @@ def phase_tune(db, csr):
                        "t_plan_bind": t_plan_bind})
         del P, plan
     emit("tune", tuned=tuned, served=served, records=len(db.geometries))
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_hybrid (partitioned plans, each block through its kernel)
+# ---------------------------------------------------------------------------
+def served_times(fn, x, iters):
+    """``(t, t_host, t_device)`` seconds of one call of ``fn(x)``: CUDA
+    events around ``iters`` back-to-back calls (``autotune.time_fn``), the
+    host's time to enqueue one call, and the device time of one call behind
+    a head start (``autotune.time_device``; ``None`` where the enqueue
+    outruns the longest head start, and the device time is not
+    measured).  ``fn`` has run once before (warm).  A call whose enqueue
+    outruns the head start is bound by the host: its ``t`` is one call."""
+    from repro_torch.core.autotune import time_device, time_fn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(x)
+    t_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    if t_host >= HYBRID_MAX_ENQUEUE_S:
+        return time_fn(fn, x, iters=1, warmup=0), t_host, None
+    t = time_fn(fn, x, iters=iters, warmup=0)
+    return t, t_host, time_device(lambda: fn(x))
+
+
+def expected_block_launches(hyb, op):
+    """Launches a product of the hybrid container makes, per kernel."""
+    want = {}
+    for f, b in zip(hyb.formats, hyb.blocks):
+        k = (SPMV_KERNEL_OF if op == "spmv" else SPMM_KERNEL_OF)[f]
+        want[k] = want.get(k, 0) + (len(b.buckets) if f == "sell" else 1)
+    return want
+
+
+def counted(fn, *args):
+    """``fn(*args)`` and the kernel launches it made."""
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def serve_hybrid_one(api, planner, csr, label, plan_kw, iters, inputs):
+    """One plan: minted, bound, its SpMV and SpMM (B = ``SERVE_BATCH``)
+    against the float64 oracle and against the reference tier on the same
+    container, each block format's kernel launched, then timed.
+    ``inputs``: ``{op: (x, oracle of x)}``."""
+    from repro_torch.core import dispatch
+
+    t0 = time.perf_counter()
+    plan = planner.plan(csr, batch=SERVE_BATCH, **plan_kw)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    P = plan.bind(csr, db=planner.db)
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter() - t0
+    if set(P.tiers.values()) != {"kernel"}:
+        raise AssertionError(f"{label}: tiers {P.tiers}")
+    hyb = P.matrix
+    if plan.fmt != "hybrid":                    # a leaf the rule picked
+        hyb = None
+    row = {"matrix": label, "n": csr.n_rows, "nnz": csr.nnz,
+           "rule": plan.rule, "fmt": plan.fmt, "plan": plan_kw,
+           "t_plan": t_plan, "t_bind": t_bind}
+    if hyb is not None:
+        row.update(blocks=hyb.n_blocks, formats=hyb.format_counts(),
+                   t_partition=P.report.t_partition,
+                   t_transform=P.report.t_transform)
+    for op, (v, oracle) in inputs.items():
+        y, launched = counted(P.spmv if op == "spmv" else P.spmm, v)
+        rel = close_to(f"{label} {plan_kw} {op}", y, oracle)
+        if hyb is not None:
+            want = expected_block_launches(hyb, op)
+            if launched != want:
+                raise AssertionError(f"{label} {plan_kw} {op}: launched "
+                                     f"{launched}, the blocks call for "
+                                     f"{want}")
+            ref = dispatch.dispatch(hyb, v, op=op, tier="reference")
+            rel_ref = float(((y.double() - ref.double()).abs()
+                             / (oracle[1] + 1e-30)).max())
+            if rel_ref > KERNEL_REL_TOL:
+                raise AssertionError(f"{label} {plan_kw} {op}: kernel tier "
+                                     f"off the reference tier by {rel_ref}")
+            row[f"{op}_vs_reference_tier"] = rel_ref
+            del ref
+        del y
+        t, t_host, t_dev = served_times(
+            P.spmv if op == "spmv" else P.spmm, v, iters)
+        row.update({f"{op}_max_rel_err": rel, f"{op}_launched": launched,
+                    f"t_{op}": t, f"t_{op}_host": t_host,
+                    f"t_{op}_device": t_dev})
+    del P
+    return row, plan
+
+
+def stale_extent_results():
+    """A bound ELL panel and a SELL bucket, each edited in place after
+    ``bind`` (a pad slot of a row read short of its band given a value):
+    the product must still match the oracle of the edited matrix."""
+    from repro_torch import api
+    from repro_torch.core import suite
+    from repro_torch.kernels import ops
+
+    spec = next(s for s in suite.TABLE1 if s.name == "memplus")
+    csr = suite.synthesize(spec)
+    x = device_normal(csr.n_cols, 96)
+    base, scale = oracle_f64(csr, x)
+    out = []
+    for fmt in ("ell_row", "sell"):
+        P = api.Planner(tier="kernel", rule="cost_model").plan(
+            csr, fmt=fmt).bind(csr)
+        P @ x                                   # read once before the edit
+        panels = ([(P.matrix, 0)] if fmt == "ell_row" else
+                  list(zip(P.matrix.buckets, P.matrix.row_offsets)))
+        panel, off = next((p, o) for p, o in panels
+                          if ops._extent_read(p) is not None)
+        ext = ops.ell_extent_of(panel)
+        r = int(torch.nonzero(ext < panel.width)[0])
+        slot = int(ext[r])
+        row = (r if fmt == "ell_row" else int(P.matrix.perm[off + r]))
+        col, val = (row * 7919 + 13) % csr.n_cols, 0.75
+        panel.data[r, slot] = val
+        panel.cols[r, slot] = col
+        y, launched = counted(P.spmv, x)
+        want = base.clone()
+        want[row] += val * float(x[col])
+        sc = scale.clone()
+        sc[row] += abs(val * float(x[col]))
+        rel = float(((y.double() - want).abs() / (sc + 1e-30)).max())
+        if rel > F32_REL_TOL or not launched.get("ell_spmv"):
+            raise AssertionError(f"stale extents {fmt}: rel err {rel}, "
+                                 f"launched {launched}")
+        out.append({"fmt": fmt, "row": row, "slot": slot,
+                    "extent_before": int(ext[r]),
+                    "extent_after": int(ops.ell_extent_of(panel)[r]),
+                    "max_rel_err": rel})
+    return out
+
+
+def check_variance_blocks(label, csr, plan, formats):
+    """Under ``variance`` the heavy tail gets blocks of its own: on torso1
+    (a two-point mixture: 857 rows of 4959 entries among rows of 37-38) the
+    first block holds exactly the rows of the longest length; the
+    power-law matrix, whose lengths spread, gets two block formats or more
+    (each of torso1's blocks is uniform, and ELL serves every one)."""
+    if label == "torso1":
+        lens = csr.row_lengths()
+        heavy = int((lens == lens.max()).sum())
+        if tuple(plan.blocks[0].rows) != (0, heavy):
+            raise AssertionError(f"torso1 under variance: first block "
+                                 f"{plan.blocks[0].rows}, the {heavy} "
+                                 f"heavy rows not isolated")
+    if label.startswith("powerlaw") and len(formats) < 2:
+        raise AssertionError(f"{label} under variance: one block format "
+                             f"only {formats}")
+
+
+def phase_serve_hybrid(dbs, iters: int):
+    """The hybrid path: ``Planner(tier="kernel").plan(csr, partition=s,
+    **kw)`` under each strategy of ``HYBRID_SWEEP`` and the generalized rule
+    on the off-line TuningDB (B = ``SERVE_BATCH``, hybrid among its
+    formats) on each of ``HYBRID_MATRICES``, bound and served (SpMV and SpMM
+    at B = ``SERVE_BATCH``) beside the whole-matrix CSR kernel; then the
+    stale-extent repair case.  Fails unless every block format a plan holds
+    launched its kernel and ``check_variance_blocks`` holds."""
+    from repro_torch import api
+    from repro_torch.core import suite
+
+    specs = {s.name: s for s in suite.TABLE1}
+    partitioned = api.Planner(tier="kernel")
+    generalized = api.Planner(db=dbs[SERVE_BATCH], rule="generalized",
+                              tier="kernel")
+    served, baseline, seconds = [], [], {}
+    for m in HYBRID_MATRICES:
+        t0 = time.perf_counter()
+        if m is None:
+            label = "powerlaw_a1.3"
+            csr = suite.synthesize_power_law(n=8192, alpha=1.3)
+        else:
+            label = matrix_label(*m)
+            csr = suite.synthesize(specs[m[0]], scale=m[1])
+        x = device_normal(csr.n_cols, 95)
+        X = device_normal((csr.n_cols, SERVE_BATCH), 94)
+        inputs = {"spmv": (x, oracle_f64(csr, x)),
+                  "spmm": (X, oracle_f64(csr, X))}
+        P = partitioned.plan(csr, fmt="csr").bind(csr)
+        row = {"matrix": label, "n": csr.n_rows, "nnz": csr.nnz}
+        for op, v in (("spmv", x), ("spmm", X)):
+            t, t_host, t_dev = served_times(
+                P.spmv if op == "spmv" else P.spmm, v, iters)
+            row.update({f"t_{op}": t, f"t_{op}_host": t_host,
+                        f"t_{op}_device": t_dev})
+        baseline.append(row)
+        del P
+        for name, strategy, kw in HYBRID_SWEEP:
+            out, plan = serve_hybrid_one(
+                api, partitioned, csr, label,
+                {"partition": strategy, **kw}, iters, inputs)
+            out["strategy"] = name
+            served.append(out)
+            if strategy == "variance":
+                check_variance_blocks(label, csr, plan, out["formats"])
+        out, plan = serve_hybrid_one(api, generalized, csr, label, {},
+                                     iters, inputs)
+        out["strategy"] = "generalized"
+        served.append(out)
+        del csr, x, X, inputs
+        torch.cuda.empty_cache()
+        seconds[label] = time.perf_counter() - t0
+    stale = stale_extent_results()
+    emit("serve_hybrid", seconds=seconds, csr=baseline, served=served,
+         stale_extents=stale)
+    return served
 
 
 # ---------------------------------------------------------------------------
@@ -1674,12 +1938,19 @@ def main() -> int:
          kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
+    # every nvcc starts at once; K11's source takes the longest to compile
+    # (~48 s on the card's host, each sparse one <= 20 s), so the kernels
+    # phase starts once the ten sparse kernels are built and K11 builds on
     t0 = time.perf_counter()
-    build.build_all(force=True)
-    for name in build.KERNELS:
+    k11 = "decode_attention_int8"
+    k11_built = ThreadPoolExecutor(1).submit(
+        lambda: (build.build_all((k11,), force=True),
+                 time.perf_counter() - t0))
+    sparse = tuple(n for n in build.KERNELS if n != k11)
+    build.build_all(sparse, force=True)
+    for name in sparse:
         build.load(name)
-    emit("build", seconds=time.perf_counter() - t0,
-         libraries={n: str(build.library_path(n).name) for n in build.KERNELS})
+    t_sparse = time.perf_counter() - t0
 
     phases = {}               # seconds per phase, in the summary line
 
@@ -1690,6 +1961,12 @@ def main() -> int:
         return out
 
     cases = timed("kernels", phase_kernels, REPS)
+    t_wait = time.perf_counter()
+    _, t_k11 = k11_built.result()
+    build.load(k11)
+    emit("build", seconds=t_k11, seconds_sparse=t_sparse,
+         seconds_waited_after_kernels=time.perf_counter() - t_wait,
+         libraries={n: str(build.library_path(n).name) for n in build.KERNELS})
     k11_cases = timed("decode_attention", phase_decode_attention, REPS)
 
     from repro_torch.core import suite
@@ -1708,7 +1985,12 @@ def main() -> int:
     big = timed("serve_spmm", phase_serve_spmm, dbs, ITERS)
     spmm_path = kernels.launch_counts()
     timed("tune", phase_tune, dbs[SERVE_BATCH], big)
-    del big, dbs, db, mats
+    del big
+    # the hybrid path, counted on its own: each block through its kernel
+    kernels.reset_launch_counts()
+    timed("serve_hybrid", phase_serve_hybrid, dbs, HYBRID_ITERS)
+    hybrid_path = kernels.launch_counts()
+    del dbs, db, mats
     torch.cuda.empty_cache()
     # the LM server, counted on its own inside the phase
     lm, lm_path = timed("serve_lm", phase_serve_lm)
@@ -1716,7 +1998,7 @@ def main() -> int:
                 for k in SPARSE_KERNELS}
     launches["decode_attention_int8"] = lm_path["decode_attention_int8"]
     emit("launches", main_path=launches, spmv_path=spmv_path,
-         spmm_path=spmm_path, lm_path=lm_path,
+         spmm_path=spmm_path, hybrid_path=hybrid_path, lm_path=lm_path,
          lm_decode_steps=lm["decode_steps"],
          k11_per_decode_step=lm["k11_launches_per_step"])
     idle = [k for k, v in launches.items() if v == 0]

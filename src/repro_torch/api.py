@@ -32,12 +32,15 @@ organized around the portable decision artifact — the
     P = api.Planner(db, tuner=tuner).plan(csr, batch=128).bind(csr)
     Y = P @ X                      # X: (n_cols, 128)
 
+    # per row block: a hybrid plan, each block served by its format's kernel
+    P = api.Planner(tier="kernel").plan(csr, partition="variance").bind(csr)
+
 Names match ``repro.api`` for everything the port holds so far.
 """
-from repro_torch.core.autotune import (Decision, MachineModel, OfflineRecord,
-                                       TuningDB, decide_cost_model,
-                                       decide_generalized, decide_paper,
-                                       offline_phase)
+from repro_torch.core.autotune import (AutoTunedSpMV, Decision,
+                                       MachineModel, OfflineRecord, TuningDB,
+                                       decide_cost_model, decide_generalized,
+                                       decide_paper, offline_phase)
 from repro_torch.core.formats import (BCSR, BucketedELL, CCS, COO, CSR, ELL,
                                       MatrixStats, MatrixValidationError,
                                       from_numpy, memory_bytes, to_numpy)
@@ -74,7 +77,7 @@ __all__ = [
     "default_device",
     # observability (repro_torch.obs is the full surface)
     "obs", "Telemetry", "InMemorySink", "JsonlSink", "FakeClock",
-    # policy + decisions
-    "MemoryPolicy", "Decision",
+    # policy + deprecated shims
+    "MemoryPolicy", "Decision", "AutoTunedSpMV",
     "decide_paper", "decide_generalized", "decide_cost_model",
 ]

@@ -12,10 +12,11 @@ from . import dispatch
 from .spmv import (spmm, spmv, spmv_bcsr, spmv_ccs, spmv_coo, spmv_csr,
                    spmv_dense, spmv_ell, spmv_sell, spmm_bcsr, spmm_ccs,
                    spmm_coo, spmm_csr, spmm_ell, spmm_sell)
-from .autotune import (Decision, MachineModel, TuningDB, decide_cost_model,
-                       decide_generalized, decide_paper, offline_phase,
-                       time_fn)
-from .kernel_tune import GeometryRecord, TileGeometry, nearest_geometry
+from .autotune import (AutoTunedSpMV, Decision, MachineModel, TuningDB,
+                       decide_cost_model, decide_generalized, decide_paper,
+                       offline_phase, time_fn)
+from .kernel_tune import (GeometryRecord, KernelTuner, TileGeometry,
+                          candidate_geometries, nearest_geometry)
 from .plan import (BlockPlan, ExecutionPlan, PlanError, PlanFingerprint,
                    PlanSchemaError, PlannedMatrix, Planner, TransformRecipe,
                    apply_transform)

@@ -49,7 +49,8 @@ from .formats import CSR, MatrixStats, memory_bytes
 from .spmv import spmm, spmv
 from .transform import TRANSFORMS_HOST
 
-DEFAULT_FORMATS = ("ell_row", "ell_col", "coo_row", "coo_col", "sell")
+DEFAULT_FORMATS = ("ell_row", "ell_col", "coo_row", "coo_col", "sell",
+                   "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -556,9 +557,66 @@ def decide_cost_model(model: MachineModel, stats: MatrixStats,
         expected_iterations=k, batch=b)
 
 
+# ---------------------------------------------------------------------------
+# the user-facing auto-tuned operator — deprecated shim over the Planner
+# ---------------------------------------------------------------------------
+class AutoTunedSpMV:
+    """Deprecated: use :class:`repro_torch.Planner` /
+    :class:`repro_torch.ExecutionPlan`.
+
+    This wrapper predates the unified plan API.  It routes through
+    :class:`~repro_torch.core.plan.Planner`, so it picks up the tuned
+    ``TileGeometry`` (when the TuningDB carries recorded geometries, or a
+    ``tuner`` is passed) and serves SpMM panels through the same
+    ``__call__`` — but new code should hold the :class:`ExecutionPlan`
+    directly::
+
+        plan = Planner(db=db).plan(csr)     # portable, serializable
+        P = plan.bind(csr)
+        y = P @ x                           # SpMV; P @ X serves SpMM
+
+    ``device``: where the matrix is bound (``None`` = the CUDA device)."""
+
+    def __init__(self, csr: CSR, db: Optional[TuningDB] = None,
+                 expected_iterations: int = 100,
+                 rule: str = "paper",
+                 machine_model: Optional[MachineModel] = None,
+                 spmv_impls: Optional[Dict[str, Callable]] = None,
+                 tuner: Optional[Any] = None,
+                 device: DeviceLike = None):
+        import warnings
+        warnings.warn(
+            "AutoTunedSpMV is deprecated; use repro_torch.Planner — "
+            "plan = Planner(db=db).plan(csr); y = plan.bind(csr) @ x",
+            DeprecationWarning, stacklevel=2)
+        from .plan import Planner
+        if db is None:
+            rule_eff = "cost_model"
+        elif rule == "paper":
+            rule_eff = "paper"
+        else:
+            rule_eff = "generalized"
+        planner = Planner(db=db, model=machine_model, tuner=tuner,
+                          rule=rule_eff, device=device)
+        self.plan = planner.plan(csr, expected_iterations=expected_iterations)
+        self.bound = self.plan.bind(csr, db=db, impls=spmv_impls,
+                                    device=device)
+        self.csr = csr
+        self.stats = MatrixStats.of(csr)
+        self.decision = Decision(fmt=self.plan.fmt, d_mat=self.plan.d_mat,
+                                 d_star=self.plan.d_star,
+                                 rule=self.plan.rule,
+                                 expected_gain=self.plan.expected_gain)
+        self.matrix = self.bound.matrix
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        # rank dispatch: 1-D x serves SpMV, (n_cols, B) panels serve SpMM
+        return self.bound @ x
+
+
 __all__ = [
     "DEFAULT_FORMATS", "time_fn", "time_host", "time_prepare",
     "FormatMeasurement", "OfflineRecord", "TuningDB",
     "offline_phase", "Decision", "decide_paper", "decide_generalized",
-    "MachineModel", "decide_cost_model",
+    "MachineModel", "decide_cost_model", "AutoTunedSpMV",
 ]

@@ -2,8 +2,9 @@
 
 One registry, keyed by ``(format, op)`` with two implementation tiers:
 
-  * ``"reference"`` — pure-torch semantic oracles (``core/spmv.py``), which
-    run on CPU and CUDA tensors alike;
+  * ``"reference"`` — pure-torch semantic oracles (``core/spmv.py``,
+    ``partition/hybrid.py`` for the hybrid container), which run on CPU and
+    CUDA tensors alike;
   * ``"kernel"``    — hand-written CUDA kernels and their wrappers
     (``kernels/ops.py``).  The kernel tier is always registered: a wrapper
     given a CUDA tensor launches its kernel or raises, and given a CPU
@@ -38,8 +39,9 @@ _FORMAT_TYPES: List[Tuple[str, type, Optional[Callable[[Any], bool]]]] = []
 
 # modules whose import populates the registry, per tier
 _PROVIDERS = {
-    "reference": ("repro_torch.core.spmv",),
-    "kernel": ("repro_torch.core.spmv", "repro_torch.kernels.ops"),
+    "reference": ("repro_torch.core.spmv", "repro_torch.partition.hybrid"),
+    "kernel": ("repro_torch.core.spmv", "repro_torch.partition.hybrid",
+               "repro_torch.kernels.ops"),
 }
 _loaded: set = set()
 

@@ -631,14 +631,16 @@ def _tensor_leaves(fmt):
 
 
 def memory_bytes(fmt) -> int:
-    """Storage footprint of a format instance (index + value arrays)."""
+    """Storage footprint of a format instance (index + value arrays; for a
+    hybrid container, ``perm`` and every block's)."""
     return sum(int(t.numel()) * t.element_size() for t in _tensor_leaves(fmt))
 
 
 def validate_container(obj):
-    """Run a container's :meth:`validate` when it has one.  Returns ``obj``
-    for chaining — the shared entry point ``plan.bind`` uses after each
-    transform."""
+    """Run a container's :meth:`validate` when it has one (every format
+    does; the hybrid container's checks its own structure and then each
+    block's).  Returns ``obj`` for chaining — the shared entry point
+    ``plan.bind`` uses after each transform."""
     check = getattr(obj, "validate", None)
     if callable(check):
         check()
@@ -662,11 +664,14 @@ def from_numpy(fmt_name: str, arrays: Dict[str, Any], meta: Dict[str, Any],
     """Build a container from numpy arrays + static metadata.
 
     ``fmt_name`` is a registry name (``csr``, ``ccs``, ``coo_row``,
-    ``coo_col``, ``ell_row``, ``ell_col``, ``sell``, ``bcsr``); ``arrays``
-    maps field name to array (for ``sell``: ``perm`` plus ``buckets``, a
-    list of ``{data, cols}``); ``meta`` holds ``shape``, ``nnz`` and, where
-    the class has them, ``order`` / ``block`` / ``row_offsets`` /
-    per-bucket ``buckets`` metadata."""
+    ``coo_col``, ``ell_row``, ``ell_col``, ``sell``, ``bcsr``, ``hybrid``);
+    ``arrays`` maps field name to array (for ``sell``: ``perm`` plus
+    ``buckets``, a list of ``{data, cols}``; for ``hybrid``: ``perm`` plus
+    ``blocks``, each block's own ``arrays``); ``meta`` holds ``shape``,
+    ``nnz`` and, where the class has them, ``order`` / ``block`` /
+    ``row_offsets`` / per-bucket ``buckets`` metadata (``hybrid``:
+    ``row_offsets``, ``formats``, ``identity_perm`` and each block's own
+    ``meta`` under ``blocks``)."""
     dev = resolve_device(device)
     shape = tuple(int(s) for s in meta["shape"])
     nnz = int(meta["nnz"])
@@ -705,6 +710,20 @@ def from_numpy(fmt_name: str, arrays: Dict[str, Any], meta: Dict[str, Any],
                            row_offsets=tuple(int(o)
                                              for o in meta["row_offsets"]),
                            shape=shape, nnz=nnz)
+    if fmt_name == "hybrid":
+        from ..partition.hybrid import HybridMatrix
+        blocks = tuple(
+            from_numpy(f, a, m, dev)
+            for f, a, m in zip(meta["formats"], arrays["blocks"],
+                               meta["blocks"]))
+        return HybridMatrix(perm=_tensor_of(arrays["perm"], dev),
+                            blocks=blocks,
+                            row_offsets=tuple(int(o)
+                                              for o in meta["row_offsets"]),
+                            formats=tuple(meta["formats"]), shape=shape,
+                            nnz=nnz,
+                            identity_perm=bool(meta.get("identity_perm",
+                                                        False)))
     raise KeyError(f"unknown format {fmt_name!r}")
 
 
@@ -747,6 +766,17 @@ def to_numpy(container) -> Tuple[str, Dict[str, Any], Dict[str, Any]]:
                 {"shape": container.shape, "nnz": container.nnz,
                  "row_offsets": container.row_offsets,
                  "buckets": [m for _, _, m in parts]})
+    from ..partition.hybrid import HybridMatrix
+    if isinstance(container, HybridMatrix):
+        parts = [to_numpy(b) for b in container.blocks]
+        return ("hybrid",
+                {"perm": _np(container.perm),
+                 "blocks": [a for _, a, _ in parts]},
+                {"shape": container.shape, "nnz": container.nnz,
+                 "row_offsets": container.row_offsets,
+                 "formats": container.formats,
+                 "identity_perm": container.identity_perm,
+                 "blocks": [m for _, _, m in parts]})
     raise TypeError(f"unknown sparse container: {type(container)}")
 
 

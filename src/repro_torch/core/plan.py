@@ -25,14 +25,16 @@ tuned on keeps the format decision but re-resolves launch geometry — the
 D_mat-keyed ``nearest_geometry`` lookup when a TuningDB is at hand, else the
 plan's own geometry stripped of its matrix-specific slab bound.
 
-This is the single-device leaf part.  Hybrid plans (``blocks``) are parsed
-and round-tripped but cannot be bound yet; sharded plans, the plan store and
-the static plan lint are not ported yet (see ROADMAP.md).
+This is the single-device part: leaf plans and hybrid (partitioned) plans,
+whose ``blocks`` each carry a leaf plan for one row block and bind to a
+``partition.HybridMatrix``.  Sharded plans, the plan store and the static
+plan lint are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import functools
 import json
+import time
 from dataclasses import asdict, dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -40,11 +42,11 @@ import numpy as np
 import torch
 
 from .. import obs as _obs
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, from_host, resolve_device
 from . import dispatch as _dispatch
 from .autotune import (MachineModel, TuningDB, decide_cost_model,
                        decide_generalized, decide_paper)
-from .formats import CSR, MatrixStats, validate_container
+from .formats import CSR, MatrixStats, memory_bytes, validate_container
 from .kernel_tune import TileGeometry, _structure_sig
 
 SCHEMA_VERSION = 1
@@ -322,6 +324,75 @@ class ExecutionPlan:
         with open(path) as f:
             return ExecutionPlan.from_json(f.read())
 
+    # -- materialization -----------------------------------------------------
+    def materialize(self, csr: CSR):
+        """Replay the recorded per-block decisions on ``csr`` and return
+        ``(HybridMatrix, HybridReport)`` — no decision machinery re-runs.
+        Leaf plans wrap into a single-block hybrid container so one code
+        path serves both shapes.  The container holds CPU tensors (host
+        recipes)."""
+        from ..partition.hybrid import (BlockDecision, HybridMatrix,
+                                        HybridReport, _on_host, slice_csr,
+                                        take_rows_csr)
+        if not self.blocks:
+            t0 = time.perf_counter()
+            obj = self.transform.apply(csr)
+            dt = time.perf_counter() - t0
+            hyb = HybridMatrix(
+                perm=from_host(np.arange(csr.n_rows, dtype=np.int32)),
+                blocks=(obj,), row_offsets=(0,), formats=(self.fmt,),
+                shape=csr.shape, nnz=csr.nnz, identity_perm=True)
+            report = HybridReport(
+                strategy="plan", n_blocks=1, t_partition=0.0,
+                t_transform=dt,
+                decisions=[BlockDecision(
+                    fmt=self.fmt, rows=(0, csr.n_rows), d_mat=self.d_mat,
+                    nnz=csr.nnz, bytes=memory_bytes(obj), t_transform=dt,
+                    plan=self)])
+            return hyb, report
+
+        if self.blocks[-1].rows[1] != csr.n_rows:
+            raise PlanError(
+                f"plan's blocks cover {self.blocks[-1].rows[1]} rows but "
+                f"the matrix has {csr.n_rows}; re-plan for this matrix")
+        sort_rows = bool(self.transform.params.get(
+            "sort_rows", self.transform.params.get("strategy") == "variance"))
+        host = _on_host(csr)
+        t0 = time.perf_counter()
+        if sort_rows:
+            lens = host.row_lengths().astype(np.int64)
+            perm = np.argsort(-lens, kind="stable").astype(np.int32)
+        else:
+            perm = np.arange(csr.n_rows, dtype=np.int32)
+        t_partition = time.perf_counter() - t0
+
+        blocks, fmts, offsets, decisions = [], [], [], []
+        t_transform = 0.0
+        for bp in self.blocks:
+            s, e = bp.rows
+            sub = (take_rows_csr(host, perm[s:e]) if sort_rows
+                   else slice_csr(host, s, e))
+            t1 = time.perf_counter()
+            obj = bp.plan.transform.apply(sub)
+            dt = time.perf_counter() - t1
+            t_transform += dt
+            blocks.append(obj)
+            fmts.append(bp.plan.fmt)
+            offsets.append(s)
+            decisions.append(BlockDecision(
+                fmt=bp.plan.fmt, rows=bp.rows, d_mat=bp.plan.d_mat,
+                nnz=sub.nnz, bytes=memory_bytes(obj), t_transform=dt,
+                plan=bp.plan))
+        hyb = HybridMatrix(perm=from_host(perm), blocks=tuple(blocks),
+                           row_offsets=tuple(offsets), formats=tuple(fmts),
+                           shape=csr.shape, nnz=csr.nnz,
+                           identity_perm=not sort_rows)
+        report = HybridReport(
+            strategy=str(self.transform.params.get("strategy", "plan")),
+            n_blocks=len(blocks), t_partition=t_partition,
+            t_transform=t_transform, decisions=decisions)
+        return hyb, report
+
     # -- binding -------------------------------------------------------------
     def bind(self, csr: CSR, *, db: Optional[TuningDB] = None,
              tier: Optional[str] = None, device: DeviceLike = None,
@@ -349,10 +420,9 @@ class ExecutionPlan:
         matched = (self.fingerprint is not None
                    and self.fingerprint.matches(csr))
         if self.is_hybrid:
-            raise PlanError(
-                "binding a hybrid plan needs the partition subsystem, which "
-                "is not ported yet (ROADMAP.md item A10); its blocks are "
-                "kept so the plan still round-trips")
+            return self._bind_hybrid(csr, matched, tier=tier, db=db,
+                                     device=dev, jit=jit, impls=impls,
+                                     spmm_impls=spmm_impls)
 
         # reuse the object the tuner already materialized for this exact
         # source (identity-keyed: a same-structure matrix with different
@@ -410,6 +480,75 @@ class ExecutionPlan:
         return PlannedMatrix(self, csr, matrix, fns, used, tiers,
                              fingerprint_matched=matched, jit=jit)
 
+    def _bind_hybrid(self, csr: CSR, matched: bool, *,
+                     tier: str, db: Optional[TuningDB],
+                     device: torch.device, jit: bool,
+                     impls: Optional[Dict[str, Callable]] = None,
+                     spmm_impls: Optional[Dict[str, Callable]] = None
+                     ) -> "PlannedMatrix":
+        # the container the planner built for this exact source, consumed
+        # once (as a leaf plan's tuned matrix is)
+        cache = self.__dict__.pop("_mat_cache", None)
+        if cache is not None and cache[0] is csr and matched:
+            hyb, report = cache[1]
+        elif matched and self.blocks:
+            hyb, report = self.materialize(csr)
+        else:
+            # different structure: keep the recipe (strategy, sorting) but
+            # re-partition and re-decide per block on the new matrix
+            from ..partition.hybrid import build_hybrid
+            hyb, report = build_hybrid(
+                csr, db=db, batch=self.batch,
+                expected_iterations=self.expected_iterations,
+                **self.transform.params)
+        # the container's structure, then each block's
+        validate_container(hyb)
+        tunings = self.tunings_by_format()
+        if not matched:
+            tunings = {op: {f: g.without_slab_bound()
+                            for f, g in per.items()}
+                       for op, per in tunings.items()}
+        by_fmt = blocks_by_format(hyb)       # host blocks: bounds in numpy
+        overrides = {"spmv": impls or {}, "spmm": spmm_impls or {}}
+        fns: Dict[str, Callable] = {}
+        used: Dict[str, Any] = {}
+        tiers: Dict[str, str] = {}
+        for op in ("spmv", "spmm"):
+            per = dict(tunings.get(op, {}))
+            if "hybrid" in overrides[op]:
+                fn, found = overrides[op]["hybrid"], "override"
+            else:
+                fn, found = _dispatch.resolve_impl("hybrid", op, tier=tier)
+            if found == "kernel":
+                # each block format's kernel and geometry, resolved once
+                # here rather than in every product
+                from ..kernels.ops import hybrid_block_impls
+                from ..partition import hybrid as _hybrid
+                per = rederive_slab_bounds(per, by_fmt)
+                fn = functools.partial(
+                    getattr(_hybrid, f"{op}_hybrid"),
+                    impls=hybrid_block_impls(hyb.formats, op, per))
+            fns[op] = fn
+            used[op] = per or None
+            tiers[op] = found
+        hyb = hyb.to(device)
+        if "kernel" in tiers.values():
+            # each block's kernel inputs (ELL extents, the CSR SpMM
+            # kernel's choice): part of the transformation, never a product
+            from ..kernels.ops import prepare
+            prepare(hyb)
+        return PlannedMatrix(self, csr, hyb, fns, used, tiers,
+                             fingerprint_matched=matched, report=report,
+                             jit=jit)
+
+
+def blocks_by_format(hyb: Any) -> Dict[str, List[Any]]:
+    """Group a hybrid container's blocks by their format name."""
+    by_fmt: Dict[str, List[Any]] = {}
+    for blk, f in zip(hyb.blocks, hyb.formats):
+        by_fmt.setdefault(f, []).append(blk)
+    return by_fmt
+
 
 def _accepts_tuning(fn: Callable) -> bool:
     """Whether ``fn`` takes a ``tuning=`` kwarg (kernel-tier wrappers do;
@@ -434,6 +573,25 @@ def bind_tunings(impls: Dict[str, Callable],
             for f, fn in impls.items()}
 
 
+def rederive_slab_bounds(per_fmt: Dict[str, TileGeometry],
+                         blocks_by_fmt: Dict[str, List[Any]]
+                         ) -> Dict[str, TileGeometry]:
+    """Re-derive the CSR/CCS/BCSR slab-coverage bound of each per-format
+    geometry over *all* concrete blocks of that format, as the reference
+    records it (sibling blocks share one per-format geometry, so the bound
+    covers the worst of them).  The CUDA kernels read their bounds from the
+    pointer at run time; the field is kept so plan JSON and the bound
+    tunings match the reference's key for key."""
+    out = dict(per_fmt)
+    for f, g in per_fmt.items():
+        blks = blocks_by_fmt.get(f)
+        if blks and f in _SLAB_FORMATS:
+            from ..kernels.ops import exact_slab_bound
+            spb = max(exact_slab_bound(b, g) for b in blks)
+            out[f] = replace(g.without_slab_bound(), slabs_per_block=spb)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the bound operator
 # ---------------------------------------------------------------------------
@@ -447,10 +605,11 @@ class PlannedMatrix:
     def __init__(self, plan: ExecutionPlan, source: CSR, matrix: Any,
                  fns: Dict[str, Callable], tunings: Dict[str, Any],
                  tiers: Dict[str, str], fingerprint_matched: bool,
-                 jit: bool = True):
+                 report: Any = None, jit: bool = True):
         self.plan = plan
         self.source = source
         self.matrix = matrix
+        self.report = report              # HybridReport of a hybrid plan
         self.tunings = tunings            # geometry actually bound, per op
         self.tiers = tiers                # tier each op resolved to
         self.fingerprint_matched = fingerprint_matched
@@ -551,6 +710,9 @@ class Planner:
     ``device``: where the tuner times launches and :meth:`build` binds
     (``None`` = the CUDA device).
 
+    ``strategy``: the partition strategy of a hybrid plan the rule picks
+    by itself (``plan(partition=...)`` names one explicitly).
+
     ``lint``: the static plan lint is not ported; ``lint=True`` raises
     :class:`PlanError` (ROADMAP.md item A12), so the default here is
     ``False``.
@@ -566,7 +728,8 @@ class Planner:
                  tuner: Optional[Any] = None,
                  policy: Optional[Any] = None,
                  rule: str = "auto", tier: str = "auto",
-                 lint: bool = False, device: DeviceLike = None):
+                 strategy: str = "variance", lint: bool = False,
+                 device: DeviceLike = None):
         if lint:
             raise PlanError(
                 "the static plan lint is not ported yet (ROADMAP.md item "
@@ -577,6 +740,7 @@ class Planner:
         self.policy = policy
         self.rule = rule
         self.tier = tier
+        self.strategy = strategy
         self.lint = lint
         self.device = device
 
@@ -625,12 +789,14 @@ class Planner:
              expected_iterations: int = 100, rule: Optional[str] = None,
              formats: Optional[Sequence[str]] = None,
              tier: Optional[str] = None, fmt: Optional[str] = None,
-             partition: Optional[str] = None) -> ExecutionPlan:
+             partition: Optional[str] = None,
+             **partition_kw) -> ExecutionPlan:
         """Decide, tune, and package: one call from a CSR matrix to a
         portable :class:`ExecutionPlan`.
 
-        ``fmt`` forces the format (rule recorded as ``"fixed"``).
-        ``partition`` (hybrid plans) is not ported yet and raises."""
+        ``fmt`` forces the format (rule recorded as ``"fixed"``);
+        ``partition`` forces a hybrid plan under the named partition
+        strategy (extra ``partition_kw`` reach ``build_hybrid``)."""
         batch = max(int(batch), 1)
         k = max(int(expected_iterations), 1)
         stats = MatrixStats.of(csr)
@@ -641,6 +807,11 @@ class Planner:
         with tel.span("plan.plan", rule=rule_used, tier=tier_used,
                       batch=batch, expected_iterations=k, n=stats.n,
                       nnz=stats.nnz, d_mat=stats.d_mat) as plan_span:
+            if partition is not None:
+                plan_span.set(fmt="hybrid")
+                return self._plan_hybrid(csr, stats, rule_used, batch, k,
+                                         tier_used, strategy=partition,
+                                         formats=formats, **partition_kw)
             if fmt is not None:
                 chosen, rule_used = fmt, "fixed"
                 d_star, gain = float("nan"), 0.0
@@ -657,11 +828,17 @@ class Planner:
                 chosen = decision.fmt
                 d_star, gain = decision.d_star, decision.expected_gain
             plan_span.set(fmt=chosen)
-            if partition is not None or chosen == "hybrid":
+            if chosen == "hybrid":
+                return self._plan_hybrid(csr, stats, rule_used, batch, k,
+                                         tier_used, strategy=self.strategy,
+                                         formats=formats, **partition_kw)
+            if partition_kw:
+                # build_hybrid would raise on unknown kwargs; the leaf path
+                # must not silently swallow them instead
                 raise PlanError(
-                    "hybrid (partitioned) plans need the partition "
-                    "subsystem, which is not ported yet (ROADMAP.md item "
-                    "A10)")
+                    f"unexpected arguments {sorted(partition_kw)}: partition "
+                    f"options apply only to hybrid plans (pass "
+                    f"partition=...)")
 
             plan = ExecutionPlan(
                 fmt=chosen, rule=rule_used, tier=tier_used, batch=batch,
@@ -716,10 +893,84 @@ class Planner:
                     geometry[op] = g
         return geometry
 
+    def _plan_hybrid(self, csr: CSR, stats: MatrixStats, rule_used: str,
+                     batch: int, k: int, tier: str, strategy: str,
+                     sort_rows: Optional[bool] = None,
+                     formats: Optional[Sequence[str]] = None,
+                     **kw) -> ExecutionPlan:
+        from ..partition.hybrid import build_hybrid
+        if sort_rows is None:
+            sort_rows = strategy == "variance"
+        if formats is not None:
+            # the caller's restriction applies per block; a block can't
+            # nest another hybrid container
+            kw["formats"] = tuple(f for f in formats if f != "hybrid")
+        hyb, report = build_hybrid(
+            csr, strategy=strategy, db=self.db,
+            rule=("paper" if rule_used == "paper" else "auto"),
+            model=self.model, policy=self.policy, expected_iterations=k,
+            sort_rows=sort_rows, batch=batch, **kw)
+
+        sub_plans = [d.plan for d in report.decisions]
+        for sub in sub_plans:
+            sub.tier = tier
+            sub.machine = self._machine()
+        if tier == "kernel":
+            self._tune_blocks(hyb, sub_plans, batch)
+        blocks = [BlockPlan(rows=d.rows, plan=sub)
+                  for d, sub in zip(report.decisions, sub_plans)]
+        params = {"strategy": strategy, "sort_rows": sort_rows, **kw}
+        plan = ExecutionPlan(
+            fmt="hybrid", rule=rule_used, tier=tier, batch=batch,
+            expected_iterations=k,
+            transform=TransformRecipe("hybrid", params),
+            fingerprint=PlanFingerprint.from_stats(stats,
+                                                   _structure_sig(csr)),
+            machine=self._machine(),
+            d_mat=stats.d_mat, d_star=float("nan"), blocks=blocks)
+        # bind(csr) on the same source object reuses the container instead
+        # of partitioning and transforming a second time
+        plan._mat_cache = (csr, (hyb, report))
+        return plan
+
+    def _tune_blocks(self, hyb: Any, sub_plans: List[ExecutionPlan],
+                     batch: int) -> None:
+        """Per-block-format launch geometry, as the reference chooses it:
+        one search per (op, format) on the biggest block of that format
+        (moved to the planner's device, where the plan will serve), slab
+        bounds re-derived over all sibling blocks, winner attached to every
+        sub-plan of that format."""
+        by_fmt = blocks_by_format(hyb)
+        biggest = ({f: max(blks, key=lambda x: getattr(x, "nnz", 0)).to(
+                        resolve_device(self.device))
+                    for f, blks in by_fmt.items()}
+                   if self.tuner is not None else {})
+        for op in self._ops_for(batch):
+            b = 1 if op == "spmv" else batch
+            per_fmt: Dict[str, TileGeometry] = {}
+            for f, blks in by_fmt.items():
+                if self.tuner is not None:
+                    try:
+                        rec = self.tuner.tune(biggest[f], op=op, batch=b)
+                    except (KeyError, TypeError):
+                        continue
+                    per_fmt[f] = rec.geometry
+                elif self.db is not None:
+                    d_mat = next((s.d_mat for s in sub_plans
+                                  if s.fmt == f), 0.0)
+                    g = self.db.best_geometry(f, d_mat, op=op, batch=b)
+                    if g is not None:
+                        per_fmt[f] = g
+            per_fmt = rederive_slab_bounds(per_fmt, by_fmt)
+            for sub in sub_plans:
+                if sub.fmt in per_fmt:
+                    sub.geometry[op] = per_fmt[sub.fmt]
+
 
 __all__ = [
     "SCHEMA_VERSION", "DEFAULT_RECIPE_PARAMS",
     "PlanError", "PlanSchemaError", "PlanFingerprint", "TransformRecipe",
     "apply_transform", "BlockPlan", "ExecutionPlan", "PlannedMatrix",
-    "Planner", "bind_tunings", "leaf_plan",
+    "Planner", "leaf_plan", "blocks_by_format", "bind_tunings",
+    "rederive_slab_bounds",
 ]

@@ -407,8 +407,16 @@ def device_csr_to_ccs(m: CSR) -> CCS:
                nnz=m.nnz)
 
 
+@_traced("hybrid")
+def _host_csr_to_hybrid(m: CSR, **kw):
+    # lazy import: repro_torch.partition imports this module at load time
+    from ..partition import host_csr_to_hybrid
+    return host_csr_to_hybrid(m, **kw)
+
+
 TRANSFORMS_HOST = {
     "bcsr": lambda m: host_csr_to_bcsr(m),
+    "hybrid": _host_csr_to_hybrid,
     "ccs": host_csr_to_ccs,
     "coo_row": host_csr_to_coo_row,
     "coo_col": host_csr_to_coo_col,

@@ -27,12 +27,14 @@ its CUDA kernel for CUDA tensors (or raises) and runs the kernel's plain
 PyTorch version for CPU tensors.  CSR is served by its native kernels; the CSR-via-COO detour survives only as ``spmv_csr_via_coo`` so a
 benchmark can measure what the native kernel buys (``spmm_csr_via_coo`` is
 its SpMM twin).  SELL launches the ELL kernel once per bucket and accepts a
-*per-bucket* launch geometry.
+*per-bucket* launch geometry; a hybrid container launches each row block's
+own format's kernel and accepts a *per-format* launch geometry.
 """
 from __future__ import annotations
 
+import functools
 import weakref
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +43,8 @@ from ..core import dispatch as _dispatch
 from ..core.formats import BCSR, CCS, COO, CSR, ELL, BucketedELL, _np
 from ..core.kernel_tune import TileGeometry, _align8
 from ..device import result_dtype
+from ..partition import hybrid as _hybrid
+from ..partition.hybrid import HybridMatrix
 from . import bcsr_spmv as _bcsr
 from . import ccs_spmv as _ccs
 from . import coo_spmv as _coo
@@ -142,12 +146,13 @@ def _ell_arrays(m: ELL):
     return m.data, m.cols
 
 
-#: ``(extent, read)`` of each ELL panel :func:`prepare` was given, by
-#: container (an ``ELL`` is a frozen dataclass compared by identity): its
-#: rows' live extents, and whether the SpMV kernel reads up to them; an entry
+#: ``(extent, read, versions)`` of each ELL panel :func:`prepare` was given,
+#: by container (an ``ELL`` is a frozen dataclass compared by identity): its
+#: rows' live extents, whether the SpMV kernel reads up to them, and the
+#: version counters of ``data`` and ``cols`` they were computed at; an entry
 #: goes with its container
-_EXTENTS: "weakref.WeakKeyDictionary[ELL, Tuple[torch.Tensor, bool]]" = \
-    weakref.WeakKeyDictionary()
+_EXTENTS: ("weakref.WeakKeyDictionary[ELL, Tuple[torch.Tensor, bool, "
+           "Tuple[int, int]]]") = weakref.WeakKeyDictionary()
 
 
 #: ``(heavy, served)`` of each CSR matrix :func:`prepare` was given, by
@@ -156,21 +161,56 @@ _CSR_STRUCTURE: "weakref.WeakKeyDictionary[CSR, Tuple[bool, float]]" = \
     weakref.WeakKeyDictionary()
 
 
+def _version(t: torch.Tensor) -> int:
+    """``t``'s version counter; -1 for an inference tensor, which keeps
+    none (and which only inference mode may edit in place)."""
+    return -1 if t.is_inference() else t._version
+
+
+def _versions(m: ELL) -> Tuple[int, int]:
+    """The version counters of a panel's tensors: an in-place edit of
+    either (or of a view of it) raises its counter; reading them costs no
+    device work.  A panel made under ``torch.inference_mode`` has none, and
+    keeps the extents it was prepared with."""
+    return _version(m.data), _version(m.cols)
+
+
+def _attach_extent(m: ELL):
+    ext = _ell.ell_extent(*_ell_arrays(m))
+    got = (ext, _ell.extent_pays(ext, m.width), _versions(m))
+    _EXTENTS[m] = got
+    return got
+
+
+def _current(m: ELL):
+    """``m``'s entry in ``_EXTENTS``, recomputed first if the panel was
+    edited in place since it was made; ``None`` if never prepared."""
+    got = _EXTENTS.get(m)
+    if got is not None and got[2] != _versions(m):
+        got = _attach_extent(m)
+    return got
+
+
 def prepare(m):
     """Attach what the kernels read beside a bound container, once: the
     live extents (``kernels/ell_spmv.py:ell_extent``) of an ELL panel, or of
     each SELL bucket, computed on the container's device, and whether
     reading up to them pays (``ell_spmv.extent_pays``: the panel holds
     enough pads); for a CSR matrix, what picks its SpMM kernel
-    (``csr_spmv.csr_spmm_structure``).  Part of the transformation's cost:
-    ``ExecutionPlan.bind`` and ``offline_phase`` call it and time it with
-    the transform.  Other containers pass through."""
+    (``csr_spmv.csr_spmm_structure``); for a hybrid container, each of its
+    blocks.  Part of the transformation's cost: ``ExecutionPlan.bind`` and
+    ``offline_phase`` call it and time it with the transform.  A panel
+    edited in place since is recomputed here, or at its next launch.  Other
+    containers pass through."""
     if isinstance(m, BucketedELL):
         for b in m.buckets:
             prepare(b)
-    elif isinstance(m, ELL) and m not in _EXTENTS:
-        ext = _ell.ell_extent(*_ell_arrays(m))
-        _EXTENTS[m] = (ext, _ell.extent_pays(ext, m.width))
+    elif isinstance(m, HybridMatrix):
+        for b in m.blocks:
+            prepare(b)
+    elif isinstance(m, ELL):
+        if _current(m) is None:
+            _attach_extent(m)
     elif isinstance(m, CSR) and m not in _CSR_STRUCTURE:
         _CSR_STRUCTURE[m] = _csr.csr_spmm_structure(m.cols, m.indptr,
                                                     m.n_cols)
@@ -189,15 +229,18 @@ def csr_window_of(m: CSR, batch: int,
 
 
 def ell_extent_of(m: ELL) -> Optional[torch.Tensor]:
-    """The live extents :func:`prepare` attached to ``m``, else ``None``."""
-    got = _EXTENTS.get(m)
+    """The live extents :func:`prepare` attached to ``m`` (recomputed if
+    the panel was edited in place since), else ``None``."""
+    got = _current(m)
     return None if got is None else got[0]
 
 
 def _extent_read(m: ELL) -> Optional[torch.Tensor]:
     """The extents the SpMV kernel reads ``m`` up to (``None``: the whole
-    band — not prepared, or too few pads for the extent to pay)."""
-    got = _EXTENTS.get(m)
+    band — not prepared, or too few pads for the extent to pay).  A panel
+    whose tensors changed since its extents were taken gets them anew
+    before the kernel runs, so an edit in place is never read short."""
+    got = _current(m)
     return got[0] if got is not None and got[1] else None
 
 
@@ -405,6 +448,47 @@ def spmm_sell(m: BucketedELL, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# hybrid container: each row block through its own format's kernel
+# ---------------------------------------------------------------------------
+def hybrid_block_impls(formats: Sequence[str], op: str,
+                       tuning: Optional[Dict[str, TileGeometry]] = None
+                       ) -> Dict[str, Callable]:
+    """The kernel-tier impl of each block format in ``formats``, with that
+    format's tuned geometry bound.  A block never drops to the reference
+    tier here: a format without a kernel raises.  ``ExecutionPlan.bind``
+    resolves them once per bound hybrid matrix."""
+    table = _dispatch.impl_table(op, "kernel", exclude=("hybrid",))
+    missing = set(formats) - set(table)
+    if missing:
+        raise KeyError(f"no kernel-tier {op} for hybrid blocks of "
+                       f"{sorted(missing)}")
+    out = {}
+    for f in set(formats):
+        g = (tuning or {}).get(f)
+        out[f] = (functools.partial(table[f], tuning=g) if g is not None
+                  else table[f])
+    return out
+
+
+def spmv_hybrid(m: HybridMatrix, x: torch.Tensor,
+                tuning: Optional[Dict[str, TileGeometry]] = None
+                ) -> torch.Tensor:
+    """Partitioned hybrid matrix: each row block through its own format's
+    kernel (one or more launches a block), reassembled by plain torch ops
+    (``partition/hybrid.py``).  ``tuning`` maps format name ->
+    TileGeometry for the per-block kernels."""
+    return _hybrid.spmv_hybrid(m, x, impls=hybrid_block_impls(
+        m.formats, "spmv", tuning))
+
+
+def spmm_hybrid(m: HybridMatrix, x: torch.Tensor,
+                tuning: Optional[Dict[str, TileGeometry]] = None
+                ) -> torch.Tensor:
+    return _hybrid.spmm_hybrid(m, x, impls=hybrid_block_impls(
+        m.formats, "spmm", tuning))
+
+
+# ---------------------------------------------------------------------------
 # registry: the kernel tier of repro_torch.core.dispatch (always registered)
 # ---------------------------------------------------------------------------
 for _fmt, _spmv_fn, _spmm_fn in (
@@ -416,6 +500,7 @@ for _fmt, _spmv_fn, _spmm_fn in (
     ("ell_col", spmv_ell, spmm_ell),
     ("sell", spmv_sell, spmm_sell),
     ("bcsr", spmv_bcsr, spmm_bcsr),
+    ("hybrid", spmv_hybrid, spmm_hybrid),
 ):
     _dispatch.register_impl(_fmt, "spmv", _spmv_fn, tier="kernel")
     _dispatch.register_impl(_fmt, "spmm", _spmm_fn, tier="kernel")
@@ -436,5 +521,5 @@ __all__ = ["prepare", "ell_extent_of", "csr_window_of", "ell_spmv_raw", "ell_spm
            "ell_spmv_ad", "spmv_ell", "spmm_ell", "spmv_coo", "spmm_coo",
            "spmv_csr", "spmm_csr", "spmv_csr_via_coo", "spmm_csr_via_coo",
            "spmv_ccs", "spmm_ccs", "spmv_bcsr", "spmm_bcsr",
-           "exact_slab_bound", "spmv_sell", "spmm_sell", "KERNEL_SPMV_IMPLS",
-           "KERNEL_SPMM_IMPLS"]
+           "exact_slab_bound", "spmv_sell", "spmm_sell", "spmv_hybrid",
+           "spmm_hybrid", "KERNEL_SPMV_IMPLS", "KERNEL_SPMM_IMPLS"]

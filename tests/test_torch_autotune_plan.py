@@ -476,15 +476,24 @@ def test_bind_on_another_matrix_re_resolves_geometry_like_reference(matrix):
 
 
 def test_what_is_not_ported_yet_raises_plan_error(matrix):
-    _, _, tcsr, _ = matrix
+    """The static plan lint (A12) still raises; hybrid plans, refused
+    before the partition subsystem was ported, now plan and bind."""
+    dense, rcsr, tcsr, x = matrix
     with pytest.raises(TPL.PlanError, match="A12"):
         TPL.Planner(lint=True)
     planner = TPL.Planner(device="cpu")
     assert planner.lint is False
-    with pytest.raises(TPL.PlanError, match="A10"):
-        planner.plan(tcsr, partition="variance")
-    with pytest.raises(TPL.PlanError, match="A10"):
-        planner.plan(tcsr, fmt="hybrid")
+    forced = planner.plan(tcsr, fmt="hybrid")
+    assert forced.is_hybrid and forced.fmt == "hybrid"
+    assert forced.to_dict() == \
+        RPL.Planner().plan(rcsr, fmt="hybrid").to_dict()
+    for plan in (planner.plan(tcsr, partition="variance"), forced):
+        P = plan.bind(tcsr, device="cpu")
+        assert P.fmt == "hybrid" and P.report is not None
+        np.testing.assert_allclose(f32(P @ torch.from_numpy(x)), dense @ x,
+                                   **TOL)
+    with pytest.raises(TPL.PlanError, match="partition"):
+        planner.plan(tcsr, max_blocks=4)               # leaf + partition kw
     with pytest.raises(TPL.PlanError):
         planner.plan(tcsr, rule="paper")               # no db
     with pytest.raises(TPL.PlanError):
@@ -494,7 +503,9 @@ def test_what_is_not_ported_yet_raises_plan_error(matrix):
 
 
 def test_hybrid_plan_round_trips_but_does_not_bind(matrix):
-    _, rcsr, tcsr, _ = matrix
+    """A hybrid plan written by the reference round-trips key by key and
+    now binds in the port, to the reference's blocks and product."""
+    dense, rcsr, tcsr, x = matrix
     rplan = RPL.Planner().plan(rcsr, partition="variance")
     assert rplan.is_hybrid and rplan.blocks
     tplan = TPL.ExecutionPlan.from_json(rplan.to_json())
@@ -504,8 +515,16 @@ def test_hybrid_plan_round_trips_but_does_not_bind(matrix):
             for op, per in tplan.tunings_by_format().items()} == \
         {op: {f: g.to_dict() for f, g in per.items()}
          for op, per in rplan.tunings_by_format().items()}
-    with pytest.raises(TPL.PlanError, match="A10"):
-        tplan.bind(tcsr, device="cpu")
+    P_t = tplan.bind(tcsr, device="cpu")
+    P_r = rplan.bind(rcsr)
+    assert P_t.fingerprint_matched and P_r.fingerprint_matched
+    assert P_t.matrix.formats == P_r.matrix.formats
+    assert P_t.matrix.row_offsets == P_r.matrix.row_offsets
+    np.testing.assert_array_equal(P_t.matrix.perm.numpy(),
+                                  np.asarray(P_r.matrix.perm))
+    y_t = f32(P_t @ torch.from_numpy(x))
+    np.testing.assert_allclose(y_t, dense @ x, **TOL)
+    np.testing.assert_allclose(y_t, f32(P_r @ jnp.asarray(x)), **TOL)
 
 
 def test_leaf_plan_matches_reference(matrix):
@@ -559,3 +578,347 @@ def test_api_reexports_under_the_reference_names():
     assert repro_torch.obs is T_obs
     with pytest.raises(AttributeError):
         repro_torch.nope
+
+
+# ---------------------------------------------------------------------------
+# hybrid (partitioned) plans: minted, bound and served like the reference's
+# ---------------------------------------------------------------------------
+HYBRID_SWEEP = {"fixed_256": ("fixed", {"block_rows": 256}),
+                "fixed_1024": ("fixed", {"block_rows": 1024}),
+                "balanced_8": ("balanced_nnz", {"n_blocks": 8}),
+                "variance_16": ("variance", {"max_blocks": 16,
+                                             "min_rows": 64})}
+
+
+@pytest.fixture(scope="module")
+def skewed():
+    """A 600-row power-law matrix (heavy rows among short ones) in both
+    packages, and its dense form."""
+    rm = RS.synthesize_power_law(n=600, alpha=1.5, seed=4,
+                                 random_values=True)
+    tm = TS.synthesize_power_law(n=600, alpha=1.5, seed=4,
+                                 random_values=True, device="cpu")
+    return f32(rm.todense()), rm, tm
+
+
+def rel_err(got, dense, x):
+    want = dense.astype(np.float64) @ x.astype(np.float64)
+    scale = np.abs(dense.astype(np.float64)) @ np.abs(x.astype(np.float64))
+    return float((np.abs(f32(got) - want) / (scale + 1e-30)).max())
+
+
+@pytest.mark.parametrize("tier", ["reference", "kernel"])
+@pytest.mark.parametrize("sweep", sorted(HYBRID_SWEEP))
+def test_hybrid_plans_are_equal_and_bind_in_either_package(skewed, sweep,
+                                                           tier, tmp_path):
+    dense, rm, tm = skewed
+    strategy, kw = HYBRID_SWEEP[sweep]
+    rplan = RPL.Planner(tier=tier).plan(rm, partition=strategy, **kw)
+    tplan = TPL.Planner(tier=tier, device="cpu").plan(tm, partition=strategy,
+                                                      **kw)
+    assert tplan.to_dict() == rplan.to_dict()
+    assert tplan.is_hybrid and tplan.fmt == "hybrid"
+    assert tplan.transform.params == {"strategy": strategy,
+                                      "sort_rows": strategy == "variance",
+                                      **kw}
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=600).astype(np.float32)
+    X = rng.normal(size=(600, 3)).astype(np.float32)
+    y_jax = np.asarray(RPL.ExecutionPlan.from_json(tplan.to_json()).bind(
+        rm) @ jnp.asarray(x))
+    for plan in (tplan, TPL.ExecutionPlan.from_json(rplan.to_json())):
+        P = plan.bind(tm, device="cpu")
+        assert P.tiers == {"spmv": tier, "spmm": tier}
+        assert P.fingerprint_matched and P.matrix.n_blocks == \
+            len(plan.blocks)
+        assert P.report.n_blocks == len(plan.blocks)
+        y = P @ torch.from_numpy(x)
+        assert rel_err(y, dense, x) <= 1e-4
+        scale = np.abs(dense) @ np.abs(x)
+        assert float((np.abs(f32(y) - y_jax) / (scale + 1e-30)).max()) \
+            <= 1e-4
+        assert rel_err(P @ torch.from_numpy(X), dense, X) <= 1e-4
+    path = tmp_path / "hyb.json"
+    tplan.save(str(path))
+    assert RPL.ExecutionPlan.load(str(path)).to_dict() == rplan.to_dict()
+
+
+def test_materialize_matches_reference(skewed):
+    dense, rm, tm = skewed
+    for kw in ({"partition": "variance", "max_blocks": 6, "min_rows": 32},
+               {"partition": "fixed", "block_rows": 200},
+               {"fmt": "sell"}):
+        rplan = RPL.Planner().plan(rm, **kw)
+        tplan = TPL.Planner(device="cpu").plan(tm, **kw)
+        rh, rrep = rplan.materialize(rm)
+        th, trep = tplan.materialize(tm)
+        assert th.formats == rh.formats and th.row_offsets == rh.row_offsets
+        assert th.identity_perm == rh.identity_perm
+        np.testing.assert_array_equal(th.perm.numpy(), np.asarray(rh.perm))
+        assert (trep.strategy, trep.n_blocks) == (rrep.strategy,
+                                                  rrep.n_blocks)
+        assert [(d.fmt, d.rows, d.nnz, d.bytes) for d in trep.decisions] == \
+            [(d.fmt, d.rows, d.nnz, d.bytes) for d in rrep.decisions]
+        assert TF.memory_bytes(th) == RF.memory_bytes(rh)
+        np.testing.assert_allclose(th.todense(), dense, rtol=1e-6,
+                                   atol=1e-6)
+    with pytest.raises(TPL.PlanError, match="re-plan"):
+        TPL.Planner(device="cpu").plan(
+            tm, partition="fixed", block_rows=100).materialize(
+            TT.csr_from_dense(dense[:300], pad=8, device="cpu"))
+
+
+def test_hybrid_bind_on_another_matrix_re_partitions_like_reference(skewed):
+    dense, rm, tm = skewed
+    rplan = RPL.Planner(tier="kernel").plan(rm, partition="variance",
+                                            max_blocks=6, min_rows=32)
+    tplan = TPL.Planner(tier="kernel", device="cpu").plan(
+        tm, partition="variance", max_blocks=6, min_rows=32)
+    assert tplan.to_dict() == rplan.to_dict()
+    other = RS.synthesize_power_law(n=500, alpha=2.0, seed=9,
+                                    random_values=True)
+    other_t = TS.synthesize_power_law(n=500, alpha=2.0, seed=9,
+                                      random_values=True, device="cpu")
+    P_r, P_t = rplan.bind(other), tplan.bind(other_t, device="cpu")
+    assert not P_t.fingerprint_matched and not P_r.fingerprint_matched
+    assert P_t.matrix.formats == P_r.matrix.formats
+    assert P_t.matrix.row_offsets == P_r.matrix.row_offsets
+    assert P_t.report.n_blocks == P_r.report.n_blocks
+    for op in ("spmv", "spmm"):
+        g_t, g_r = P_t.tunings[op], P_r.tunings[op]
+        assert ({f: g.to_dict() for f, g in g_t.items()} if g_t else None) \
+            == ({f: g.to_dict() for f, g in g_r.items()} if g_r else None)
+    x = np.random.default_rng(1).normal(size=500).astype(np.float32)
+    assert rel_err(P_t @ torch.from_numpy(x), f32(other.todense()), x) \
+        <= 1e-4
+
+
+def test_hybrid_plan_formats_restriction_never_nests(skewed):
+    dense, rm, tm = skewed
+    kw = dict(partition="variance", formats=("sell", "hybrid"),
+              max_blocks=4, min_rows=16)
+    tplan = TPL.Planner(device="cpu").plan(tm, **kw)
+    assert tplan.to_dict() == RPL.Planner().plan(rm, **kw).to_dict()
+    assert set(tplan.block_formats()) <= {"sell", "csr"}
+    assert tplan.transform.params["formats"] == ("sell",)
+    x = np.random.default_rng(2).normal(size=600).astype(np.float32)
+    assert rel_err(tplan.bind(tm, device="cpu") @ torch.from_numpy(x),
+                   dense, x) <= 1e-4
+    # the strict-JSON artifact: NaN d_star is written as null
+    back = TPL.ExecutionPlan.from_json(tplan.to_json())
+    assert np.isnan(back.d_star)
+
+
+def test_hybrid_bind_honors_impls_override(skewed):
+    dense, _, tm = skewed
+    called = []
+
+    def my_hybrid(m, x):
+        called.append(type(m).__name__)
+        from repro_torch.partition import spmv_hybrid
+        return spmv_hybrid(m, x)
+
+    plan = TPL.Planner(device="cpu").plan(tm, partition="variance",
+                                          max_blocks=3, min_rows=16)
+    P = plan.bind(tm, impls={"hybrid": my_hybrid}, device="cpu")
+    assert P.tiers["spmv"] == "override"
+    x = np.random.default_rng(4).normal(size=600).astype(np.float32)
+    assert rel_err(P @ torch.from_numpy(x), dense, x) <= 1e-4
+    assert called == ["HybridMatrix"]
+
+
+def _geometry_dbs():
+    """The same TuningDB (geometries for CSR, ELL, SELL and COO) in both
+    packages."""
+    recs = []
+    for fmt, geo in (("csr", dict(block_rows=64, block_nnz=512,
+                                  slabs_per_block=7)),
+                     ("ell_row", dict(block_rows=16)),
+                     ("sell", dict(block_rows=32)),
+                     ("coo_row", dict(block_nnz=256))):
+        for op, batch in (("spmv", 1), ("spmm", 4)):
+            g = dict(geo, block_k=8) if op == "spmm" else geo
+            recs.append(RGeoRec(geometry=RTile(**g), fmt=fmt, op=op,
+                                batch=batch, n=300, nnz=3000, d_mat=0.5,
+                                t_best=1e-5, t_default=2e-5, sig=3))
+    rdb = RA.TuningDB(machine="geo", c=1.0, records=[], d_star={},
+                      geometries=recs)
+    return rdb, TA.TuningDB.from_json(rdb.to_json())
+
+
+def test_tune_blocks_geometry_matches_reference_from_the_same_db(skewed):
+    dense, rm, tm = skewed
+    rdb, tdb = _geometry_dbs()
+    kw = dict(partition="variance", batch=4, max_blocks=8, min_rows=32)
+    rplan = RPL.Planner(db=rdb, rule="cost_model").plan(rm, **kw)
+    tplan = TPL.Planner(db=tdb, rule="cost_model", device="cpu").plan(tm,
+                                                                      **kw)
+    assert tplan.tier == rplan.tier == "kernel"       # db with geometries
+    assert tplan.to_dict() == rplan.to_dict()
+    assert any(bp.plan.geometry for bp in tplan.blocks)
+    for op in ("spmv", "spmm"):
+        per_t = tplan.tunings_by_format().get(op, {})
+        per_r = rplan.tunings_by_format().get(op, {})
+        assert {f: g.to_dict() for f, g in per_t.items()} == \
+            {f: g.to_dict() for f, g in per_r.items()}
+    P_t, P_r = tplan.bind(tm, db=tdb, device="cpu"), rplan.bind(rm, db=rdb)
+    for op in ("spmv", "spmm"):
+        assert {f: g.to_dict() for f, g in P_t.tunings[op].items()} == \
+            {f: g.to_dict() for f, g in P_r.tunings[op].items()}
+    X = np.random.default_rng(5).normal(size=(600, 4)).astype(np.float32)
+    assert rel_err(P_t @ torch.from_numpy(X), dense, X) <= 1e-4
+
+
+class DeviceTuner(FakeTuner):
+    """The duck-typed tuner, also recording where each block lay."""
+
+    def __init__(self):
+        super().__init__(TKT.TileGeometry, TKT.GeometryRecord)
+        self.devices = []
+
+    def tune(self, obj, op="spmv", batch=1, impl=None, x=None, stats=None):
+        self.devices.append(obj.device.type)
+        stats = stats or TF.MatrixStats(n=obj.n_rows, nnz=obj.nnz, mu=1.0,
+                                        sigma=0.0, d_mat=0.0, max_row=1,
+                                        min_row=1)
+        return super().tune(obj, op=op, batch=batch, stats=stats)
+
+
+def test_tune_blocks_tunes_the_biggest_block_of_each_format(skewed):
+    dense, _, tm = skewed
+    tuner = DeviceTuner()
+    plan = TPL.Planner(tuner=tuner, device="cpu").plan(
+        tm, partition="variance", max_blocks=8, min_rows=32)
+    fmts = set(plan.block_formats())
+    assert len(tuner.calls) == len(fmts)              # one search a format
+    assert set(tuner.devices) == {"cpu"}
+    assert all(bp.plan.geometry["spmv"].block_rows == 16
+               for bp in plan.blocks)
+    assert all(bp.plan.tier == "kernel" for bp in plan.blocks)
+    x = np.random.default_rng(6).normal(size=600).astype(np.float32)
+    P = plan.bind(tm, device="cpu")
+    assert set(P.tunings["spmv"]) == fmts
+    assert rel_err(P @ torch.from_numpy(x), dense, x) <= 1e-4
+
+
+def test_the_generalized_rule_may_choose_hybrid_like_reference(skewed):
+    """A TuningDB in which hybrid wins makes the generalized rule mint a
+    hybrid plan under the Planner's strategy, in both packages."""
+    dense, rm, tm = skewed
+    fm = {f: dict(t_spmv=1e-5, t_trans=1e-4, sp=sp, tt=0.5, r=sp / 0.5,
+                  mem_ratio=1.0)
+          for f, sp in (("ell_row", 0.5), ("sell", 1.1), ("hybrid", 3.0))}
+    recs = [dict(name="m", n=600, nnz=5000, mu=8.0, sigma=8.0 * d,
+                 d_mat=d, t_crs=1e-5, batch=1, formats=fm)
+            for d in (0.3, 1.0, 3.0)]
+    text = json.dumps({"machine": "h", "c": 1.0, "records": recs,
+                       "d_star": {"ell_row": 0.0, "sell": 3.0,
+                                  "hybrid": 3.0}, "geometries": []})
+    rdb, tdb = RA.TuningDB.from_json(text), TA.TuningDB.from_json(text)
+    rplan = RPL.Planner(db=rdb, rule="generalized").plan(rm)
+    tplan = TPL.Planner(db=tdb, rule="generalized", device="cpu").plan(tm)
+    assert tplan.fmt == "hybrid" and tplan.blocks
+    assert tplan.transform.params["strategy"] == "variance"
+    assert tplan.to_dict() == rplan.to_dict()
+    x = np.random.default_rng(7).normal(size=600).astype(np.float32)
+    assert rel_err(tplan.bind(tm, db=tdb, device="cpu") @
+                   torch.from_numpy(x), dense, x) <= 1e-4
+    other = TPL.Planner(db=tdb, rule="generalized", strategy="fixed",
+                        device="cpu").plan(tm)
+    assert other.transform.params["strategy"] == "fixed"
+
+
+# ---------------------------------------------------------------------------
+# the deprecated AutoTunedSpMV shim
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def shim_db():
+    return TA.offline_phase(
+        TS.paper_suite(scale=0.004, include=["wang3", "memplus", "torso2"],
+                       device="cpu"),
+        formats=("ell_row", "sell", "coo_row"), iters=1, machine="test",
+        device="cpu")
+
+
+def test_autotuned_spmv_warns_and_matches_reference(matrix, shim_db):
+    dense, rcsr, tcsr, x = matrix
+    with pytest.warns(DeprecationWarning, match="Planner"):
+        op = T_api.AutoTunedSpMV(tcsr, db=shim_db, rule="paper",
+                                 device="cpu")
+    np.testing.assert_allclose(f32(op(torch.from_numpy(x))), dense @ x,
+                               **TOL)
+    assert isinstance(op.plan, TPL.ExecutionPlan)
+    assert op.decision.fmt == op.plan.fmt and op.decision.rule == "paper"
+    assert op.matrix is op.bound.matrix and op.csr is tcsr
+    assert dataclasses.asdict(op.stats) == dataclasses.asdict(
+        TF.MatrixStats.of(tcsr))
+    X = np.random.default_rng(8).normal(size=(120, 3)).astype(np.float32)
+    np.testing.assert_allclose(f32(op(torch.from_numpy(X))), dense @ X,
+                               **TOL)
+    rdb = RA.TuningDB.from_json(shim_db.to_json())
+    with pytest.warns(DeprecationWarning):
+        rop = RA.AutoTunedSpMV(rcsr, db=rdb, rule="paper")
+    assert op.plan.to_dict() == rop.plan.to_dict()
+
+
+def test_autotuned_spmv_picks_up_tuned_geometry(matrix):
+    import warnings
+    dense, _, tcsr, x = matrix
+    tuner = FakeTuner(TKT.TileGeometry, TKT.GeometryRecord)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        op = T_api.AutoTunedSpMV(tcsr, db=None, tuner=tuner, device="cpu")
+    assert op.plan.tier == "kernel" and op.plan.rule == "cost_model"
+    assert "spmv" in op.plan.geometry
+    np.testing.assert_allclose(f32(op(torch.from_numpy(x))), dense @ x,
+                               **TOL)
+
+
+@pytest.mark.parametrize("rule", ["paper", "generalized", "none"])
+def test_autotuned_spmv_end_to_end(shim_db, rule):
+    import warnings
+    rng = np.random.default_rng(12)
+    dense = random_dense(rng, 96, 96, 0.1)
+    m = TT.csr_from_dense(dense, pad=8, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        op = T_api.AutoTunedSpMV(m, db=None if rule == "none" else shim_db,
+                                 rule=rule, device="cpu")
+    assert op.plan.rule == {"none": "cost_model"}.get(rule, rule)
+    x = rng.normal(size=96).astype(np.float32)
+    np.testing.assert_allclose(f32(op(torch.from_numpy(x))), dense @ x,
+                               **TOL)
+
+
+def test_core_exports_like_reference():
+    from repro import core as R_core
+    from repro_torch import core as T_core
+    for name in ("AutoTunedSpMV", "KernelTuner", "candidate_geometries"):
+        assert hasattr(R_core, name) and hasattr(T_core, name), name
+    assert T_core.AutoTunedSpMV is TA.AutoTunedSpMV is T_api.AutoTunedSpMV
+    assert "AutoTunedSpMV" in T_api.__all__
+
+
+def test_bind_after_plan_reuses_the_planners_hybrid_container(skewed):
+    """``plan(csr)`` then ``bind(csr)`` on the same source object binds the
+    container the planner built (no second partition and transform),
+    once; another bind, or another source object, materializes anew."""
+    dense, _, tm = skewed
+    planner = TPL.Planner(device="cpu")
+    plan = planner.plan(tm, partition="variance", max_blocks=6, min_rows=32)
+    hyb, report = plan._mat_cache[1]
+    P1 = plan.bind(tm, device="cpu")
+    assert P1.report is report and "_mat_cache" not in plan.__dict__
+    assert P1.matrix.perm is hyb.perm
+    P2 = plan.bind(tm, device="cpu")
+    assert P2.report is not report
+    other = dataclasses.replace(tm, data=tm.data.clone())
+    plan3 = planner.plan(tm, partition="variance", max_blocks=6,
+                         min_rows=32)
+    _, report3 = plan3._mat_cache[1]
+    P3 = plan3.bind(other, device="cpu")
+    assert P3.report is not report3 and "_mat_cache" not in plan3.__dict__
+    x = np.random.default_rng(9).normal(size=600).astype(np.float32)
+    for P in (P1, P2, P3):
+        assert P.matrix.formats == P1.matrix.formats
+        assert rel_err(P @ torch.from_numpy(x), dense, x) <= 1e-4

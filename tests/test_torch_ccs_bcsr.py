@@ -223,9 +223,10 @@ def test_from_numpy_to_numpy_carry_both_formats(fmt):
 
 
 def test_transforms_host_and_formats_registered_like_reference():
-    assert {"ccs", "bcsr"} <= set(TT.TRANSFORMS_HOST)
-    assert TF.FORMAT_NAMES == tuple(f for f in RF.FORMAT_NAMES
-                                    if f != "hybrid")
+    assert {"ccs", "bcsr", "hybrid"} <= set(TT.TRANSFORMS_HOST)
+    assert list(TT.TRANSFORMS_HOST) == list(RT.TRANSFORMS_HOST)
+    assert TF.FORMAT_NAMES == RF.FORMAT_NAMES
+    assert "hybrid" in TF.FORMAT_NAMES
     assert TPL.DEFAULT_RECIPE_PARAMS == RPL.DEFAULT_RECIPE_PARAMS
     assert TPL._SLAB_FORMATS == RPL._SLAB_FORMATS
 

@@ -347,3 +347,110 @@ def test_offline_phase_times_the_extent_with_the_transform(monkeypatch):
     assert set(calls[3:]) == {"ELL"}
     for f in ("ell_row", "sell"):
         assert db.records[0].formats[f].t_trans >= 0.05
+
+
+# ---------------------------------------------------------------------------
+# a bound panel edited in place: its extents are taken anew before a read
+# ---------------------------------------------------------------------------
+def stale_case():
+    """A 64 x 64 matrix, the identity plus 8 entries in row 0 (so each
+    other row's band holds 7 pads and reading up to extents pays), and
+    ``x = 1..64``."""
+    dense = np.eye(64, dtype=np.float32)
+    dense[0, 8:16] = 2.0
+    return dense, np.arange(1, 65, dtype=np.float32)
+
+
+def edit_first_pad_of_row(matrix, fmt, row, col, value):
+    """Write ``(value, col)`` in place into ``row``'s first pad slot (slot
+    1: each row but row 0 stores one entry) of a bound ELL panel or SELL
+    bucket; returns the panel edited."""
+    if fmt == "sell":
+        perm = matrix.perm.numpy()
+        for off, b in zip(matrix.row_offsets, matrix.buckets):
+            hit = np.nonzero(perm[off:off + b.n_rows] == row)[0]
+            if hit.size:
+                p, r = b, int(hit[0])
+                break
+    else:
+        p, r = matrix, row
+    data, cols = (p.data.t(), p.cols.t()) if p.order == "col" else \
+        (p.data, p.cols)
+    assert float(data[r, 1]) == 0.0 and int(cols[r, 1]) == 0
+    data[r, 1] = value
+    cols[r, 1] = col
+    return p
+
+
+@pytest.mark.parametrize("fmt", ["ell_row", "ell_col", "sell"])
+def test_a_bound_panel_edited_in_place_is_not_read_up_to_stale_extents(fmt):
+    """The extents kept beside a bound panel are recomputed when its
+    tensors change in place (their version counters moved), before the
+    product reads them: row 5 gains 3.0 at column 7 in its first pad slot
+    and the product is the dense one, y[5] = 6 + 3 * 8 = 30."""
+    dense, x = stale_case()
+    csr = TT.csr_from_dense(dense, pad=8, device="cpu")
+    P = TPL.Planner(tier="kernel", rule="cost_model", device="cpu").plan(
+        csr, fmt=fmt).bind(csr, device="cpu")
+    p = edit_first_pad_of_row(P.matrix, fmt, row=5, col=7, value=3.0)
+    old = T_ops._EXTENTS[p][0]
+    assert T_ops._extent_read(p) is not None     # the extent is read
+    dense[5, 7] = 3.0
+    y = (P @ t_(x)).numpy()
+    assert y[5] == 30.0
+    np.testing.assert_allclose(y, dense @ x, rtol=1e-6, atol=1e-6)
+    new = T_ops.ell_extent_of(p)
+    assert new is not old
+    np.testing.assert_array_equal(new.numpy(), np_extent(*_arrays(p)))
+    # unedited since: the next product reads the same extents, none anew
+    P @ t_(x)
+    assert T_ops.ell_extent_of(p) is new
+    assert T_ops._EXTENTS[p][2] == (p.data._version, p.cols._version)
+
+
+def test_prepare_recomputes_an_edited_panel_and_keeps_an_unedited_one():
+    dense, _ = stale_case()
+    m = T_ops.prepare(TT.TRANSFORMS_HOST["ell_row"](TT.csr_from_dense(
+        dense, pad=8, device="cpu")))
+    first = T_ops.ell_extent_of(m)
+    assert T_ops.prepare(m) is m and T_ops.ell_extent_of(m) is first
+    assert int(first[5]) == 1
+    edit_first_pad_of_row(m, "ell_row", row=5, col=7, value=3.0)
+    T_ops.prepare(m)
+    again = T_ops._EXTENTS[m][0]
+    assert again is not first and int(again[5]) == 2
+
+
+def _panels(m):
+    """The ELL panels of a bound container: a panel, each SELL bucket, or
+    those of each block of a hybrid container."""
+    if isinstance(m, TT.ELL):
+        return [m]
+    if isinstance(m, TT.BucketedELL):
+        return list(m.buckets)
+    return [p for b in getattr(m, "blocks", ()) for p in _panels(b)]
+
+
+@pytest.mark.parametrize("fmt", ["ell_row", "ell_col", "sell", "hybrid"])
+def test_a_plan_bound_under_inference_mode_serves(fmt):
+    """Inference tensors keep no version counter: a plan made, bound and
+    served under ``torch.inference_mode()`` (the usual serving context)
+    keeps the extents it was prepared with and gives the dense product,
+    inside that mode and after it."""
+    dense, x = stale_case()
+    kw = ({"partition": "fixed", "block_rows": 32} if fmt == "hybrid"
+          else {"fmt": fmt})
+    with torch.inference_mode():
+        csr = TT.csr_from_dense(dense, pad=8, device="cpu")
+        P = TPL.Planner(tier="kernel", rule="cost_model", device="cpu").plan(
+            csr, **kw).bind(csr, device="cpu")
+        y = (P @ t_(x)).numpy()
+    np.testing.assert_allclose(y, dense @ x, rtol=1e-6, atol=1e-6)
+    panels = _panels(P.matrix)
+    assert panels and all(p.data.is_inference() for p in panels)
+    for p in panels:
+        assert T_ops._EXTENTS[p][2] == (-1, -1)
+        np.testing.assert_array_equal(T_ops.ell_extent_of(p).numpy(),
+                                      np_extent(*_arrays(p)))
+    np.testing.assert_allclose((P @ t_(x)).numpy(), dense @ x, rtol=1e-6,
+                               atol=1e-6)

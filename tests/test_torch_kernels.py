@@ -486,12 +486,14 @@ def test_ell_spmv_ad_grads_match_jax_grad(rng):
 def test_kernel_tier_is_always_registered_for_spmv_only():
     """Both ops are registered at the kernel tier for every format (the
     name predates the SpMM kernels; spmv and spmm now resolve alike)."""
+    registered = FORMATS + ("hybrid",)
     for op, table in (("spmv", T_ops.KERNEL_SPMV_IMPLS),
                       ("spmm", T_ops.KERNEL_SPMM_IMPLS)):
-        assert set(TD.registered_formats(op, tier="kernel")) == set(FORMATS)
-        assert set(table) == set(FORMATS)
+        assert set(TD.registered_formats(op, tier="kernel")) == \
+            set(registered)
+        assert set(table) == set(registered)
         assert table == TD.impl_table(op, "kernel")
-        for fmt in FORMATS:
+        for fmt in registered:
             assert TD.resolve_impl(fmt, op, tier="kernel")[1] == "kernel"
             assert TD.resolve_impl(fmt, op, tier="kernel",
                                    fallback=False)[1] == "kernel"
@@ -501,6 +503,7 @@ def test_kernel_tier_is_always_registered_for_spmv_only():
     assert TD.get_impl("ell_col", "spmv", tier="kernel") is T_ops.spmv_ell
     assert TD.get_impl("csr", "spmm", tier="kernel") is T_ops.spmm_csr
     assert TD.get_impl("sell", "spmm", tier="kernel") is T_ops.spmm_sell
+    assert TD.get_impl("hybrid", "spmv", tier="kernel") is T_ops.spmv_hybrid
     with pytest.raises(KeyError):
         TD.register_impl("csr", "nope", lambda m, x: x)
     with pytest.raises(ValueError):
