@@ -1535,6 +1535,290 @@ def phase_serve_hybrid(dbs, iters: int):
 
 
 # ---------------------------------------------------------------------------
+# phase: serve_service (SpMVService: the tuned registration, the queue, the
+# plan store, the guard ladder under armed faults)
+# ---------------------------------------------------------------------------
+#: matrices the service registers: the full-size one the other phases use
+#: and a Table-1 matrix
+SERVICE_MATRICES = (("xenon2", 4.0), ("memplus", 1.0))
+#: the service's micro-batch panel width (B of its SpMM)
+SERVICE_BATCH = 32
+#: full panels, then a ragged one, submitted a vector at a time
+SERVICE_SUBMITS = 3 * SERVICE_BATCH + 5
+#: timed repetitions of a flush of ``SERVICE_BATCH`` vectors (median)
+SERVICE_FLUSH_REPS = 5
+
+
+def service_block_launches(entry, op, products=1):
+    """Launches ``products`` products of a registered key make, per
+    kernel: each block's kernel (a SELL block once a bucket)."""
+    return {k: v * products
+            for k, v in expected_block_launches(entry.matrix, op).items()}
+
+
+def check_served(label, launched, want):
+    if launched != want:
+        raise AssertionError(f"serve_service {label}: launched {launched}, "
+                             f"the blocks call for {want}")
+
+
+def check_guards(svc, key, served_by=("tuned",)):
+    """Every product of ``key`` served by the rungs ``served_by`` only, no
+    fallback, no short circuit."""
+    for op, g in svc.stats()[key]["guard"].items():
+        used = {r for r, n in g["served_by"].items() if n}
+        if not used <= set(served_by) or g["fallback_calls"] \
+                or g["short_circuits"] or g["failures"]:
+            raise AssertionError(f"serve_service {key} {op}: guard {g}")
+
+
+def service_one(svc, csr, label, seed):
+    """``label`` registered on ``svc`` (tuned), then served three ways:
+    direct SpMV, direct SpMM at B = ``SERVICE_BATCH``, and
+    ``SERVICE_SUBMITS`` submits (full panels and a ragged one) with a
+    flush; each product's launches and its error against the float64
+    oracle checked, the flush timed."""
+    from repro_torch.core.autotune import time_device
+
+    t0 = time.perf_counter()
+    entry = svc.register(label, csr, batch=SERVICE_BATCH)
+    t_register = time.perf_counter() - t0
+    if entry.plan is None or entry.plan.tier != "kernel" \
+            or entry.plan.rule == "degraded" or entry.from_plan:
+        raise AssertionError(f"serve_service {label}: plan "
+                             f"{entry.plan and entry.plan.rule} "
+                             f"{entry.plan and entry.plan.tier}")
+    n = csr.n_cols
+    x = device_normal(n, seed)
+    X = device_normal((n, SERVICE_BATCH), seed + 1)
+    V = device_normal((n, SERVICE_SUBMITS), seed + 2)
+    errs = []
+    y, launched = counted(svc.spmv, label, x)
+    check_served(f"{label} spmv", launched, service_block_launches(entry,
+                                                                   "spmv"))
+    errs.append(check_product(f"{label} spmv", y, csr, x))
+    Y, launched = counted(svc.spmm, label, X)
+    check_served(f"{label} spmm", launched, service_block_launches(entry,
+                                                                   "spmm"))
+    errs.append(check_product(f"{label} spmm", Y, csr, X))
+    del y, Y
+
+    def submit_all():
+        futs = [svc.submit(label, V[:, i]) for i in range(SERVICE_SUBMITS)]
+        return futs, svc.flush(label)
+
+    (futs, tail), launched = counted(submit_all)
+    flushes = -(-SERVICE_SUBMITS // SERVICE_BATCH)
+    check_served(f"{label} submit", launched,
+                 service_block_launches(entry, "spmm", flushes))
+    if tail != SERVICE_SUBMITS % SERVICE_BATCH:
+        raise AssertionError(f"serve_service {label}: ragged flush {tail}")
+    got = torch.stack([f.result() for f in futs], dim=1)
+    errs.append(check_product(f"{label} submit", got, csr, V))
+    del got, futs
+
+    # one flush of SERVICE_BATCH vectors: wall ms (the last submit flushes
+    # and waits for the card), then the tuned dispatcher alone on the
+    # padded panel, its host and device time, and the finite probe
+    flush_ms = []
+    for _ in range(SERVICE_FLUSH_REPS):
+        for i in range(SERVICE_BATCH - 1):
+            svc.submit(label, V[:, i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.submit(label, V[:, SERVICE_BATCH - 1])
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+    panel = V[:, :SERVICE_BATCH].contiguous()
+    spmm = lambda v: entry.spmm_fn(entry.matrix, v)
+    t, t_host, t_dev = served_times(spmm, panel, HYBRID_ITERS)
+    Yp = spmm(panel)
+    torch.cuda.synchronize()
+    probe = []
+    for _ in range(SERVICE_FLUSH_REPS):
+        t0 = time.perf_counter()
+        bool(torch.isfinite(Yp).all().item())
+        probe.append((time.perf_counter() - t0) * 1e3)
+    del Yp
+    fl = statistics.median(flush_ms)
+    return entry, {
+        "matrix": label, "n": csr.n_rows, "nnz": csr.nnz,
+        "rule": entry.plan.rule, "blocks": entry.matrix.n_blocks,
+        "formats": entry.matrix.format_counts(),
+        "tuned": svc.stats()[label]["tuned"],
+        "t_register_s": t_register, "t_build_s": entry.t_build,
+        "t_csr_s": entry.t_csr, "t_hybrid_s": entry.t_hybrid,
+        "flush_ms": fl, "flush_ms_runs": flush_ms,
+        "vectors_per_s": SERVICE_BATCH / (fl / 1e3),
+        "spmm_t_ms": t * 1e3, "spmm_host_ms": t_host * 1e3,
+        "spmm_device_ms": None if t_dev is None else t_dev * 1e3,
+        "finite_probe_ms": statistics.median(probe),
+        "launches_per_flush": service_block_launches(entry, "spmm"),
+        "compiled": svc.stats()[label]["compiled"],
+        "max_rel_err": max(errs)}
+
+
+def service_faults(api, store, csr, label):
+    """Faults armed on purpose on a replayed registration of ``label``
+    (manual clock): three ``kernel.raise`` open the breaker, calls then
+    short-circuit to the reference rung, a probe past the cooldown closes
+    it, one ``kernel.nan`` is answered by the reference rung; every answer
+    meets the oracle, the ladder's counts are the armed counts, and the
+    tuned rung serves again once the faults are cleared."""
+    from repro_torch.obs import FakeClock
+    from repro_torch.serve import faults
+
+    clk = FakeClock()
+    svc = api.SpMVService(tuner=api.KernelTuner(timer=_no_tuning),
+                          max_batch=SERVICE_BATCH, plan_store=store,
+                          clock=clk, breaker_failures=3,
+                          breaker_cooldown_s=10.0)
+    entry = svc.register(label, csr, batch=SERVICE_BATCH)
+    if not entry.from_plan:
+        raise AssertionError(f"serve_service faults: {label} not replayed")
+    x = device_normal(csr.n_cols, 93)
+    oracle = oracle_f64(csr, x)
+    errs = []
+
+    def serve(n):
+        for _ in range(n):
+            errs.append(close_to(f"faults {label}", svc.spmv(label, x),
+                                 oracle))
+
+    faults.clear()
+    try:
+        faults.arm("kernel.raise", prob=1.0)
+        serve(3)
+        opened = svc.stats()[label]["guard"]["spmv"]["breaker"]["state"]
+        serve(2)                                 # short-circuited
+        raised = faults.counts()["kernel.raise"]
+        faults.disarm("kernel.raise")
+        clk.advance(10.0)
+        serve(1)                                 # the half-open probe
+        closed = svc.stats()[label]["guard"]["spmv"]["breaker"]["state"]
+        faults.arm("kernel.nan", prob=1.0)
+        serve(1)
+        nan = faults.counts()["kernel.nan"]
+    finally:
+        faults.clear()
+    g = svc.stats()[label]["guard"]["spmv"]
+    want = {"failures": {"tuned/exception": 3, "tuned/non_finite": 1},
+            "short_circuits": 2, "fallback_calls": 6,
+            "served_by": {"tuned": 1, "reference": 6, "csr": 0}}
+    got = {k: g[k] for k in want}
+    if (opened, closed) != ("open", "closed") or got != want or \
+            raised != {"checked": 3, "fired": 3} or \
+            nan != {"checked": 1, "fired": 1}:
+        raise AssertionError(f"serve_service faults: breaker {opened} -> "
+                             f"{closed}, guard {got}, fired {raised} {nan}")
+    _, launched = counted(svc.spmv, label, x)
+    tuned_after = svc.stats()[label]["guard"]["spmv"]["served_by"]["tuned"]
+    if tuned_after != 2 or not launched:
+        raise AssertionError(f"serve_service faults: tuned rung not back "
+                             f"({tuned_after}, launched {launched})")
+    return {"matrix": label, "breaker": [opened, closed], "guard": got,
+            "kernel_raise": raised, "kernel_nan": nan,
+            "max_rel_err": max(errs)}
+
+
+def _no_tuning(thunk, geometry):
+    raise AssertionError("serve_service: a replayed registration tuned")
+
+
+def phase_serve_service(dbs):
+    """The SpMV service (``repro_torch.serve.SpMVService``) on the card:
+    a tuner, the off-line TuningDB at B = ``SERVICE_BATCH``, a plan store
+    in a temporary directory.  Each of ``SERVICE_MATRICES`` is registered
+    (tuned) and served three ways, and xenon2@x4 once more on a service
+    without a TuningDB (cost-model blocks); every product goes through the
+    tuned rung's kernels, no fallback and no degraded registration.  Then
+    a second service on the store replays xenon2@x4 with no tuning,
+    eviction fails pending futures, and the fault sub-phase runs the
+    ladder under armed faults."""
+    import tempfile
+    from repro_torch import api, obs
+    from repro_torch.core import suite
+
+    specs = {s.name: s for s in suite.TABLE1}
+    tel = obs.Telemetry(enabled=True, sinks=[obs.InMemorySink()])
+    prev = obs.set_default(tel)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            store = api.PlanStore(root)
+            svc = api.SpMVService(tuner=api.KernelTuner(),
+                                  db=dbs[SERVICE_BATCH],
+                                  max_batch=SERVICE_BATCH, plan_store=store)
+            served, mats = [], {}
+            for i, m in enumerate(SERVICE_MATRICES):
+                label = matrix_label(*m)
+                mats[label] = suite.synthesize(specs[m[0]], scale=m[1])
+                entry, row = service_one(svc, mats[label], label, 90 - 4 * i)
+                served.append(row)
+                check_guards(svc, label)
+            big = matrix_label(*SERVICE_MATRICES[0])
+            svc.evict(big)
+            torch.cuda.empty_cache()
+            # the rule on the TuningDB keeps CSR blocks (D* = 0); the cost
+            # model's ELL and SELL blocks put K1 and K4 behind the service
+            cost = api.SpMVService(tuner=api.KernelTuner(),
+                                   max_batch=SERVICE_BATCH)
+            entry, row = service_one(cost, mats[big], big, 80)
+            served.append(row)
+            check_guards(cost, big)
+            cost.evict(big)
+            del entry, cost
+            torch.cuda.empty_cache()
+            counters = tel.snapshot()["counters"]
+            fallback = [k for k in counters if k.startswith(
+                "service.fallback")]
+            if fallback:
+                raise AssertionError(f"serve_service: fallbacks {fallback}")
+
+            # a second replica: the same store, no tuning at all
+            replica = api.SpMVService(tuner=api.KernelTuner(timer=_no_tuning),
+                                      db=dbs[SERVICE_BATCH],
+                                      max_batch=SERVICE_BATCH,
+                                      plan_store=store)
+            t0 = time.perf_counter()
+            entry = replica.register(big, mats[big], batch=SERVICE_BATCH)
+            t_replay = time.perf_counter() - t0
+            if not entry.from_plan or entry.plan.tier != "kernel":
+                raise AssertionError(f"serve_service: replica of {big} "
+                                     f"not replayed ({entry.from_plan})")
+            x = device_normal(mats[big].n_cols, 92)
+            y, launched = counted(replica.spmv, big, x)
+            check_served(f"{big} replayed", launched,
+                         service_block_launches(entry, "spmv"))
+            rel_replay = check_product(f"{big} replayed", y, mats[big], x)
+            check_guards(replica, big)
+            pending = [replica.submit(big, x) for _ in range(3)]
+            replica.evict(big)
+            evicted = 0
+            for f in pending:
+                if isinstance(f.exception(timeout=0), api.EvictedError):
+                    evicted += 1
+            if evicted != len(pending):
+                raise AssertionError(f"serve_service: {evicted} of "
+                                     f"{len(pending)} pending futures "
+                                     f"failed with EvictedError")
+            del entry, y, pending
+            torch.cuda.empty_cache()
+
+            small = matrix_label(*SERVICE_MATRICES[1])
+            fault = service_faults(api, store, mats[small], small)
+            plan_store = store.stats()
+    finally:
+        obs.set_default(prev)
+    out = {"batch": SERVICE_BATCH, "submits": SERVICE_SUBMITS,
+           "served": served,
+           "replayed": {"matrix": big, "t_register_s": t_replay,
+                        "max_rel_err": rel_replay,
+                        "evicted_futures": evicted},
+           "faults": fault, "plan_store": plan_store}
+    emit("serve_service", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase: decode_attention (K11 against its plain version)
 # ---------------------------------------------------------------------------
 def lm_prompt_lengths():
@@ -1990,6 +2274,10 @@ def main() -> int:
     kernels.reset_launch_counts()
     timed("serve_hybrid", phase_serve_hybrid, dbs, HYBRID_ITERS)
     hybrid_path = kernels.launch_counts()
+    # the SpMV service, counted on its own: the tuned rung's kernels
+    kernels.reset_launch_counts()
+    timed("serve_service", phase_serve_service, dbs)
+    service_path = kernels.launch_counts()
     del dbs, db, mats
     torch.cuda.empty_cache()
     # the LM server, counted on its own inside the phase
@@ -1998,7 +2286,8 @@ def main() -> int:
                 for k in SPARSE_KERNELS}
     launches["decode_attention_int8"] = lm_path["decode_attention_int8"]
     emit("launches", main_path=launches, spmv_path=spmv_path,
-         spmm_path=spmm_path, hybrid_path=hybrid_path, lm_path=lm_path,
+         spmm_path=spmm_path, hybrid_path=hybrid_path,
+         service_path=service_path, lm_path=lm_path,
          lm_decode_steps=lm["decode_steps"],
          k11_per_decode_step=lm["k11_launches_per_step"])
     idle = [k for k, v in launches.items() if v == 0]

@@ -2,7 +2,7 @@
 """K10 ``bcsr_spmm``'s tensor-core kernel and K11 ``decode_attention_int8``
 at other launch shapes than the wrappers choose, on one CUDA card.
 
-The launch shapes are host constants of ``kernels/_common.py``; the script
+The launch shapes are host constants of ``launch_shapes.py``; the script
 sets them in turn (no rebuild) and times each variant through the public
 wrapper, 20 times (device time of one call, ``core.autotune.time_device``),
 in two turns (the variants in order, then reversed), each call held against
@@ -327,6 +327,7 @@ def main() -> int:
     import chip_smoke as smoke
     from repro_torch.core import suite
     from repro_torch.core import transform as T
+    from repro_torch import launch_shapes as LS
     from repro_torch.kernels import _common as C
     from repro_torch.kernels import bcsr_spmv as K9
     from repro_torch.kernels import build
@@ -398,14 +399,14 @@ def main() -> int:
                             raise AssertionError(f"{vname}: rel {rel}")
                     return check
                 for vname, rows, warps, per_sm in order:
-                    old = set_consts(C, BCSR_MMA_ROWS=rows,
+                    old = set_consts(LS, BCSR_MMA_ROWS=rows,
                                      BCSR_MMA_WARPS=warps,
                                      BCSR_MMA_BLOCKS_PER_SM=per_sm)
 
                     def call():
                         return K9.bcsr_spmm(*a, X, bm.n_rows, mma=True)
                     record(key + vname, call, check_of(call, vname))
-                    set_consts(C, **old)
+                    set_consts(LS, **old)
                 # the bf16 x bf16 source variants (float32 runs the same
                 # code in each)
                 sources = list(k10_callers.items()) if dtype == \
@@ -450,7 +451,7 @@ def main() -> int:
             if turn:
                 order.reverse()
             for vname, consts in order:
-                old = set_consts(C, **consts)
+                old = set_consts(LS, **consts)
 
                 def call():
                     return K11.decode_attention_int8(*a, **kw)
@@ -463,7 +464,7 @@ def main() -> int:
                     case[1], case[3], case[4], case[2], case[5])[4]
                 record(f"decode_attention_int8/{case[0]}/{vname}/splits="
                        f"{splits}", call, check)
-                set_consts(C, **old)
+                set_consts(LS, **old)
             del a, want
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,

@@ -230,19 +230,20 @@ def times_of(fn):
 def launch_of(change, batch, m, x_size):
     """``(kt, lanes, per_lane, threads, rows, window, stage)`` of a
     variant's launch."""
+    from repro_torch import launch_shapes as LS
     from repro_torch.kernels import _common as C
 
     if change == "row-groups":
         kt, lanes, per_lane = C.rhs_tile(batch)
         groups = C.rows_per_block(lanes)
         return kt, lanes, per_lane, groups * lanes, groups, 0, 0
-    share = C.CSR_SPMM_BLOCKS_PER_SM
+    share = LS.CSR_SPMM_BLOCKS_PER_SM
     if change == "one_sm":
-        C.CSR_SPMM_BLOCKS_PER_SM = 1
+        LS.CSR_SPMM_BLOCKS_PER_SM = 1
     launch = C.csr_spmm_launch(batch, m.n_rows, m.n_cols, m.nnz_pad,
                                64 if change == "rows64" else None, None,
                                x_size, window=True)
-    C.CSR_SPMM_BLOCKS_PER_SM = share
+    LS.CSR_SPMM_BLOCKS_PER_SM = share
     return launch[:6] + ((0,) if change == "stage0" else launch[6:])
 
 

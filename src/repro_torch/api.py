@@ -35,6 +35,12 @@ organized around the portable decision artifact — the
     # per row block: a hybrid plan, each block served by its format's kernel
     P = api.Planner(tier="kernel").plan(csr, partition="variance").bind(csr)
 
+    # register once, query many: the guarded service, plans shared by a store
+    svc = api.SpMVService(tuner=api.KernelTuner(db), db=db, max_batch=32,
+                          plan_store=api.PlanStore("plans/"))
+    svc.register("A", csr)
+    y = svc.spmv("A", x); f = svc.submit("A", x); svc.flush(); y = f.result()
+
 Names match ``repro.api`` for everything the port holds so far.
 """
 from repro_torch.core.autotune import (AutoTunedSpMV, Decision,
@@ -52,11 +58,14 @@ from repro_torch.core.plan import (SCHEMA_VERSION, BlockPlan, ExecutionPlan,
                                    PlanError, PlanFingerprint,
                                    PlanSchemaError, PlannedMatrix, Planner,
                                    TransformRecipe, apply_transform)
+from repro_torch.core.plan_store import PlanStore, fingerprint_key
 from repro_torch.core.policy import MemoryPolicy
 from repro_torch.core.transform import (TRANSFORMS_HOST, csr_from_dense,
                                         csr_from_rows)
 from repro_torch.device import default_device
 from repro_torch.obs import FakeClock, InMemorySink, JsonlSink, Telemetry
+from repro_torch.serve import (AdmissionError, CircuitBreaker, EvictedError,
+                               GuardedImpl, GuardError, SpMVService, faults)
 from repro_torch import obs
 
 __all__ = [
@@ -70,6 +79,10 @@ __all__ = [
     # but kept out of __all__ as the reference keeps it)
     "KernelTuner", "TileGeometry", "GeometryRecord",
     "candidate_geometries", "nearest_geometry",
+    # serving + fault tolerance (docs/robustness.md)
+    "SpMVService", "GuardedImpl", "CircuitBreaker", "GuardError",
+    "AdmissionError", "EvictedError", "faults",
+    "PlanStore", "fingerprint_key",
     # formats + construction
     "CSR", "CCS", "COO", "ELL", "BCSR", "BucketedELL", "MatrixStats",
     "MatrixValidationError", "memory_bytes", "csr_from_dense",

@@ -20,5 +20,6 @@ from .kernel_tune import (GeometryRecord, KernelTuner, TileGeometry,
 from .plan import (BlockPlan, ExecutionPlan, PlanError, PlanFingerprint,
                    PlanSchemaError, PlannedMatrix, Planner, TransformRecipe,
                    apply_transform)
+from .plan_store import PlanStore, fingerprint_key
 from .suite import TABLE1, paper_suite, synthesize, verify_suite
 from .policy import MemoryPolicy

@@ -27,8 +27,11 @@ plan's own geometry stripped of its matrix-specific slab bound.
 
 This is the single-device part: leaf plans and hybrid (partitioned) plans,
 whose ``blocks`` each carry a leaf plan for one row block and bind to a
-``partition.HybridMatrix``.  Sharded plans, the plan store and the static
-plan lint are not ported yet (see ROADMAP.md).
+``partition.HybridMatrix``.  Every plan the :class:`Planner` mints passes
+the static plan lint (``repro_torch.analyze.planlint``) first, and
+:meth:`Planner.plan_or_load` shares plans through a
+:class:`~repro_torch.core.plan_store.PlanStore`.  Sharded plans are not
+ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -713,9 +716,10 @@ class Planner:
     ``strategy``: the partition strategy of a hybrid plan the rule picks
     by itself (``plan(partition=...)`` names one explicitly).
 
-    ``lint``: the static plan lint is not ported; ``lint=True`` raises
-    :class:`PlanError` (ROADMAP.md item A12), so the default here is
-    ``False``.
+    ``lint``: run the static plan lint (``repro_torch.analyze.planlint``)
+    on every plan minted; an error raises :class:`PlanError`.
+    ``lint_smem_budget`` is its RPL004 budget, in bytes of shared memory a
+    CUDA block (default: an H100's).
 
     >>> plan = Planner(db=db).plan(csr, expected_iterations=1000)
     >>> plan.save("plan.json")                 # portable artifact
@@ -728,12 +732,9 @@ class Planner:
                  tuner: Optional[Any] = None,
                  policy: Optional[Any] = None,
                  rule: str = "auto", tier: str = "auto",
-                 strategy: str = "variance", lint: bool = False,
+                 strategy: str = "variance", lint: bool = True,
+                 lint_smem_budget: Optional[int] = None,
                  device: DeviceLike = None):
-        if lint:
-            raise PlanError(
-                "the static plan lint is not ported yet (ROADMAP.md item "
-                "A12); construct the Planner with lint=False")
         self.db = db
         self.model = model
         self.tuner = tuner
@@ -742,7 +743,36 @@ class Planner:
         self.tier = tier
         self.strategy = strategy
         self.lint = lint
+        self.lint_smem_budget = lint_smem_budget
         self.device = device
+
+    def _self_check(self, plan):
+        """Run the static plan lint (``repro_torch.analyze.planlint``) on
+        every plan this planner mints — the artifact contract is enforced
+        at the mint, not only on replay.  Lint errors are a planner bug, so
+        they raise :class:`PlanError`; warnings only count/emit telemetry.
+        Disable with ``Planner(lint=False)``."""
+        if not self.lint:
+            return plan
+        from ..analyze.planlint import lint_plan as _lint_plan
+        findings = _lint_plan(plan.to_dict(),
+                              smem_budget=self.lint_smem_budget)
+        if findings:
+            errs = [f for f in findings if f.severity == "error"]
+            tel = _obs.get()
+            if tel.enabled:
+                for f in findings:
+                    tel.counter("plan.lint", rule=f.rule,
+                                severity=f.severity).inc()
+                tel.event("plan.lint", errors=len(errs),
+                          warnings=len(findings) - len(errs),
+                          first=findings[0].render())
+            if errs:
+                raise PlanError(
+                    "planner self-check failed — the minted plan does "
+                    "not satisfy the artifact contract:\n"
+                    + "\n".join(f.render() for f in errs))
+        return plan
 
     # -- decision ------------------------------------------------------------
     def _resolve_rule(self, rule: Optional[str]) -> str:
@@ -809,9 +839,10 @@ class Planner:
                       nnz=stats.nnz, d_mat=stats.d_mat) as plan_span:
             if partition is not None:
                 plan_span.set(fmt="hybrid")
-                return self._plan_hybrid(csr, stats, rule_used, batch, k,
-                                         tier_used, strategy=partition,
-                                         formats=formats, **partition_kw)
+                return self._self_check(
+                    self._plan_hybrid(csr, stats, rule_used, batch, k,
+                                      tier_used, strategy=partition,
+                                      formats=formats, **partition_kw))
             if fmt is not None:
                 chosen, rule_used = fmt, "fixed"
                 d_star, gain = float("nan"), 0.0
@@ -829,9 +860,10 @@ class Planner:
                 d_star, gain = decision.d_star, decision.expected_gain
             plan_span.set(fmt=chosen)
             if chosen == "hybrid":
-                return self._plan_hybrid(csr, stats, rule_used, batch, k,
-                                         tier_used, strategy=self.strategy,
-                                         formats=formats, **partition_kw)
+                return self._self_check(
+                    self._plan_hybrid(csr, stats, rule_used, batch, k,
+                                      tier_used, strategy=self.strategy,
+                                      formats=formats, **partition_kw))
             if partition_kw:
                 # build_hybrid would raise on unknown kwargs; the leaf path
                 # must not silently swallow them instead
@@ -851,12 +883,29 @@ class Planner:
                 d_mat=stats.d_mat, d_star=d_star, expected_gain=gain)
             if tier_used == "kernel":
                 plan.geometry = self._tune_leaf(csr, stats, plan)
-            return plan
+            return self._self_check(plan)
 
     def build(self, csr: CSR, **plan_kw) -> PlannedMatrix:
         """``plan(csr) .bind(csr)`` in one call."""
         return self.plan(csr, **plan_kw).bind(csr, db=self.db,
                                               device=self.device)
+
+    def plan_or_load(self, csr: CSR, store: Any, **plan_kw
+                     ) -> ExecutionPlan:
+        """Check a :class:`~repro_torch.core.plan_store.PlanStore` before
+        planning: a stored plan whose fingerprint matches ``csr`` (under
+        the same planning knobs) replays with zero tuner invocations; a
+        miss — or a corrupted/stale entry, which the store quarantines
+        rather than raises — plans fresh and writes the result back, so
+        the whole fleet tunes a structure once."""
+        fp = PlanFingerprint.of(csr)
+        key = store.key_for(fp, **plan_kw)
+        cached = store.get(key, fingerprint=fp)
+        if cached is not None:
+            return cached
+        plan = self.plan(csr, **plan_kw)
+        store.put(key, plan)
+        return plan
 
     def _machine(self) -> str:
         return self.db.machine if self.db is not None else "cost_model"

@@ -42,6 +42,11 @@ def _traced(fmt: str):
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(m, *a, **kw):
+            # deterministic fault point for chaos tests: a conversion that
+            # "fails" here exercises the service's degrade-to-CSR path
+            # (the CSR identity is not _traced, so fallbacks stay clean)
+            from ..serve import faults as _faults
+            _faults.maybe_raise("transform.raise")
             tel = _obs.get()
             if not tel.enabled:
                 return fn(m, *a, **kw)

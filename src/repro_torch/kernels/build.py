@@ -81,6 +81,10 @@ class KernelBuildError(RuntimeError):
     """``nvcc`` is missing or refused a kernel source."""
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry point returned a non-zero ``cudaError_t``."""
+
+
 def build_dir() -> Path:
     # <root>/src/repro_torch/kernels/build.py -> <root>/build/repro_torch
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -181,10 +185,10 @@ def launcher(name: str):
 def check_launch(name: str, code: int) -> None:
     """Raise when a C entry point returned a non-zero ``cudaError_t``."""
     if code != 0:
-        raise RuntimeError(
+        raise KernelLaunchError(
             f"{name} kernel launch failed: cudaError {code}")
 
 
-__all__ = ["KERNELS", "KernelBuildError", "build_all", "build_dir",
-           "check_launch", "find_nvcc", "launcher", "library_path", "load",
-           "source_hash"]
+__all__ = ["KERNELS", "KernelBuildError", "KernelLaunchError", "build_all",
+           "build_dir", "check_launch", "find_nvcc", "launcher",
+           "library_path", "load", "source_hash"]

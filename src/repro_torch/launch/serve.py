@@ -13,6 +13,8 @@ import argparse
 import time
 
 
+# the run ends with the tokens on the host, so its two clock reads bracket
+# the work on the card — repro: noqa[RPA004]
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)

@@ -476,13 +476,13 @@ def test_bind_on_another_matrix_re_resolves_geometry_like_reference(matrix):
 
 
 def test_what_is_not_ported_yet_raises_plan_error(matrix):
-    """The static plan lint (A12) still raises; hybrid plans, refused
-    before the partition subsystem was ported, now plan and bind."""
+    """The static plan lint (A12), refused before it was ported, is now on
+    by default, as in the reference; hybrid plans, refused before the
+    partition subsystem was ported, now plan and bind."""
     dense, rcsr, tcsr, x = matrix
-    with pytest.raises(TPL.PlanError, match="A12"):
-        TPL.Planner(lint=True)
+    assert TPL.Planner(lint=True).lint is True
     planner = TPL.Planner(device="cpu")
-    assert planner.lint is False
+    assert planner.lint is True
     forced = planner.plan(tcsr, fmt="hybrid")
     assert forced.is_hybrid and forced.fmt == "hybrid"
     assert forced.to_dict() == \

@@ -1092,9 +1092,10 @@ def test_cuda_csr_spmm_window_past_48k_and_its_misses(cuda, monkeypatch):
     shared memory, past the 48 KB a launch gets without asking) where its
     window may take all of an SM's; the banded matrix's windows serve every
     entry, the scattered one's few."""
+    from repro_torch import launch_shapes as LS
     from repro_torch.kernels import _common as C
     from repro_torch.kernels import csr_spmv as K2
-    monkeypatch.setattr(C, "CSR_SPMM_BLOCKS_PER_SM", 1)
+    monkeypatch.setattr(LS, "CSR_SPMM_BLOCKS_PER_SM", 1)
     for kind, served in (("banded", True), ("scattered", False)):
         data, cols, indptr = csr_window_case(kind, 86, "float32")
         _, _, _, _, rows, window, _ = C.csr_spmm_launch(
@@ -1533,3 +1534,127 @@ def test_cuda_bound_panel_edited_in_place_reads_fresh_extents(cuda, fmt):
     assert float(y[5]) == 30.0
     np.testing.assert_allclose(y.numpy(), dense @ np.arange(1, 65), rtol=0,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the SpMV service on the card: the tuned rung through the blocks' kernels
+# ---------------------------------------------------------------------------
+def service_oracle_error(csr, x, got):
+    """Worst |got - A x| over sum |a x| (float64 oracle), any rank."""
+    dense = torch.from_numpy(csr.to("cpu").todense()).double()
+    xd = x.double().cpu()
+    want = dense @ xd
+    scale = dense.abs() @ xd.abs()
+    return float(((got.double().cpu() - want).abs()
+                  / (scale + 1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", ["variance_16", "balanced_8"])
+def test_cuda_service_serves_every_product_through_tuned_kernels(cuda,
+                                                                 sweep,
+                                                                 tmp_path):
+    """``SpMVService(tuner=...)`` on the card: a kernel-tier plan, each
+    direct product and each flush launching exactly the kernels its blocks
+    call for, every answer from the tuned rung within 1e-4 of sum |a x|;
+    a second service on the same store replays the plan with no tuning."""
+    from repro_torch.core.kernel_tune import KernelTuner
+    from repro_torch.core.plan_store import PlanStore
+    from repro_torch.core.suite import synthesize_power_law
+    from repro_torch.serve import SpMVService
+    strategy, kw = HYBRID_SWEEP[sweep]
+    csr = synthesize_power_law(n=3000, alpha=1.4, seed=9,
+                               random_values=True, device="cpu")
+    svc = SpMVService(tuner=KernelTuner(max_candidates=3), max_batch=8,
+                      strategy=strategy, plan_store=PlanStore(str(tmp_path)))
+    entry = svc.register("m", csr, measure_baseline=False, **kw)
+    assert entry.plan.tier == "kernel" and entry.matrix.device.type == "cuda"
+    hyb = entry.matrix
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=3000).astype(np.float32))
+    X = torch.from_numpy(rng.normal(size=(3000, 8)).astype(np.float32))
+
+    def launches(fn):
+        before = TK.launch_counts()
+        out = fn()
+        after = TK.launch_counts()
+        return out, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    y, risen = launches(lambda: svc.spmv("m", x))
+    assert risen == expected_block_launches(hyb, "spmv")
+    assert service_oracle_error(csr, x, y) <= 1e-4
+    Y, risen = launches(lambda: svc.spmm("m", X))
+    assert risen == expected_block_launches(hyb, "spmm")
+    assert service_oracle_error(csr, X, Y) <= 1e-4
+    futs, risen = launches(lambda: [svc.submit("m", X[:, i % 8])
+                                    for i in range(2 * 8 + 3)]
+                           + [svc.flush("m")])
+    per_flush = expected_block_launches(hyb, "spmm")
+    assert risen == {k: 3 * v for k, v in per_flush.items()}
+    for i, f in enumerate(futs[:-1]):
+        assert service_oracle_error(csr, X[:, i % 8], f.result()) <= 1e-4
+    for op in ("spmv", "spmm"):
+        g = svc.stats()["m"]["guard"][op]
+        assert set(k for k, v in g["served_by"].items() if v) == {"tuned"}
+        assert g["fallback_calls"] == 0 and g["short_circuits"] == 0
+    assert svc.stats()["m"]["compiled"] == 2     # one SpMV, one SpMM shape
+
+    replay = SpMVService(tuner=KernelTuner(timer=lambda t, g: 1 / 0),
+                         max_batch=8, strategy=strategy,
+                         plan_store=PlanStore(str(tmp_path)))
+    e2 = replay.register("m", csr, measure_baseline=False, **kw)
+    assert e2.from_plan and e2.plan.tier == "kernel"
+    _, risen = launches(lambda: replay.spmv("m", x))
+    assert risen == expected_block_launches(e2.matrix, "spmv")
+
+
+@pytest.mark.cuda
+def test_cuda_service_armed_fault_ladder(cuda):
+    """Faults armed on purpose: three ``kernel.raise`` open the breaker,
+    calls then short-circuit to the reference rung on the card, a probe
+    past the cooldown closes it, ``kernel.nan`` is answered by the
+    reference rung; every answer meets the oracle, the ladder's counts are
+    the armed counts, and the tuned rung serves again once cleared."""
+    from repro_torch.core.kernel_tune import KernelTuner
+    from repro_torch.core.suite import synthesize_power_law
+    from repro_torch.obs import FakeClock
+    from repro_torch.serve import SpMVService, faults
+    csr = synthesize_power_law(n=2000, alpha=1.4, seed=11,
+                               random_values=True, device="cpu")
+    clk = FakeClock()
+    svc = SpMVService(tuner=KernelTuner(max_candidates=2), clock=clk,
+                      breaker_failures=3, breaker_cooldown_s=10.0)
+    svc.register("m", csr, measure_baseline=False)
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=2000).astype(np.float32))
+    faults.clear()
+    try:
+        faults.arm("kernel.raise", prob=1.0)
+        for _ in range(3):
+            assert service_oracle_error(csr, x, svc.spmv("m", x)) <= 1e-4
+        g = svc.stats()["m"]["guard"]["spmv"]
+        assert g["breaker"]["state"] == "open"
+        assert faults.counts()["kernel.raise"]["fired"] == 3
+        for _ in range(2):                       # short-circuited
+            assert service_oracle_error(csr, x, svc.spmv("m", x)) <= 1e-4
+        assert faults.counts()["kernel.raise"]["checked"] == 3
+        faults.disarm("kernel.raise")
+        clk.advance(10.0)                        # half-open probe
+        assert service_oracle_error(csr, x, svc.spmv("m", x)) <= 1e-4
+        g = svc.stats()["m"]["guard"]["spmv"]
+        assert g["breaker"]["state"] == "closed"
+        faults.arm("kernel.nan", prob=1.0)
+        assert service_oracle_error(csr, x, svc.spmv("m", x)) <= 1e-4
+        assert faults.counts()["kernel.nan"]["fired"] == 1
+    finally:
+        faults.clear()
+    g = svc.stats()["m"]["guard"]["spmv"]
+    assert g["failures"] == {"tuned/exception": 3, "tuned/non_finite": 1}
+    assert g["short_circuits"] == 2
+    assert g["served_by"] == {"tuned": 1, "reference": 6, "csr": 0}
+    assert g["fallback_calls"] == 6
+    before = TK.launch_counts()
+    assert service_oracle_error(csr, x, svc.spmv("m", x)) <= 1e-4
+    assert sum(TK.launch_counts().values()) > sum(before.values())
+    assert svc.stats()["m"]["guard"]["spmv"]["served_by"]["tuned"] == 2
