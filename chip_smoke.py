@@ -13,8 +13,11 @@ seed).  On the way it builds the eleven CUDA kernels from the sources in
 this checkout, holds each against its plain PyTorch version on the card,
 times it beside its bound, checks every served product against an
 independent float64 oracle, runs the launch-geometry tuner
-(``KernelTuner``) on the card, and holds one full-width decode step against
-the same step with the plain attention in the kernel's place.
+(``KernelTuner``) on the card, serves the register-once service
+(``SpMVService``), its streaming keys (deltas applied on the card,
+``apply_delta``) and the sharded tier (``plan_sharded``, shard by shard),
+and holds one full-width decode step against the same step with the plain
+attention in the kernel's place.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
@@ -173,7 +176,8 @@ HYBRID_MAX_ENQUEUE_S = 0.05
 #: ``partition.hybrid.BLOCK_FORMATS``) launches (SELL: once a bucket)
 SPMV_KERNEL_OF = {"csr": "csr_spmv", "coo_row": "coo_spmv",
                   "coo_col": "coo_spmv", "ell_row": "ell_spmv",
-                  "ell_col": "ell_spmv", "sell": "ell_spmv"}
+                  "ell_col": "ell_spmv", "sell": "ell_spmv",
+                  "ccs": "ccs_spmv", "bcsr": "bcsr_spmv"}
 #: the SpMM kernel each format's batched product launches
 SPMM_KERNEL_OF = {"csr": "csr_spmm", "coo_row": "coo_spmm",
                   "coo_col": "coo_spmm", "ell_row": "ell_spmm",
@@ -1819,6 +1823,493 @@ def phase_serve_service(dbs):
 
 
 # ---------------------------------------------------------------------------
+# phase: serve_stream (deltas on the service's streaming keys)
+# ---------------------------------------------------------------------------
+#: the matrix the streaming and sharded phases serve
+STREAM_MATRIX = ("xenon2", 4.0)
+#: mixed deltas a streaming key absorbs, a panel of submits after each
+STREAM_DELTAS = 8
+STREAM_DELTA_KW = {"n_appends": 256, "n_updates": 4096, "n_deletes": 256,
+                   "row_len": 24}
+#: the same mix at an eighth of the size: launches per apply beside it
+STREAM_SMALL_KW = {"n_appends": 32, "n_updates": 512, "n_deletes": 32,
+                   "row_len": 24}
+#: updates of stored entries in the value-only (in place) delta
+STREAM_VALUE_UPDATES = 4096
+#: queried epochs the captured trace replays through the off-line phase
+#: (each one timed host SELL transforms of the whole matrix, ~3 s)
+STREAM_REPLAY_EPOCHS = 1
+
+
+def clone_csr(csr):
+    """A CSR of its own on the card: a streaming key edits its matrix in
+    place, so each key gets a copy of the phase's matrix."""
+    from repro_torch.core.formats import CSR
+    return CSR(data=csr.data.clone(), cols=csr.cols.clone(),
+               indptr=csr.indptr.clone(), shape=csr.shape, nnz=csr.nnz)
+
+
+def value_delta(csr, n, seed):
+    """``n`` updates of stored entries (the first entry of ``n`` rows that
+    store one): a delta an apply absorbs in place."""
+    from repro_torch.stream import DeltaBatch
+    rng = np.random.default_rng(seed)
+    ip = csr.indptr.cpu().numpy().astype(np.int64)
+    rows = np.sort(rng.choice(np.nonzero(np.diff(ip))[0], size=n,
+                              replace=False))
+    cols = csr.cols[torch.from_numpy(ip[rows]).to(csr.cols.device)]
+    return DeltaBatch(n_cols=csr.n_cols, update_rows=rows,
+                      update_cols=cols.cpu().numpy().astype(np.int64),
+                      update_vals=rng.standard_normal(n).astype(np.float32))
+
+
+def counted_calls(fn):
+    """``fn()`` and the torch calls it made on the card's tensors (each
+    one kernel launch or copy, or more, or none for a view), counted by a
+    function mode: no profiler, whose tracing would stay attached to every
+    later launch of the run, and no dispatch mode, which takes seconds to
+    set up on its first use."""
+    from torch.overrides import TorchFunctionMode
+
+    class Count(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kwargs.values())):
+                Count.n += 1
+            return func(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def stream_key(api, svc, base, key, fmt, seed, capture=None):
+    """A streaming key (``fmt``, a kernel-tier leaf plan) on a copy of
+    ``base``: ``STREAM_DELTAS`` mixed deltas with a flush of
+    ``SERVICE_BATCH`` submits after each, then an append-only and a
+    value-only delta, the torch calls of one apply at an eighth of the size
+    and at the full size; every flush against the float64 oracle of the
+    current matrix.  Beside it, what a full re-transform costs: the
+    registration's host recipe alone, and its whole build."""
+    from repro_torch.stream import random_delta
+    csr = clone_csr(base)
+    plan = api.Planner(tier="kernel").plan(csr, fmt=fmt)
+    t0 = time.perf_counter()
+    entry = svc.register(key, csr, plan=plan, streaming=True,
+                         batch=SERVICE_BATCH, measure_baseline=False)
+    t_register = time.perf_counter() - t0
+    # the full re-transform a delta would otherwise pay: the host recipe
+    # alone, and the whole build (validate, transform, upload, prepare)
+    t_trans, t_bind = entry.report.t_transform, entry.t_build
+    if capture is not None:
+        capture.base(key, csr)
+    rng = np.random.default_rng(seed)
+    applies, errs, flushes = [], [], [0]
+
+    def serve():
+        entry = svc.entries[key]
+        V = device_normal((csr.n_cols, SERVICE_BATCH), seed + flushes[0])
+        futs, launched = counted(lambda: [svc.submit(key, V[:, j])
+                                          for j in range(SERVICE_BATCH)])
+        check_served(f"stream {key} flush", launched,
+                     service_block_launches(entry, "spmm"))
+        if capture is not None:
+            for _ in range(SERVICE_BATCH):
+                capture.query(key, batch=1)
+        got = torch.stack([f.result() for f in futs], dim=1)
+        errs.append(check_product(f"serve_stream {key}", got,
+                                  entry.source, V))
+        flushes[0] += 1
+
+    def apply(delta, what):
+        if capture is not None:
+            capture.delta(key, delta)
+        res = svc.apply_delta(key, delta)
+        applies.append({"delta": what, "mode": res.mode,
+                        "fallback": res.fallback_reason or None,
+                        "t_apply_s": res.t_apply_s,
+                        "rows_changed": int(res.changed_rows.shape[0]),
+                        "appended": int(res.appended_lens.shape[0]),
+                        "buckets_rebuilt": res.buckets_rebuilt})
+        return res
+
+    serve()
+    for _ in range(STREAM_DELTAS):
+        apply(random_delta(rng, svc.entries[key].source, **STREAM_DELTA_KW),
+              "mixed")
+        serve()
+    apply(random_delta(rng, svc.entries[key].source, n_appends=256,
+                       row_len=24), "appends")
+    apply(value_delta(svc.entries[key].source, STREAM_VALUE_UPDATES,
+                      seed + 1), "values")
+    serve()
+    ops = {}
+    for what, kw in (("small", STREAM_SMALL_KW), ("full", STREAM_DELTA_KW)):
+        delta = random_delta(rng, svc.entries[key].source, **kw)
+        _, n = counted_calls(lambda: apply(delta, what))
+        ops[what] = {"torch_calls": n,
+                     "rows_changed": applies[-1]["rows_changed"],
+                     "buckets_rebuilt": applies[-1]["buckets_rebuilt"]}
+    if ops["full"]["torch_calls"] > 2 * ops["small"]["torch_calls"]:
+        raise AssertionError(f"serve_stream {key}: the calls of an apply "
+                             f"grow with the rows changed: {ops}")
+    serve()
+    return {"key": key, "fmt": fmt, "t_trans_s": t_trans, "t_bind_s": t_bind,
+            "t_register_s": t_register, "applies": applies,
+            "calls_per_apply": ops, "errs": errs, "serve": serve,
+            "apply": apply, "rng": rng}
+
+
+def by_mode(applies):
+    """Median ``t_apply_s`` of each apply mode, with its count (the two
+    applies whose calls were counted left out)."""
+    modes = {}
+    for a in applies:
+        if a["delta"] not in ("small", "full"):
+            modes.setdefault(a["mode"], []).append(a["t_apply_s"])
+    return {m: {"n": len(t), "t_apply_s": statistics.median(t)}
+            for m, t in modes.items()}
+
+
+def phase_serve_stream(base):
+    """Streaming keys of the SpMV service on the card
+    (``register(streaming=True)``, ``apply_delta``): a CSR key and a SELL
+    key each absorb ``STREAM_DELTAS`` mixed deltas, an append-only and a
+    value-only one; every apply stays incremental and on the card, its
+    torch calls do not grow with the rows it changes, and every flush
+    between
+    deltas meets the oracle of the current matrix.  Then the SELL key under
+    ``delta.corrupt`` (a rebuild, products still right), a direct SpMV on
+    each key, an ``ell_row`` key (the rebuild fallback), a re-plan driven
+    by an explicit ``d_star``, and the SELL key's traffic, captured as a
+    trace, replayed through ``offline_phase`` (``formats=("sell",)``)."""
+    import tempfile
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.serve import faults
+    from repro_torch.stream import (ReplanPolicy, TraceCapture, random_delta,
+                                    replay_file)
+
+    svc = api.SpMVService(tuner=api.KernelTuner(), max_batch=SERVICE_BATCH)
+    keys, seconds, t_step = {}, {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - t_step[0]
+        t_step[0] = now
+    with tempfile.TemporaryDirectory() as root:
+        trace = os.path.join(root, "trace.jsonl")
+        cap = TraceCapture(trace)
+        for i, fmt in enumerate(("csr", "sell")):
+            keys[fmt] = stream_key(api, svc, base, f"stream_{fmt}", fmt,
+                                   700 + 100 * i,
+                                   capture=cap if fmt == "sell" else None)
+            for a in keys[fmt]["applies"]:
+                if a["fallback"]:
+                    raise AssertionError(f"serve_stream {fmt}: {a}")
+            lap(f"key_{fmt}")
+        sell = keys["sell"]
+        # a poisoned apply degrades to a rebuild; answers stay right
+        faults.clear()
+        try:
+            with faults.inject("delta.corrupt", prob=1.0):
+                res = sell["apply"](random_delta(
+                    sell["rng"], svc.entries["stream_sell"].source,
+                    **STREAM_DELTA_KW), "corrupt")
+        finally:
+            faults.clear()
+        if (res.mode, res.fallback_reason) != ("rebuild", "corrupt"):
+            raise AssertionError(f"serve_stream corrupt: {res.mode} "
+                                 f"{res.fallback_reason}")
+        sell["serve"]()
+        x = device_normal(base.n_cols, 790)
+        for k in keys.values():
+            entry = svc.entries[k["key"]]
+            y, launched = counted(svc.spmv, k["key"], x)
+            check_served(f"stream {k['key']} spmv", launched,
+                         service_block_launches(entry, "spmv"))
+            k["errs"].append(check_product(f"serve_stream {k['key']} spmv",
+                                           y, entry.source, x))
+            if sell is k:
+                cap.query(k["key"], batch=1)
+            check_guards(svc, k["key"])
+        cap.close()
+        out = {"matrix": matrix_label(*STREAM_MATRIX), "n": base.n_rows,
+               "nnz": base.nnz, "deltas": STREAM_DELTA_KW,
+               "submits_between": SERVICE_BATCH, "keys": []}
+        for k in keys.values():
+            st = svc.stats()[k["key"]]["streaming"]
+            out["keys"].append({
+                "key": k["key"], "fmt": k["fmt"], "t_trans_s": k["t_trans_s"],
+                "t_bind_s": k["t_bind_s"],
+                "t_register_s": k["t_register_s"],
+                "t_apply_by_mode": by_mode(k["applies"]),
+                "applies": k["applies"],
+                "calls_per_apply": k["calls_per_apply"],
+                "deltas": st["deltas"],
+                "n_rows_after": svc.entries[k["key"]].source.n_rows,
+                "max_rel_err": max(k["errs"])})
+            svc.evict(k["key"])
+        del keys, sell
+        torch.cuda.empty_cache()
+        lap("corrupt_and_spmv")
+
+        # ell_row is not incrementally updatable: a CSR apply and a rebuild
+        rng = np.random.default_rng(880)
+        csr = clone_csr(base)
+        svc.register("stream_ell", csr, streaming=True, batch=SERVICE_BATCH,
+                     plan=api.Planner(tier="kernel").plan(csr, fmt="ell_row"),
+                     measure_baseline=False)
+        res = svc.apply_delta("stream_ell", random_delta(
+            rng, csr, **STREAM_DELTA_KW))
+        entry = svc.entries["stream_ell"]
+        if (res.mode, res.fallback_reason) != ("rebuild", "nonleaf") \
+                or entry.plan.tier != "kernel":
+            raise AssertionError(f"serve_stream ell_row: {res.mode} "
+                                 f"{res.fallback_reason} {entry.plan.tier}")
+        y, launched = counted(svc.spmv, "stream_ell", x)
+        check_served("stream ell_row rebuilt", launched,
+                     service_block_launches(entry, "spmv"))
+        rel_ell = check_product("serve_stream ell_row", y, entry.source, x)
+        check_guards(svc, "stream_ell")
+        out["ell_row"] = {"mode": res.mode, "fallback": res.fallback_reason,
+                          "t_apply_s": res.t_apply_s,
+                          "blocks_after": entry.matrix.format_counts(),
+                          "max_rel_err": rel_ell}
+        svc.evict("stream_ell")
+        lap("ell_row")
+
+        # a re-plan: D* is 0 for every format on the card, so the policy
+        # is given one above the matrix's D_mat; the CSR key re-registers
+        csr = clone_csr(base)
+        d_mat = api.MatrixStats.of(csr).d_mat
+        policy = ReplanPolicy(d_star=2.0 * d_mat + 1.0, fmt="sell")
+        svc.register("stream_replan", csr, streaming=True,
+                     batch=SERVICE_BATCH, stream_policy=policy,
+                     plan=api.Planner(tier="kernel").plan(csr, fmt="csr"),
+                     measure_baseline=False)
+        t0 = time.perf_counter()
+        svc.apply_delta("stream_replan", random_delta(rng, csr,
+                                                      **STREAM_DELTA_KW))
+        t_replan = time.perf_counter() - t0
+        entry = svc.entries["stream_replan"]
+        st = svc.stats()["stream_replan"]["streaming"]
+        if st["replans"] != 1 or st["last_decision"] != "replan" \
+                or entry.plan.fmt != "hybrid":
+            raise AssertionError(f"serve_stream replan: {st} "
+                                 f"{entry.plan.fmt}")
+        y, launched = counted(svc.spmv, "stream_replan", x)
+        check_served("stream replanned", launched,
+                     service_block_launches(entry, "spmv"))
+        rel_replan = check_product("serve_stream replan", y, entry.source, x)
+        check_guards(svc, "stream_replan")
+        out["replan"] = {"d_mat": st["d_mat"], "d_star": policy.d_star,
+                         "decision": st["last_decision"],
+                         "t_apply_and_replan_s": t_replan,
+                         "blocks_after": entry.matrix.format_counts(),
+                         "max_rel_err": rel_replan}
+        svc.evict("stream_replan")
+        del entry, csr, y
+        torch.cuda.empty_cache()
+        lap("replan")
+
+        # the SELL key's traffic through the off-line phase
+        t0 = time.perf_counter()
+        db, rstats = replay_file(trace, base, formats=("sell",),
+                                 max_epochs=STREAM_REPLAY_EPOCHS, iters=5,
+                                 machine=torch.cuda.get_device_name(0),
+                                 spmv_impls=ops.KERNEL_SPMV_IMPLS)
+        if len(db.records) != STREAM_REPLAY_EPOCHS \
+                or rstats.dropped_epochs != rstats.n_epochs \
+                - STREAM_REPLAY_EPOCHS:
+            raise AssertionError(f"serve_stream replay: {rstats}")
+        out["replay"] = {
+            "seconds": time.perf_counter() - t0, "epochs": rstats.n_epochs,
+            "replayed": len(db.records), "deltas": rstats.n_deltas,
+            "queries": rstats.n_queries, "k_hat": rstats.k_hat,
+            "batch": rstats.batch, "d_star": db.d_star,
+            "records": offline_rows(db)}
+        lap("replay")
+    out["seconds"] = seconds
+    emit("serve_stream", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase: serve_sharded (the sharded tier on one card)
+# ---------------------------------------------------------------------------
+SHARDS = 4
+
+
+def sharded_launches(spm, op):
+    """Launches a product of a sharded matrix makes, per kernel: each
+    shard's kernel (a SELL shard once a bucket, a hybrid one per block)."""
+    want = {}
+    for pm in spm.planned:
+        if pm.plan.is_hybrid:
+            got = expected_block_launches(pm.matrix, op)
+        else:
+            k = (SPMV_KERNEL_OF if op == "spmv" else SPMM_KERNEL_OF)[pm.fmt]
+            got = {k: len(pm.matrix.buckets) if pm.fmt == "sell" else 1}
+        for k, v in got.items():
+            want[k] = want.get(k, 0) + v
+    return want
+
+
+def sharded_one(api, planner, csr, label, axis, inputs):
+    """``planner.plan_sharded(csr, n_shards=SHARDS, axis=axis)``: minted,
+    through its JSON, bound (``dispatch`` on one card); its SpMV and SpMM
+    (B = ``SERVICE_BATCH``) launch each shard's kernel, meet the oracle
+    and are timed; every shard's guard on the tuned rung."""
+    t0 = time.perf_counter()
+    plan = planner.plan_sharded(csr, n_shards=SHARDS, axis=axis,
+                                batch=SERVICE_BATCH)
+    t_plan = time.perf_counter() - t0
+    if api.ShardedPlan.from_json(plan.to_json()).to_dict() != plan.to_dict():
+        raise AssertionError(f"serve_sharded {label}: JSON round trip")
+    t0 = time.perf_counter()
+    spm = plan.bind(csr, db=planner.db)
+    torch.cuda.synchronize()
+    t_bind = time.perf_counter() - t0
+    if spm.mode != "dispatch" or not spm.fingerprint_matched:
+        raise AssertionError(f"serve_sharded {label}: {spm}")
+    row = {"axis": axis, "formats": list(plan.shard_formats()),
+           "boundaries": spm.boundaries.tolist(), "t_plan": t_plan,
+           "t_bind": t_bind}
+    for op, (v, oracle) in inputs.items():
+        fn = spm.spmv if op == "spmv" else spm.spmm
+        y, launched = counted(fn, v)
+        if launched != sharded_launches(spm, op):
+            raise AssertionError(f"serve_sharded {label} {axis} {op}: "
+                                 f"launched {launched}, the shards call for "
+                                 f"{sharded_launches(spm, op)}")
+        row[f"{op}_max_rel_err"] = close_to(f"sharded {label} {op}", y,
+                                            oracle)
+        row[f"{op}_launched"] = launched
+        del y
+        t, t_host, t_dev = served_times(fn, v, HYBRID_ITERS)
+        row.update({f"t_{op}": t, f"t_{op}_host": t_host,
+                    f"t_{op}_device": t_dev})
+    for i, shard in enumerate(spm.guard_report()):
+        for op, g in shard.items():
+            if g["served_by"]["csr"] or g["failures"]:
+                raise AssertionError(f"serve_sharded {label} shard {i} "
+                                     f"{op}: guard {g}")
+    del spm
+    return row, plan
+
+
+def phase_serve_sharded(base, dbs):
+    """The sharded tier on the card: ``plan_sharded(n_shards=SHARDS)`` on
+    the row and the column axis, on the cost model and on the B = 32
+    TuningDB, served at B = 1 and 32 beside the unsharded plan of the same
+    matrix; then the service: a sharded plan registered and served by a
+    flush of 32 submits, every rung and shard tuned, replayed from a plan
+    store by a replica that may not tune; and an explicit ``shard_map``
+    refused on one card."""
+    import tempfile
+    from repro_torch import api
+    from repro_torch.sharding import build_sharded
+
+    label = matrix_label(*STREAM_MATRIX)
+    x = device_normal(base.n_cols, 71)
+    X = device_normal((base.n_cols, SERVICE_BATCH), 72)
+    inputs = {"spmv": (x, oracle_f64(base, x)),
+              "spmm": (X, oracle_f64(base, X))}
+    rules = {"cost_model": api.Planner(tier="kernel"),
+             "tuningdb_b32": api.Planner(db=dbs[SERVICE_BATCH],
+                                         tier="kernel")}
+    out = {"matrix": label, "n": base.n_rows, "nnz": base.nnz,
+           "n_shards": SHARDS, "batch": SERVICE_BATCH, "plans": []}
+    plans = {}
+    for name, planner in rules.items():
+        P = planner.plan(base, batch=SERVICE_BATCH).bind(base,
+                                                         db=planner.db)
+        whole = {"rule": name, "axis": None, "formats": [P.plan.fmt]}
+        for op, (v, oracle) in inputs.items():
+            fn = P.spmv if op == "spmv" else P.spmm
+            whole[f"{op}_max_rel_err"] = close_to(f"unsharded {name}",
+                                                  fn(v), oracle)
+            t, t_host, t_dev = served_times(fn, v, HYBRID_ITERS)
+            whole.update({f"t_{op}": t, f"t_{op}_host": t_host,
+                          f"t_{op}_device": t_dev})
+        out["plans"].append(whole)
+        del P
+        for axis in ("row", "col"):
+            row, plans[(name, axis)] = sharded_one(api, planner, base, label,
+                                                   axis, inputs)
+            out["plans"].append({"rule": name, **row})
+        torch.cuda.empty_cache()
+
+    # the service: a sharded plan registered, served by submits
+    plan = plans[("cost_model", "row")]
+    svc = api.SpMVService(tuner=api.KernelTuner(), max_batch=SERVICE_BATCH)
+    t0 = time.perf_counter()
+    entry = svc.register(label, base, plan=plan)
+    t_register = time.perf_counter() - t0
+    if not entry.from_plan or entry.matrix.mode != "dispatch":
+        raise AssertionError(f"serve_sharded service: {entry.matrix}")
+    futs, launched = counted(lambda: [svc.submit(label, X[:, j])
+                                      for j in range(SERVICE_BATCH)])
+    check_served("sharded flush", launched,
+                 sharded_launches(entry.matrix, "spmm"))
+    rel_flush = close_to("sharded flush", torch.stack(
+        [f.result() for f in futs], dim=1), inputs["spmm"][1])
+    check_guards(svc, label)
+    for shard in entry.matrix.guard_report():
+        for g in shard.values():
+            if g["served_by"]["csr"] or g["failures"]:
+                raise AssertionError(f"serve_sharded service shard: {g}")
+    st = svc.stats()[label]
+    svc.evict(label)
+    del entry, futs
+    with tempfile.TemporaryDirectory() as root:
+        store = api.PlanStore(root)
+        key = store.key_for(base, n_shards=SHARDS)
+        store.put(key, plan)
+        replica = api.SpMVService(tuner=api.KernelTuner(timer=_no_tuning),
+                                  max_batch=SERVICE_BATCH)
+        loaded = store.get(key, fingerprint=base)
+        if not isinstance(loaded, api.ShardedPlan):
+            raise AssertionError(f"serve_sharded store: {loaded!r}")
+        t0 = time.perf_counter()
+        entry = replica.register(label, base, plan=loaded,
+                                 measure_baseline=False)
+        t_replay = time.perf_counter() - t0
+        if not entry.from_plan:
+            raise AssertionError("serve_sharded: replica not replayed")
+        y, launched = counted(replica.spmv, label, x)
+        check_served("sharded replayed", launched,
+                     sharded_launches(entry.matrix, "spmv"))
+        rel_replay = close_to("sharded replayed", y, inputs["spmv"][1])
+        check_guards(replica, label)
+        replica.evict(label)
+        store_stats = store.stats()
+    del entry, y
+    try:
+        build_sharded(base, plan=plan, mode="shard_map")
+    except api.PlanError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("serve_sharded: shard_map served on one card")
+    out["service"] = {"t_register_s": t_register,
+                      "flush_max_rel_err": rel_flush,
+                      "formats": st["formats"], "t_build_s": st["t_build_s"],
+                      "guard": {op: g["served_by"]
+                                for op, g in st["guard"].items()},
+                      "replayed_t_register_s": t_replay,
+                      "replayed_max_rel_err": rel_replay,
+                      "plan_store": store_stats}
+    out["shard_map"] = refused
+    emit("serve_sharded", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase: decode_attention (K11 against its plain version)
 # ---------------------------------------------------------------------------
 def lm_prompt_lengths():
@@ -2278,7 +2769,23 @@ def main() -> int:
     kernels.reset_launch_counts()
     timed("serve_service", phase_serve_service, dbs)
     service_path = kernels.launch_counts()
-    del dbs, db, mats
+    # streaming keys and the sharded tier, each counted on its own
+    stream_base = suite.synthesize(
+        {s.name: s for s in suite.TABLE1}[STREAM_MATRIX[0]],
+        scale=STREAM_MATRIX[1])
+    kernels.reset_launch_counts()
+    timed("serve_stream", phase_serve_stream, stream_base)
+    stream_path = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    timed("serve_sharded", phase_serve_sharded, stream_base, dbs)
+    sharded_path = kernels.launch_counts()
+    for path, name in ((stream_path, "serve_stream"),
+                       (sharded_path, "serve_sharded")):
+        idle = [k for k in ("csr_spmv", "csr_spmm", "ell_spmv", "ell_spmm")
+                if not path[k]]
+        if idle:
+            raise AssertionError(f"{name} never launched {idle}")
+    del dbs, db, mats, stream_base
     torch.cuda.empty_cache()
     # the LM server, counted on its own inside the phase
     lm, lm_path = timed("serve_lm", phase_serve_lm)
@@ -2287,7 +2794,8 @@ def main() -> int:
     launches["decode_attention_int8"] = lm_path["decode_attention_int8"]
     emit("launches", main_path=launches, spmv_path=spmv_path,
          spmm_path=spmm_path, hybrid_path=hybrid_path,
-         service_path=service_path, lm_path=lm_path,
+         service_path=service_path, stream_path=stream_path,
+         sharded_path=sharded_path, lm_path=lm_path,
          lm_decode_steps=lm["decode_steps"],
          k11_per_decode_step=lm["k11_launches_per_step"])
     idle = [k for k, v in launches.items() if v == 0]

@@ -22,6 +22,7 @@ __version__ = "0.1.0"
 # lazily re-exported from repro_torch.api (keeps the import free of torch)
 _API_EXPORTS = (
     "Planner", "ExecutionPlan", "PlannedMatrix", "BlockPlan",
+    "ShardedPlan", "ShardedPlannedMatrix", "build_sharded",
     "TransformRecipe", "PlanFingerprint", "PlanError", "PlanSchemaError",
     "TuningDB", "TileGeometry", "offline_phase", "MachineModel",
     "MatrixStats", "csr_from_dense", "csr_from_rows", "obs", "Telemetry",

@@ -28,9 +28,10 @@ Rules:
           a recipe with no impl is a WARN
   RPR004  every format with an impl is registered via ``register_format``
   RPR005  telemetry names emitted under ``src/repro_torch`` appear in the
-          ``docs/observability.md`` vocabulary (documented names the port
-          does not emit are WARNs: the streaming and sharded tiers are not
-          ported)
+          ``docs/observability.md`` vocabulary (a documented name the port
+          does not emit is a WARN; the port emits the streaming tier's
+          ``stream.*`` and the sharded tier's ``shard.*``/``sharded.*``
+          names as the reference does)
 """
 from __future__ import annotations
 

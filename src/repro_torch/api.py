@@ -35,11 +35,22 @@ organized around the portable decision artifact — the
     # per row block: a hybrid plan, each block served by its format's kernel
     P = api.Planner(tier="kernel").plan(csr, partition="variance").bind(csr)
 
+    # per shard: 4 row slabs, a plan each, served shard by shard
+    S = api.Planner(db=db).plan_sharded(csr, n_shards=4).bind(csr)
+
     # register once, query many: the guarded service, plans shared by a store
     svc = api.SpMVService(tuner=api.KernelTuner(db), db=db, max_batch=32,
                           plan_store=api.PlanStore("plans/"))
     svc.register("A", csr)
     y = svc.spmv("A", x); f = svc.submit("A", x); svc.flush(); y = f.result()
+
+    # a mutating matrix: deltas edit the served container on the card
+    # (repro_torch.stream is the streaming surface)
+    from repro_torch.stream import random_delta
+    svc.register("G", csr, plan=api.Planner().plan(csr, fmt="sell"),
+                 streaming=True)
+    svc.apply_delta("G", random_delta(np.random.default_rng(0), csr,
+                                      n_updates=64))
 
 Names match ``repro.api`` for everything the port holds so far.
 """
@@ -54,9 +65,10 @@ from repro_torch.core.kernel_tune import (GRID_FORMATS, GeometryRecord,
                                           KernelTuner, TileGeometry,
                                           candidate_geometries,
                                           nearest_geometry)
-from repro_torch.core.plan import (SCHEMA_VERSION, BlockPlan, ExecutionPlan,
-                                   PlanError, PlanFingerprint,
-                                   PlanSchemaError, PlannedMatrix, Planner,
+from repro_torch.core.plan import (SCHEMA_VERSION, SHARDED_SCHEMA_VERSION,
+                                   BlockPlan, ExecutionPlan, PlanError,
+                                   PlanFingerprint, PlanSchemaError,
+                                   PlannedMatrix, Planner, ShardedPlan,
                                    TransformRecipe, apply_transform)
 from repro_torch.core.plan_store import PlanStore, fingerprint_key
 from repro_torch.core.policy import MemoryPolicy
@@ -66,6 +78,8 @@ from repro_torch.device import default_device
 from repro_torch.obs import FakeClock, InMemorySink, JsonlSink, Telemetry
 from repro_torch.serve import (AdmissionError, CircuitBreaker, EvictedError,
                                GuardedImpl, GuardError, SpMVService, faults)
+from repro_torch.sharding import (ShardedPlannedMatrix, build_sharded,
+                                  shard_csr)
 from repro_torch import obs
 
 __all__ = [
@@ -73,6 +87,9 @@ __all__ = [
     "SCHEMA_VERSION", "ExecutionPlan", "PlannedMatrix", "Planner",
     "BlockPlan", "TransformRecipe", "PlanFingerprint", "PlanError",
     "PlanSchemaError", "apply_transform",
+    # sharding (docs/sharding.md; one device, or round robin over several)
+    "SHARDED_SCHEMA_VERSION", "ShardedPlan", "ShardedPlannedMatrix",
+    "build_sharded", "shard_csr",
     # offline phase + persistence
     "offline_phase", "TuningDB", "OfflineRecord", "MachineModel",
     # kernel launch-geometry tuning (GRID_FORMATS is importable here too,

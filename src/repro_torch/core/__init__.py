@@ -17,8 +17,9 @@ from .autotune import (AutoTunedSpMV, Decision, MachineModel, TuningDB,
                        offline_phase, time_fn)
 from .kernel_tune import (GeometryRecord, KernelTuner, TileGeometry,
                           candidate_geometries, nearest_geometry)
-from .plan import (BlockPlan, ExecutionPlan, PlanError, PlanFingerprint,
-                   PlanSchemaError, PlannedMatrix, Planner, TransformRecipe,
+from .plan import (SHARDED_SCHEMA_VERSION, BlockPlan, ExecutionPlan,
+                   PlanError, PlanFingerprint, PlanSchemaError,
+                   PlannedMatrix, Planner, ShardedPlan, TransformRecipe,
                    apply_transform)
 from .plan_store import PlanStore, fingerprint_key
 from .suite import TABLE1, paper_suite, synthesize, verify_suite

@@ -27,7 +27,7 @@ order over block rows).
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +55,16 @@ def _vals(x) -> np.ndarray:
         t = x.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(x)
+
+
+#: the index dtypes a container may hold
+_INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
+
+
+def _none_set(flags) -> bool:
+    """Whether none of ``flags`` (0-d bool tensors on one device) is set:
+    one read back, however many flags."""
+    return not flags or not bool(torch.stack(flags).any())
 
 
 class _TensorContainer:
@@ -120,8 +130,29 @@ class CSR(_TensorContainer):
     def validate(self) -> "CSR":
         """Check the CSR structural invariants; raises
         :class:`MatrixValidationError` on the first violation, returns
-        ``self`` for chaining.  One O(n + nnz) numpy pass on the host —
-        cheap at the bind boundary relative to the transform it gates."""
+        ``self`` for chaining.  One O(n + nnz) pass with torch reductions
+        on the tensors' own device and one read back of a few flags — a
+        matrix on the card is not copied to the host to be checked; a
+        failing one is described from a host copy."""
+        if not self._holds():
+            self._describe_violation()
+        return self
+
+    def _holds(self) -> bool:
+        ip, cols = self.indptr, self.cols
+        if ip.ndim != 1 or ip.shape[0] != self.n_rows + 1 \
+                or ip.dtype not in _INT_DTYPES \
+                or cols.dtype not in _INT_DTYPES \
+                or self.nnz > self.nnz_pad or cols.shape != self.data.shape:
+            return False
+        flags = [ip[0] != 0, (ip[1:] < ip[:-1]).any(), ip[-1] != self.nnz]
+        if self.nnz > 0:
+            live = cols[: self.nnz]
+            flags.append((live.min() < 0) | (live.max() >= self.n_cols))
+        return _none_set(flags)
+
+    def _describe_violation(self) -> None:
+        """Raise the first violated invariant, found on a host copy."""
         ip = _np(self.indptr)
         cols = _np(self.cols)
         data = _np(self.data)
@@ -162,7 +193,7 @@ class CSR(_TensorContainer):
                 raise MatrixValidationError(
                     f"column indices must lie in [0, {self.n_cols}); "
                     f"found range [{lo}, {hi}]")
-        return self
+        raise MatrixValidationError("CSR invariants do not hold")
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +388,34 @@ class ELL(_TensorContainer):
     def validate(self) -> "ELL":
         """Band-storage invariants.  Note the band ``width`` may exceed
         ``n_cols``: the transform quantum-pads it (multiples of 8), so
-        only the *index* range is bounded, not the width."""
+        only the *index* range is bounded, not the width.  Checked on the
+        tensors' own device (one read back); a failing panel is described
+        from a host copy."""
+        if not self._holds():
+            self._describe_violation()
+        return self
+
+    def _flags(self) -> Optional[list]:
+        """The device flags of the index range, or ``None`` when the
+        metadata already fails."""
+        data, cols = self.data, self.cols
+        if self.order not in ("row", "col") or data.ndim != 2 \
+                or data.shape != cols.shape or cols.dtype not in _INT_DTYPES:
+            return None
+        row_axis = data.shape[0] if self.order == "row" else data.shape[1]
+        if row_axis != self.n_rows \
+                or self.nnz > self.n_rows * max(self.width, 0):
+            return None
+        if not cols.numel() or self.n_cols <= 0:
+            return []
+        return [(cols.min() < 0) | (cols.max() >= self.n_cols)]
+
+    def _holds(self) -> bool:
+        flags = self._flags()
+        return flags is not None and _none_set(flags)
+
+    def _describe_violation(self) -> None:
+        """Raise the first violated invariant, found on a host copy."""
         data = _np(self.data)
         cols = _np(self.cols)
         if self.order not in ("row", "col"):
@@ -386,7 +444,7 @@ class ELL(_TensorContainer):
                 raise MatrixValidationError(
                     f"column indices must lie in [0, {self.n_cols}); "
                     f"found range [{lo}, {hi}]")
-        return self
+        raise MatrixValidationError("ELL invariants do not hold")
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +489,42 @@ class BucketedELL(_TensorContainer):
         """SELL invariants: ``perm`` is a permutation, buckets tile the
         permuted row space contiguously, widths are distinct and strictly
         decreasing (widest bucket first — the sort order the transform
-        emits), and the bucket nnz sums to the whole."""
+        emits), and the bucket nnz sums to the whole.  Checked on the
+        tensors' own device, one read back for the perm and every bucket;
+        a failing container is described from a host copy."""
+        if not self._holds():
+            self._describe_violation()
+        return self
+
+    def _holds(self) -> bool:
+        perm, n = self.perm, self.n_rows
+        if perm.ndim != 1 or perm.shape[0] != n \
+                or perm.dtype not in _INT_DTYPES or not self.buckets \
+                or len(self.row_offsets) != len(self.buckets):
+            return False
+        end = 0
+        for off, b in zip(self.row_offsets, self.buckets):
+            if off != end or b.shape[1] != self.n_cols:
+                return False
+            end = off + b.n_rows
+        widths = self.widths
+        if end != n or any(b_ >= a for a, b_ in zip(widths, widths[1:])) \
+                or sum(b.nnz for b in self.buckets) != self.nnz:
+            return False
+        flags = []
+        if n:
+            seen = torch.bincount(perm.long().clamp(0, n - 1), minlength=n)
+            flags.append((perm.min() < 0) | (perm.max() >= n)
+                          | (seen != 1).any())
+        for b in self.buckets:
+            got = b._flags()
+            if got is None:
+                return False
+            flags += got
+        return _none_set(flags)
+
+    def _describe_violation(self) -> None:
+        """Raise the first violated invariant, found on a host copy."""
         perm = _np(self.perm)
         if perm.ndim != 1 or perm.shape[0] != self.n_rows:
             raise MatrixValidationError(
@@ -478,7 +571,7 @@ class BucketedELL(_TensorContainer):
             raise MatrixValidationError(
                 f"bucket nnz sums to "
                 f"{sum(b.nnz for b in self.buckets)}, expected {self.nnz}")
-        return self
+        raise MatrixValidationError("SELL invariants do not hold")
 
 
 # ---------------------------------------------------------------------------

@@ -25,13 +25,15 @@ tuned on keeps the format decision but re-resolves launch geometry — the
 D_mat-keyed ``nearest_geometry`` lookup when a TuningDB is at hand, else the
 plan's own geometry stripped of its matrix-specific slab bound.
 
-This is the single-device part: leaf plans and hybrid (partitioned) plans,
-whose ``blocks`` each carry a leaf plan for one row block and bind to a
-``partition.HybridMatrix``.  Every plan the :class:`Planner` mints passes
-the static plan lint (``repro_torch.analyze.planlint``) first, and
-:meth:`Planner.plan_or_load` shares plans through a
-:class:`~repro_torch.core.plan_store.PlanStore`.  Sharded plans are not
-ported yet (see ROADMAP.md).
+Plans come as leaves, as hybrid (partitioned) plans, whose ``blocks`` each
+carry a leaf plan for one row block and bind to a ``partition.HybridMatrix``,
+and as a :class:`ShardedPlan` (``Planner.plan_sharded(csr, n_shards=N)``):
+the matrix cut into N row or column slabs with a plan each, one JSON
+artifact (``SHARDED_SCHEMA_VERSION = 1``, the JAX package's) that binds to
+a ``sharding.spmv.ShardedPlannedMatrix``.  Every plan the :class:`Planner`
+mints passes the static plan lint (``repro_torch.analyze.planlint``) first,
+and :meth:`Planner.plan_or_load` shares plans through a
+:class:`~repro_torch.core.plan_store.PlanStore`.
 """
 from __future__ import annotations
 
@@ -691,6 +693,176 @@ def leaf_plan(csr: CSR, stats: MatrixStats, fmt: str, rule: str,
 
 
 # ---------------------------------------------------------------------------
+# the sharded plan — per-device slabs, one ExecutionPlan per shard
+# ---------------------------------------------------------------------------
+SHARDED_SCHEMA_VERSION = 1
+
+
+def _shard_lens(csr: CSR, axis: str) -> np.ndarray:
+    """Work vector the partitioners cut: nnz per row (row sharding) or
+    nnz per column (column sharding, counted on the matrix's device; only
+    the counts cross to the host)."""
+    if axis == "row":
+        return csr.row_lengths().astype(np.int64)
+    if axis == "col":
+        cols = csr.cols[: csr.nnz].long()
+        return torch.bincount(cols, minlength=csr.n_cols).cpu().numpy() \
+            .astype(np.int64)
+    raise PlanError(f"unknown sharding axis {axis!r}; one of ('row', 'col')")
+
+
+def shard_boundaries(csr: CSR, n_shards: int, axis: str = "row",
+                     strategy: str = "balanced_nnz",
+                     **strategy_kw) -> np.ndarray:
+    """Exactly ``n_shards + 1`` slab boundaries along ``axis`` via the
+    partition strategies lifted to device-count granularity."""
+    from ..partition.strategies import partition_for_devices
+    return partition_for_devices(_shard_lens(csr, axis), n_shards,
+                                 strategy=strategy, **strategy_kw)
+
+
+def slice_shard(csr: CSR, s: int, e: int, axis: str = "row") -> CSR:
+    """The [s, e) slab of ``csr`` along the sharding axis: a row slab with
+    the full column space, or a column slab with the full row space (a
+    host CSR, as the hybrid tier's slices are)."""
+    from ..partition.hybrid import slice_csr, slice_csr_cols
+    return (slice_csr(csr, s, e) if axis == "row"
+            else slice_csr_cols(csr, s, e))
+
+
+@dataclass
+class ShardedPlan:
+    """The distributed decision artifact: one :class:`ExecutionPlan` per
+    device slab plus the partition recipe and mesh shape that produced
+    them — everything needed to replay a sharded SpMV/SpMM with zero
+    re-tuning.
+
+    ``shards[i].rows`` is the [start, end) slab of shard ``i`` along
+    ``axis`` ("row": row slab, full column space, outputs concatenate;
+    "col": column slab, full row space, partial outputs sum), and
+    ``shards[i].plan`` is the per-shard plan the :class:`Planner` minted
+    on that slab — each shard gets its own format + launch geometry.
+    Serialization mirrors :class:`ExecutionPlan` and is the JAX package's
+    (``SHARDED_SCHEMA_VERSION = 1``, ``mesh_axis`` kept): a plan written
+    by either package loads in the other; a future schema raises
+    :class:`PlanSchemaError`."""
+    shards: List[BlockPlan]
+    axis: str = "row"                   # "row" | "col"
+    strategy: str = "balanced_nnz"
+    params: Dict[str, Any] = field(default_factory=dict)
+    mesh_shape: Tuple[int, ...] = ()    # defaults to (n_shards,)
+    mesh_axis: str = "shards"
+    batch: int = 1
+    fingerprint: Optional[PlanFingerprint] = None  # whole-matrix identity
+    schema_version: int = SHARDED_SCHEMA_VERSION
+
+    def __post_init__(self):
+        if not self.shards:
+            raise PlanError("ShardedPlan needs at least one shard")
+        if self.axis not in ("row", "col"):
+            raise PlanError(f"unknown sharding axis {self.axis!r}")
+        if not self.mesh_shape:
+            self.mesh_shape = (len(self.shards),)
+
+    # -- views ---------------------------------------------------------------
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    def boundaries(self) -> np.ndarray:
+        b = [bp.rows[0] for bp in self.shards] + [self.shards[-1].rows[1]]
+        return np.asarray(b, dtype=np.int64)
+
+    def shard_formats(self) -> Tuple[str, ...]:
+        return tuple(bp.plan.fmt for bp in self.shards)
+
+    def matches(self, csr: CSR) -> bool:
+        return (self.fingerprint is not None
+                and self.fingerprint.matches(csr))
+
+    # -- persistence ---------------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "kind": "sharded_plan",
+            "schema_version": self.schema_version,
+            "axis": self.axis, "strategy": self.strategy,
+            "params": dict(self.params),
+            "mesh_shape": list(self.mesh_shape),
+            "mesh_axis": self.mesh_axis,
+            "batch": self.batch,
+            "shards": [bp.to_dict() for bp in self.shards],
+        }
+        if self.fingerprint is not None:
+            d["fingerprint"] = {k: (_finite_or_none(v)
+                                    if isinstance(v, float) else v)
+                                for k, v in asdict(self.fingerprint).items()}
+        return d
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "ShardedPlan":
+        if not isinstance(d, dict):
+            raise PlanError(f"ShardedPlan payload must be an object; "
+                            f"got {type(d).__name__}")
+        ver = d.get("schema_version")
+        if ver != SHARDED_SCHEMA_VERSION:
+            raise PlanSchemaError(
+                f"unsupported ShardedPlan schema_version={ver!r}; this "
+                f"build reads version {SHARDED_SCHEMA_VERSION}")
+        try:
+            fp = d.get("fingerprint")
+            if fp is not None:
+                fp = {k: (_nan_if_none(v) if k in ("mu", "sigma", "d_mat")
+                          else v) for k, v in fp.items()}
+            return ShardedPlan(
+                shards=[BlockPlan.from_dict(b) for b in d["shards"]],
+                axis=d["axis"], strategy=d["strategy"],
+                params=dict(d.get("params", {})),
+                mesh_shape=tuple(int(s) for s in d.get("mesh_shape", ())),
+                mesh_axis=d.get("mesh_axis", "shards"),
+                batch=int(d.get("batch", 1)),
+                fingerprint=PlanFingerprint(**fp) if fp else None,
+                schema_version=int(ver))
+        except PlanError:
+            raise
+        except (KeyError, TypeError, ValueError) as e:
+            raise PlanError(f"malformed ShardedPlan payload: {e!r}") from e
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=1, allow_nan=False)
+
+    @staticmethod
+    def from_json(s: str) -> "ShardedPlan":
+        try:
+            obj = json.loads(s)
+        except json.JSONDecodeError as e:
+            raise PlanError(f"ShardedPlan payload is not valid JSON: {e}") \
+                from e
+        return ShardedPlan.from_dict(obj)
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_json())
+
+    @staticmethod
+    def load(path: str) -> "ShardedPlan":
+        with open(path) as f:
+            return ShardedPlan.from_json(f.read())
+
+    # -- binding -------------------------------------------------------------
+    def bind(self, csr: CSR, **kw) -> Any:
+        """Apply the sharded plan to a concrete matrix and return a
+        :class:`~repro_torch.sharding.spmv.ShardedPlannedMatrix` serving
+        ``P @ x`` / ``P @ X`` shard by shard.  A fingerprint mismatch
+        keeps the recipe (axis, strategy, shard count, per-shard formats)
+        but re-partitions on the new matrix; see
+        :func:`repro_torch.sharding.spmv.build_sharded` (``mode``,
+        ``devices``, ``device``, ``mesh``)."""
+        from ..sharding.spmv import build_sharded
+        csr.validate()
+        return build_sharded(csr, plan=self, **kw)
+
+
+# ---------------------------------------------------------------------------
 # the planner
 # ---------------------------------------------------------------------------
 class Planner:
@@ -907,6 +1079,54 @@ class Planner:
         store.put(key, plan)
         return plan
 
+    def plan_sharded(self, csr: CSR, *, n_shards: int, axis: str = "row",
+                     strategy: str = "balanced_nnz", batch: int = 1,
+                     strategy_kw: Optional[Dict[str, Any]] = None,
+                     **plan_kw) -> ShardedPlan:
+        """Partition ``csr`` into ``n_shards`` slabs along ``axis`` and run
+        :meth:`plan` independently on each — every shard gets its own
+        format + launch geometry decision on *its* slab's statistics.  The
+        slabs are cut from one host copy of the matrix.
+
+        The result is a portable :class:`ShardedPlan`; bind it with
+        :meth:`ShardedPlan.bind` (or hand it to ``SpMVService.register``)
+        to serve it shard by shard."""
+        from ..partition.hybrid import _on_host
+        n_shards = int(n_shards)
+        strategy_kw = dict(strategy_kw or {})
+        tel = _obs.get()
+        with tel.span("plan.plan_sharded", n_shards=n_shards, axis=axis,
+                      strategy=strategy, nnz=csr.nnz) as sp:
+            b = shard_boundaries(csr, n_shards, axis=axis,
+                                 strategy=strategy, **strategy_kw)
+            host = _on_host(csr)
+            shards: List[BlockPlan] = []
+            for s, e in zip(b[:-1], b[1:]):
+                sub = slice_shard(host, int(s), int(e), axis=axis)
+                shards.append(BlockPlan(
+                    rows=(int(s), int(e)),
+                    plan=self.plan(sub, batch=batch, **plan_kw)))
+            if tel.enabled:
+                nnzs = np.array([bp.plan.fingerprint.nnz for bp in shards],
+                                dtype=np.float64)
+                imbalance = float(nnzs.max() / max(nnzs.mean(), 1.0))
+                tel.gauge("sharded.load_imbalance").set(imbalance)
+                sp.set(imbalance=imbalance)
+            stats = MatrixStats.of(csr)
+            return self._self_check(ShardedPlan(
+                shards=shards, axis=axis, strategy=strategy,
+                params=strategy_kw, mesh_shape=(n_shards,), batch=batch,
+                fingerprint=PlanFingerprint.from_stats(
+                    stats, _structure_sig(csr))))
+
+    def build_sharded(self, csr: CSR, **kw) -> Any:
+        """``plan_sharded(csr) .bind(csr)`` in one call, on the planner's
+        device."""
+        bind_kw = {k: kw.pop(k) for k in ("mode", "devices", "mesh")
+                   if k in kw}
+        bind_kw.setdefault("device", self.device)
+        return self.plan_sharded(csr, **kw).bind(csr, db=self.db, **bind_kw)
+
     def _machine(self) -> str:
         return self.db.machine if self.db is not None else "cost_model"
 
@@ -1021,5 +1241,6 @@ __all__ = [
     "PlanError", "PlanSchemaError", "PlanFingerprint", "TransformRecipe",
     "apply_transform", "BlockPlan", "ExecutionPlan", "PlannedMatrix",
     "Planner", "leaf_plan", "blocks_by_format", "bind_tunings",
-    "rederive_slab_bounds",
+    "rederive_slab_bounds", "SHARDED_SCHEMA_VERSION", "ShardedPlan",
+    "shard_boundaries", "slice_shard",
 ]

@@ -43,9 +43,9 @@ The ``store.corrupt`` fault point (:mod:`repro_torch.serve.faults`)
 scribbles over an entry right after :meth:`PlanStore.put` publishes it, so
 the checksum/quarantine path is exercised end-to-end in CI.
 
-Sharded plans (``kind == "sharded_plan"``) are not ported yet (ROADMAP.md
-item A15): such an entry, valid for the JAX package, reads here as a miss
-and stays on disk — it is neither served nor quarantined.
+A sharded plan (``kind == "sharded_plan"``) is stored, checked and
+served like any other: :meth:`PlanStore.get` returns a
+:class:`~repro_torch.core.plan.ShardedPlan` for it.
 """
 from __future__ import annotations
 
@@ -62,10 +62,6 @@ STORE_VERSION = 1
 
 #: quarantine subdirectory name
 BAD_DIR = ".bad"
-
-#: ``_verify``'s answer for a sharded plan (read as a miss, not quarantined)
-_SHARDED = object()
-
 
 def _canonical(payload: Dict[str, Any]) -> str:
     """The byte-stable JSON the checksum covers."""
@@ -255,15 +251,6 @@ class PlanStore:
             return None
 
         plan = self._verify(key, path, raw)
-        if plan is _SHARDED:
-            # a valid entry for the JAX package's sharded tier, which the
-            # port does not serve yet: a miss, left on disk
-            with self._lock:
-                self.misses += 1
-            if tel.enabled:
-                tel.counter("store.miss").inc()
-                tel.event("store.stale", key=key, kind="sharded_plan")
-            return None
         if plan is None:
             with self._lock:
                 self.misses += 1
@@ -291,7 +278,7 @@ class PlanStore:
 
     def _verify(self, key: str, path: str, raw: str) -> Optional[Any]:
         """Envelope → checksum → schema → lint; any failure quarantines."""
-        from .plan import ExecutionPlan, PlanError
+        from .plan import ExecutionPlan, PlanError, ShardedPlan
         try:
             env = json.loads(raw)
         except json.JSONDecodeError:
@@ -306,10 +293,11 @@ class PlanStore:
             return self._quarantine(key, path, "bad_payload")
         if _sha256(_canonical(payload)) != env["sha256"]:
             return self._quarantine(key, path, "checksum")
-        if payload.get("kind") == "sharded_plan":
-            return _SHARDED
         try:
-            plan = ExecutionPlan.from_dict(payload)
+            if payload.get("kind") == "sharded_plan":
+                plan = ShardedPlan.from_dict(payload)
+            else:
+                plan = ExecutionPlan.from_dict(payload)
         except PlanError:
             # PlanSchemaError included: written by a different plan
             # schema — stale, not servable by this build

@@ -128,6 +128,212 @@ def csr_from_rows(row_cols: Sequence[np.ndarray],
 
 
 # ---------------------------------------------------------------------------
+# incremental CSR edits (streaming substrate; see repro_torch.stream.delta)
+#
+# torch ops on the CSR's own device: a matrix on the card is edited there.
+# What crosses to the host is the size of the edit, never of the matrix —
+# the edited rows' starts and lengths, and where each probed entry lies.
+# ---------------------------------------------------------------------------
+def _dev_i64(a, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+
+def csr_row_bounds(m: CSR, rows: np.ndarray):
+    """``(starts, lengths)`` of ``rows`` as host int64 arrays: one gather on
+    ``m``'s device and one read back of two integers a row."""
+    rows = np.asarray(rows, dtype=np.int64)
+    if rows.shape[0] == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    r = _dev_i64(rows, m.indptr.device)
+    ip = m.indptr.long()
+    se = torch.stack([ip[r], ip[r + 1]]).cpu().numpy()
+    return se[0], se[1] - se[0]
+
+
+def csr_first_match(m: CSR, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """Position of the first stored entry ``(rows[i], cols[i])`` in ``m``'s
+    slots, ``-1`` where the row stores no such column (host int64).  One
+    flat probe over the queried rows' segments on ``m``'s device — cell
+    ``k`` of query ``q`` reads slot ``start[q] + k`` — reduced to the least
+    matching slot a query."""
+    rows = np.asarray(rows, dtype=np.int64)
+    nq = rows.shape[0]
+    pos = np.full(nq, -1, dtype=np.int64)
+    starts, lens = csr_row_bounds(m, rows)
+    total = int(lens.sum())
+    if total == 0:
+        return pos
+    dev = m.indptr.device
+    q = torch.repeat_interleave(torch.arange(nq, device=dev),
+                                _dev_i64(lens, dev), output_size=total)
+    offs = _dev_i64(np.cumsum(lens) - lens, dev)
+    flat = _dev_i64(starts, dev)[q] + (torch.arange(total, device=dev)
+                                       - offs[q])
+    hit = m.cols[flat].long() == _dev_i64(cols, dev)[q]
+    none = torch.iinfo(torch.int64).max
+    first = torch.full((nq,), none, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, q, torch.where(hit, flat, none), "amin")
+    first = first.cpu().numpy()
+    found = first != none
+    pos[found] = first[found]
+    return pos
+
+
+def csr_append_rows(m: CSR, row_cols: Sequence[np.ndarray],
+                    row_vals: Sequence[np.ndarray], *,
+                    in_place: bool = True, growth: float = 2.0,
+                    lens: Optional[np.ndarray] = None) -> CSR:
+    """Append whole rows at the tail in O(Δnnz).
+
+    When the existing ``nnz_pad`` slack can hold the new nonzeros (and
+    ``in_place`` is allowed) the data/cols tensors are written in place and
+    **shared** with the input; otherwise fresh ones are allocated on the
+    same device with ``growth``× headroom so repeated appends amortize.
+    Only the indptr is ever rebuilt (O(n) int copy on the device).
+
+    ``row_cols``/``row_vals`` are per-row host arrays — or, with ``lens``
+    given, single already-flattened arrays."""
+    flat = isinstance(row_cols, np.ndarray)
+    if lens is None:
+        if flat:
+            raise ValueError("flattened row_cols requires explicit lens")
+        k = len(row_cols)
+        lens = np.fromiter((len(c) for c in row_cols), count=k,
+                           dtype=np.int64)
+    else:
+        k = int(np.asarray(lens).shape[0])
+    if k == 0:
+        return m
+    n_rows, n_cols = m.shape
+    d = int(np.asarray(lens).sum())
+    new_nnz = m.nnz + d
+    ip = m.indptr
+    dev = ip.device
+    new_ip = torch.empty(n_rows + k + 1, dtype=ip.dtype, device=dev)
+    new_ip[: n_rows + 1] = ip
+    new_ip[n_rows + 1:] = _dev_i64(m.nnz + np.cumsum(lens), dev).to(ip.dtype)
+    if in_place and new_nnz <= m.nnz_pad:
+        out_d, out_c = m.data, m.cols
+    else:
+        new_pad = max(new_nnz, int(growth * m.nnz_pad))
+        out_d = torch.empty(new_pad, dtype=m.data.dtype, device=dev)
+        out_c = torch.empty(new_pad, dtype=m.cols.dtype, device=dev)
+        out_d[: m.nnz] = m.data[: m.nnz]
+        out_c[: m.nnz] = m.cols[: m.nnz]
+        # only the slack needs the (0, 0) pad convention; [nnz, new_nnz)
+        # is overwritten by the appended entries below
+        out_d[new_nnz:] = 0
+        out_c[new_nnz:] = 0
+    if d:
+        vals = row_vals if flat else np.concatenate(
+            [np.asarray(v, dtype=np.float32) for v in row_vals])
+        cols = row_cols if flat else np.concatenate(
+            [np.asarray(c, dtype=np.int64) for c in row_cols])
+        out_d[m.nnz:new_nnz] = torch.as_tensor(
+            np.asarray(vals, dtype=np.float32)).to(dev, out_d.dtype)
+        out_c[m.nnz:new_nnz] = _dev_i64(cols, dev).to(out_c.dtype)
+    return CSR(data=out_d, cols=out_c, indptr=new_ip,
+               shape=(n_rows + k, n_cols), nnz=new_nnz)
+
+
+def csr_set_values(m: CSR, rows: np.ndarray, cols: np.ndarray,
+                   vals: np.ndarray, *, in_place: bool = True):
+    """Overwrite existing nonzeros in O(Δ · row_len).
+
+    Returns ``(csr, hit)`` where ``hit[i]`` is False when ``(rows[i],
+    cols[i])`` has no stored entry (the caller routes misses to
+    :func:`csr_splice` as inserts).  With ``in_place`` the value tensor is
+    written and the input CSR object itself is returned.  Two updates of
+    one entry leave the later value, as the reference's numpy store does
+    (a CUDA store of repeated indices keeps an arbitrary one, so repeats
+    are dropped first)."""
+    pos = csr_first_match(m, rows, np.asarray(cols, dtype=np.int64))
+    hit = pos >= 0
+    if not hit.any():
+        return m, hit
+    ph = pos[hit]
+    vh = np.asarray(vals, dtype=np.float32)[hit]
+    # the last update of each position: first occurrence in reverse order
+    uniq, first_rev = np.unique(ph[::-1], return_index=True)
+    last = ph.shape[0] - 1 - first_rev
+    data = m.data if in_place else m.data.clone()
+    dev = data.device
+    data[_dev_i64(uniq, dev)] = torch.as_tensor(vh[last]).to(dev, data.dtype)
+    if in_place:
+        return m, hit
+    return CSR(data=data, cols=m.cols, indptr=m.indptr, shape=m.shape,
+               nnz=m.nnz), hit
+
+
+def csr_splice(m: CSR,
+               insert_rows: np.ndarray, insert_cols: np.ndarray,
+               insert_vals: np.ndarray,
+               delete_rows: np.ndarray, delete_cols: np.ndarray) -> CSR:
+    """Insert/delete individual nonzeros in one scatter on the device.
+
+    O(nnz) — far cheaper than any format re-transform, but not O(Δ); the
+    streaming layer records it as its own apply mode.  A delete removes the
+    first stored match of ``(r, c)`` in row ``r``; a delete of an absent
+    entry, or of one an earlier request already removed, is ignored.
+    Inserts land at their row's end in stable row order (CSR does not
+    require column order within a row).  Every surviving entry moves by
+    the deletes before it and the inserts of the rows before its own; a
+    deleted one is written to a slot past the end and dropped."""
+    n_rows, nnz = m.n_rows, m.nnz
+    dev = m.data.device
+    ip = m.indptr.long()
+    change = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+    gone = np.zeros(0, dtype=np.int64)
+    delete_rows = np.asarray(delete_rows, dtype=np.int64)
+    if delete_rows.shape[0]:
+        pos = csr_first_match(m, delete_rows,
+                              np.asarray(delete_cols, dtype=np.int64))
+        found = pos >= 0
+        gone, first = np.unique(pos[found], return_index=True)
+        change.index_add_(0, _dev_i64(delete_rows[found][first], dev),
+                          torch.full((gone.shape[0],), -1, dtype=torch.int64,
+                                     device=dev))
+    insert_rows = np.asarray(insert_rows, dtype=np.int64)
+    k = insert_rows.shape[0]
+    if k:
+        order = np.argsort(insert_rows, kind="stable")
+        ir = insert_rows[order]
+        ic = np.asarray(insert_cols, dtype=np.int64)[order]
+        iv = np.asarray(insert_vals, dtype=np.float32)[order]
+        ir_t = _dev_i64(ir, dev)
+        added = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+        added.index_add_(0, ir_t, torch.ones(k, dtype=torch.int64,
+                                             device=dev))
+        change += added
+    new_nnz = nnz - int(gone.shape[0]) + k
+    new_pad = max(m.nnz_pad, new_nnz)
+    new_ip = torch.zeros_like(ip)
+    new_ip[1:] = ip[1:] + torch.cumsum(change, 0)
+    out_d = torch.zeros(new_pad + 1, dtype=m.data.dtype, device=dev)
+    out_c = torch.zeros(new_pad + 1, dtype=m.cols.dtype, device=dev)
+    if nnz:
+        p = torch.arange(nnz, device=dev)
+        row = torch.searchsorted(ip, p, right=True) - 1
+        dropped = torch.zeros(nnz, dtype=torch.int64, device=dev)
+        dropped[_dev_i64(gone, dev)] = 1
+        shift = torch.cumsum(dropped, 0) - dropped      # deletes before p
+        to = p - shift
+        if k:
+            to += (torch.cumsum(added, 0) - added)[row]  # inserts above
+        to = torch.where(dropped.bool(), new_pad, to)
+        out_d[to] = m.data[:nnz]
+        out_c[to] = m.cols[:nnz]
+    if k:
+        # the j-th insert of row r lands j slots past r's surviving entries
+        j = np.arange(k) - np.searchsorted(ir, ir, side="left")
+        to = new_ip[ir_t + 1] - added[ir_t] + _dev_i64(j, dev)
+        out_d[to] = torch.as_tensor(iv).to(dev, out_d.dtype)
+        out_c[to] = _dev_i64(ic, dev).to(out_c.dtype)
+    return CSR(data=out_d[:new_pad], cols=out_c[:new_pad],
+               indptr=new_ip.to(m.indptr.dtype), shape=m.shape, nnz=new_nnz)
+
+
+# ---------------------------------------------------------------------------
 # CRS -> COO-Row (host): trivial, row ids from IRP (paper: "easy" direction)
 # ---------------------------------------------------------------------------
 @_traced("coo_row")
@@ -433,6 +639,8 @@ TRANSFORMS_HOST = {
 
 __all__ = [
     "pad_to_multiple", "csr_from_dense", "csr_from_rows",
+    "csr_row_bounds", "csr_first_match", "csr_append_rows",
+    "csr_set_values", "csr_splice",
     "host_csr_to_coo_row", "host_csr_to_ccs_paper", "host_csr_to_ccs",
     "host_csr_to_coo_col", "host_csr_to_ell", "host_csr_to_sell",
     "host_csr_to_bcsr", "device_csr_to_ell", "device_csr_to_coo_row",

@@ -64,11 +64,16 @@ What differs from the JAX package's service on CUDA:
     served — what a jit cache holds; padded panels keep it at one SpMM
     signature per matrix.
   * **Telemetry** uses only the JAX package's names (``service.*``,
-    ``guard.*``, ``store.*``, ``plan.lint``): the vocabulary in
-    ``docs/observability.md`` is shared.
-  * **Not ported yet.**  Streaming registration (``streaming=True``,
-    ``apply_delta``: ROADMAP.md item A14) and sharded plans (item A15)
-    raise :class:`NotImplementedError`.
+    ``guard.*``, ``store.*``, ``plan.lint``, ``stream.*``, ``sharded.*``):
+    the vocabulary in ``docs/observability.md`` is shared.
+  * **Streaming** (``register(streaming=True)``, :meth:`apply_delta`)
+    edits the source CSR and a single-block CSR/SELL container on the
+    service's device (``repro_torch.stream``): a delta never copies the
+    matrix between host and card.
+  * **Sharded plans** serve shard by shard on one device (or round robin
+    over several) through ``sharding.spmv.ShardedPlannedMatrix``; its
+    multi-device ``shard_map`` mode is not ported (ROADMAP.md item A15b)
+    and raises :class:`NotImplementedError` when asked for.
 """
 from __future__ import annotations
 
@@ -89,8 +94,8 @@ from ..core.autotune import MachineModel, TuningDB, time_fn
 from ..core.formats import CSR, memory_bytes
 from ..core.kernel_tune import KernelTuner, TileGeometry
 from ..core.plan import (BlockPlan, ExecutionPlan, PlanFingerprint,
-                         TransformRecipe, bind_tunings, blocks_by_format,
-                         rederive_slab_bounds)
+                         ShardedPlan, TransformRecipe, bind_tunings,
+                         blocks_by_format, rederive_slab_bounds)
 from ..core.policy import MemoryPolicy
 from ..core.spmv import spmv as spmv_ref
 from ..device import DeviceLike, resolve_device
@@ -190,7 +195,7 @@ class MatrixEntry:
     n_spmm_cols: int = 0        # total RHS columns served through spmm
     builds: int = 1             # times this key's operator was (re)built
     tunings: Dict[str, Dict[str, TileGeometry]] = field(default_factory=dict)
-    plan: Optional[Any] = None  # the ExecutionPlan this entry serves
+    plan: Optional[Any] = None  # ExecutionPlan | ShardedPlan this entry serves
     from_plan: bool = False     # registration replayed a supplied plan
     max_batch: Optional[int] = None  # per-key panel width (plan-seeded);
     #                                  None falls through to the service's
@@ -205,18 +210,20 @@ class MatrixEntry:
     # guards pending/dead: submit() may race flush()/evict() across threads
     lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     dead: bool = False          # set by _release; refuses new submits
+    # -- streaming (repro_torch.stream): registered with streaming=True -------
+    streaming: bool = False
+    sketch: Optional[Any] = None        # stream.drift.DriftSketch
+    stream_policy: Optional[Any] = None  # stream.drift.ReplanPolicy
+    stream_kw: Dict[str, Any] = field(default_factory=dict)  # re-plan knobs
+    deltas: int = 0             # DeltaBatches absorbed by this key
+    replans: int = 0            # drift-triggered re-registrations
+    last_stream_decision: Optional[Any] = None  # stream.drift.DriftDecision
 
     def formats(self) -> Dict[str, int]:
         return self.report.format_counts()
 
     def compile_count(self) -> int:
         return _cache_size(self.fn) + _cache_size(self.spmm_fn)
-
-
-def _is_sharded(plan: Any) -> bool:
-    return (getattr(plan, "kind", None) == "sharded_plan"
-            or (isinstance(plan, dict) and plan.get("kind") == "sharded_plan")
-            or type(plan).__name__ == "ShardedPlan")
 
 
 @dataclass
@@ -340,25 +347,32 @@ class SpMVService:
                 cooldown_s=self.breaker_cooldown_s, clock=self._now)
         return br
 
-    def _build_guards(self, key: str, entry: MatrixEntry, fmt: str
-                      ) -> Dict[str, GuardedImpl]:
+    def _build_guards(self, key: str, entry: MatrixEntry, fmt: str,
+                      sharded: bool = False) -> Dict[str, GuardedImpl]:
         """The per-(key, op) ladders: tuned → reference-format →
-        reference-CSR.  The source matrix is kept on the entry (on its
-        device) purely so the last rung always exists.  Every rung reads
-        ``entry.matrix`` / ``entry.source`` / ``entry.fn`` at call time
-        rather than closing over them."""
+        reference-CSR (sharded entries skip the middle rung — their
+        reference tier *is* per-shard CSR).  The source matrix is kept on
+        the entry (on its device) purely so the last rung always exists.
+
+        Every rung reads ``entry.matrix`` / ``entry.source`` / ``entry.fn``
+        at call time rather than closing over them: a streaming key's
+        containers are swapped by :meth:`apply_delta`, and the ladder (and
+        its breaker) keeps serving the *current* matrix across swaps."""
         if not self.guard:
             return {}
         budget_s = self.budget_ms / 1e3 if self.budget_ms else None
         csr_mm = _dispatch.get_impl("csr", "spmm", "reference")
         rungs: Dict[str, List[Tuple[str, Callable]]] = {
-            "spmv": [("tuned", lambda x: entry.fn(entry.matrix, x)),
-                     ("reference", lambda x: spmv_hybrid(entry.matrix, x)),
-                     ("csr", lambda x: spmv_ref(entry.source, x))],
-            "spmm": [("tuned", lambda x: entry.spmm_fn(entry.matrix, x)),
-                     ("reference", lambda x: spmm_hybrid(entry.matrix, x)),
-                     ("csr", lambda x: csr_mm(entry.source, x))],
+            "spmv": [("tuned", lambda x: entry.fn(entry.matrix, x))],
+            "spmm": [("tuned", lambda x: entry.spmm_fn(entry.matrix, x))],
         }
+        if not sharded:
+            rungs["spmv"].append(
+                ("reference", lambda x: spmv_hybrid(entry.matrix, x)))
+            rungs["spmm"].append(
+                ("reference", lambda x: spmm_hybrid(entry.matrix, x)))
+        rungs["spmv"].append(("csr", lambda x: spmv_ref(entry.source, x)))
+        rungs["spmm"].append(("csr", lambda x: csr_mm(entry.source, x)))
         return {op: guard_ladder(
             key, op, rungs[op], fmt=fmt,
             breaker=self._breaker(key, fmt, op),
@@ -420,6 +434,12 @@ class SpMVService:
         re-tune); either way the entry's ``plan`` attribute carries the
         plan this key is serving, so ``register`` without a plan is also
         how plans are *minted* (``svc.register(...).plan.save(path)``).
+
+        A :class:`~repro_torch.core.plan.ShardedPlan` routes to the sharded
+        tier: the entry serves through a bound
+        :class:`~repro_torch.sharding.spmv.ShardedPlannedMatrix` (extra
+        ``build_kw`` — ``mode``, ``devices``, ``mesh`` — reach its bind).
+
         Plans carrying ``batch > 1`` seed this key's micro-batch panel
         width (``entry.max_batch``) instead of the service default.
 
@@ -428,7 +448,9 @@ class SpMVService:
         lint errors into a raised
         :class:`~repro_torch.analyze.findings.PlanLintError`; by default a
         lint-failing plan is dropped (counted under
-        ``service.plan_lint``) and registration rebuilds from scratch.
+        ``service.plan_lint``) and registration rebuilds from scratch —
+        note that a non-strict *sharded* plan failing lint therefore
+        degrades to an unsharded build.
 
         Without a supplied plan, a fingerprint-keyed plan cache is
         consulted first — and behind it the persistent ``plan_store``
@@ -438,19 +460,23 @@ class SpMVService:
         back.  Hits/misses land in ``stats()['plan_cache']`` /
         ``stats()['plan_store']``.
 
-        Not ported yet: ``streaming=True`` (ROADMAP.md item A14) and a
-        sharded ``plan`` (item A15) raise :class:`NotImplementedError`."""
-        if streaming or stream_policy is not None:
-            raise NotImplementedError(
-                "streaming registration is not ported yet (ROADMAP.md "
-                "item A14)")
-        if plan is not None and _is_sharded(plan):
-            raise NotImplementedError(
-                "sharded plans are not ported yet (ROADMAP.md item A15)")
+        ``streaming=True`` marks the key *dynamic* (docs/streaming.md):
+        the entry carries a :class:`~repro_torch.stream.drift.DriftSketch`
+        and a :class:`~repro_torch.stream.drift.ReplanPolicy` (override
+        with ``stream_policy``), and :meth:`apply_delta` may be called to
+        mutate the matrix in place.  Sharded plans do not support
+        streaming (``ValueError``)."""
         csr.validate()       # malformed input fails here, typed, not as
         #                      garbage inside a kernel (MatrixValidationError)
         dev = resolve_device(self.device)
         plan = self._lint_registered_plan(key, plan, strict_lint)
+        if isinstance(plan, ShardedPlan):
+            if streaming:
+                raise ValueError(
+                    "streaming=True is not supported for sharded plans")
+            return self._register_sharded(
+                key, csr, plan, expected_iterations=expected_iterations,
+                measure_baseline=measure_baseline, batch=batch, **build_kw)
         # keep the prior operator serving until the replacement is ready —
         # it is popped and released only at the swap below, so concurrent
         # spmv/spmm/submit against this key never see a registration gap
@@ -476,7 +502,10 @@ class SpMVService:
                 # corrupted entry is quarantined inside get() and reads
                 # as a miss — never raised to the caller
                 store_key = self._store_key(cache_key)
-                plan = self.plan_store.get(store_key, fingerprint=csr)
+                stored = self.plan_store.get(store_key, fingerprint=csr)
+                if stored is not None and not isinstance(stored,
+                                                         ShardedPlan):
+                    plan = stored
                 if tel.enabled:
                     tel.counter("service.plan_store", key=key,
                                 hit=plan is not None).inc()
@@ -513,6 +542,10 @@ class SpMVService:
                             max_batch=(plan.batch if plan is not None
                                        and plan.batch > 1 else None))
         entry.guards = self._build_guards(key, entry, fmt="hybrid")
+        if streaming:
+            self._attach_streaming(entry, csr, expected_iterations,
+                                   measure_baseline, batch, stream_policy,
+                                   build_kw)
         if cache_key is not None and entry_plan is not None \
                 and not plan_matched:
             self._plan_cache[cache_key] = entry_plan
@@ -652,11 +685,193 @@ class SpMVService:
         equals the JAX package's key for the same registration)."""
         return hashlib.sha256(repr(cache_key).encode("utf-8")).hexdigest()
 
+    # -- sharded registration ------------------------------------------------
+    def _register_sharded(self, key: str, csr: CSR, plan: ShardedPlan,
+                          expected_iterations: int = 100,
+                          measure_baseline: bool = True, batch: int = 1,
+                          **bind_kw) -> MatrixEntry:
+        """The sharded registration path: bind the ShardedPlan (per its
+        recorded partition recipe and per-shard plans) on the service's
+        device and serve the key through the resulting
+        ShardedPlannedMatrix."""
+        dev = resolve_device(self.device)
+        prior = self.entries.get(key)
+        builds = prior.builds + 1 if prior is not None else 1
+        matched = plan.matches(csr)
+        tel = _obs.get()
+        if tel.enabled:
+            tel.counter("service.plan_replay", key=key, hit=matched).inc()
+            tel.event("service.plan_replay", key=key, hit=matched,
+                      sharded=True)
+        t0 = self._now()
+        with tel.span("service.register", key=key, n=csr.n_rows,
+                      nnz=csr.nnz, batch=batch, plan_matched=matched,
+                      sharded=True) as reg_span:
+            bind_kw.setdefault("device", dev)
+            spm = plan.bind(csr, db=self.db, **bind_kw)
+
+            def fn(m, x):
+                return m.spmv(x)
+
+            def spmm_fn(m, x):
+                return m.spmm(x)
+
+            source = csr.to(spm.device)   # the CSR rung's copy
+            _sync(source.indptr)
+            t_build = self._now() - t0
+            reg_span.set(t_build=t_build, n_blocks=spm.n_shards,
+                         mode=spm.mode)
+        t_csr = t_hyb = 0.0
+        if measure_baseline:
+            x0 = torch.ones((csr.n_cols,), dtype=torch.float32,
+                            device=spm.device)
+            t_csr = time_fn(spmv_ref, source, x0, iters=1, warmup=1)
+            t_hyb = time_fn(fn, spm, x0, iters=1, warmup=1)
+        entry = MatrixEntry(matrix=spm, report=_ShardedReport(spm), fn=fn,
+                            spmm_fn=spmm_fn, t_build=t_build,
+                            device=spm.device, t_csr=t_csr, t_hybrid=t_hyb,
+                            builds=builds, tunings={}, plan=plan,
+                            from_plan=matched, source=source,
+                            max_batch=plan.batch if plan.batch > 1
+                            else None)
+        entry.guards = self._build_guards(key, entry, fmt="sharded",
+                                          sharded=True)
+        self.entries[key] = entry
+        if prior is not None:
+            try:
+                self._flush_entry(prior, key=key, cause="reregister")
+            except (RuntimeError, ValueError, TypeError,
+                    ArithmeticError) as e:
+                _swallow("reregister_flush", e)
+            self._release(key, prior)
+        return entry
+
+    # -- streaming (repro_torch.stream) ---------------------------------------
+    def _attach_streaming(self, entry: MatrixEntry, csr: CSR,
+                          expected_iterations: int, measure_baseline: bool,
+                          batch: int, stream_policy: Optional[Any],
+                          build_kw: Dict[str, Any]) -> None:
+        """Arm a freshly registered entry for :meth:`apply_delta`: an exact
+        drift sketch of the matrix as registered, a re-plan policy priced
+        against the service's tuning DB, and the registration knobs a
+        drift-triggered re-registration must replay."""
+        from ..stream.drift import DriftSketch, ReplanPolicy
+        entry.streaming = True
+        entry.sketch = DriftSketch.of(csr)
+        entry.stream_policy = stream_policy if stream_policy is not None \
+            else ReplanPolicy(db=self.db, batch=batch,
+                              default_k=float(expected_iterations))
+        entry.stream_kw = {"expected_iterations": expected_iterations,
+                           "measure_baseline": measure_baseline,
+                           "batch": batch, **build_kw}
+
     def apply_delta(self, key: str, delta: Any) -> Any:
-        """Streaming updates are not ported yet (ROADMAP.md item A14)."""
-        raise NotImplementedError(
-            "apply_delta (streaming) is not ported yet (ROADMAP.md item "
-            "A14)")
+        """Absorb one :class:`~repro_torch.stream.delta.DeltaBatch` into a
+        ``streaming=True`` key and return the
+        :class:`~repro_torch.stream.delta.DeltaApplyResult`.
+
+        The pending micro-batch panel is flushed first (``cause="delta"``)
+        so queued futures are served against the matrix they were
+        submitted for — deltas serialize with the flush queue.  A
+        single-block CSR/SELL operator is updated *incrementally* on the
+        service's device (O(Δnnz) tail appends, per-bucket SELL rebuilds)
+        and swapped into the entry under its lock — the dispatchers and
+        guard ladders read the entry at call time, so no rebind happens
+        and the per-``(key, fmt, op)`` circuit breakers keep their state.
+        Any other operator shape degrades to a CSR apply plus a full
+        re-registration (recorded as a fallback).  After the apply, the
+        drift sketch folds in the row-length changes and the policy's
+        hysteresis + streaming-amortization rule decides whether the
+        paper's threshold now picks a different format; if so the key is
+        re-registered under its original knobs (``stream.replan``)."""
+        from ..stream.delta import INCREMENTAL_FORMATS
+        from ..stream.delta import apply_delta as _apply_delta
+        entry = self.entries[key]
+        if not entry.streaming:
+            raise ValueError(
+                f"matrix {key!r} was not registered with streaming=True")
+        try:
+            self._flush_entry(entry, key=key, cause="delta")
+        except (RuntimeError, ValueError, TypeError,
+                ArithmeticError) as e:
+            # the panel's futures already carry the exception; the delta
+            # must still land or the key's state forks from its writers
+            _swallow("delta_flush", e)
+        hyb = entry.matrix
+        leaf = (getattr(hyb, "n_blocks", 0) == 1
+                and getattr(hyb, "identity_perm", False)
+                and hyb.formats[0] in INCREMENTAL_FORMATS)
+        if leaf:
+            fmt = hyb.formats[0]
+            params: Dict[str, Any] = {}
+            if entry.plan is not None and entry.plan.transform is not None:
+                params = dict(entry.plan.transform.params or {})
+            res = _apply_delta(entry.source, delta,
+                               container=hyb.blocks[0], fmt=fmt,
+                               transform_params=params, key=key)
+            perm = hyb.perm
+            if res.csr.n_rows != int(perm.shape[0]):  # rows appended
+                perm = torch.arange(res.csr.n_rows, dtype=torch.int32,
+                                    device=perm.device)
+            new_hyb = hyb.__class__(
+                perm=perm, blocks=(res.container,), row_offsets=(0,),
+                formats=(fmt,), shape=res.csr.shape, nnz=res.csr.nnz,
+                identity_perm=True)
+            with entry.lock:
+                entry.matrix = new_hyb
+                entry.source = res.csr
+                entry.deltas += 1
+            entry.sketch.update(res)
+        else:
+            # multi-block (or non-incremental leaf) operators re-partition
+            # wholesale: apply to the source CSR, then rebuild the operator
+            res = _apply_delta(entry.source, delta, fmt="csr", key=key)
+            res.fallback = True
+            res.fallback_reason = res.fallback_reason or "nonleaf"
+            res.mode = "rebuild"
+            # the rebuild re-derives the sketch exactly from the new
+            # matrix, so no incremental update on top of it
+            entry = self._replan_streaming(key, entry, res.csr,
+                                           deltas=entry.deltas + 1)
+        pol = entry.stream_policy
+        pol.note_update()
+        current_fmt = entry.plan.fmt if entry.plan is not None else "csr"
+        dec = pol.decide(entry.sketch.d_mat, current_fmt=current_fmt,
+                         key=key)
+        if dec.replan:
+            entry = self._replan_streaming(key, entry, entry.source,
+                                           deltas=entry.deltas,
+                                           decision=dec)
+        entry.last_stream_decision = dec
+        return res
+
+    def _replan_streaming(self, key: str, entry: MatrixEntry, csr: CSR,
+                          deltas: int, decision: Optional[Any] = None
+                          ) -> MatrixEntry:
+        """Re-register a streaming key under its original knobs.  The new
+        entry inherits the policy (its k̂ estimate and cooldown survive)
+        and the delta/replan counters; the sketch is re-derived exactly
+        from the post-delta matrix.  Circuit breakers live on the service
+        keyed by ``(key, fmt, op)`` and are untouched — a breaker opened
+        on the tuned rung stays open across the re-plan."""
+        old_policy, old_replans = entry.stream_policy, entry.replans
+        old_fmt = entry.plan.fmt if entry.plan is not None else "csr"
+        new = self.register(key, csr, streaming=True,
+                            stream_policy=old_policy, **entry.stream_kw)
+        new.deltas = deltas
+        new.replans = old_replans
+        if decision is not None:
+            new.replans += 1
+            old_policy.deltas_since_replan = 0
+            tel = _obs.get()
+            if tel.enabled:
+                tel.counter("stream.replans", key=key).inc()
+                tel.event("stream.replan", key=key, old_fmt=old_fmt,
+                          new_fmt=new.plan.fmt if new.plan is not None
+                          else "csr", d_mat=decision.d_mat,
+                          d_star=decision.d_star, k_hat=decision.k_hat,
+                          reason=decision.reason)
+        return new
 
     # -- direct paths --------------------------------------------------------
     def _run(self, entry: MatrixEntry, op: str,
@@ -677,6 +892,8 @@ class SpMVService:
         with entry.lock:
             entry.n_calls += 1
             entry.t_serve += dt
+            if entry.stream_policy is not None:
+                entry.stream_policy.note_query()
         tel = _obs.get()
         if tel.enabled:
             tel.histogram("service.query_latency_s", key=key,
@@ -697,6 +914,9 @@ class SpMVService:
             entry.n_spmm_calls += 1
             entry.n_spmm_cols += int(x.shape[1])
             entry.t_serve += dt
+            if entry.stream_policy is not None:
+                # k̂ counts *products*: a B-wide panel is B queries
+                entry.stream_policy.note_query(int(x.shape[1]))
         tel = _obs.get()
         if tel.enabled:
             tel.histogram("service.query_latency_s", key=key,
@@ -873,6 +1093,8 @@ class SpMVService:
             entry.n_spmm_calls += 1
             entry.n_spmm_cols += b
             entry.t_serve += dt
+            if entry.stream_policy is not None:
+                entry.stream_policy.note_query(b)
             # the admission controller's wait predictor: a slow-moving EMA
             # of flush latency (zero-cost under FakeClock — dt stays 0)
             entry.flush_ema_s = (dt if entry.flush_ema_s == 0.0
@@ -939,10 +1161,12 @@ class SpMVService:
             products = e.n_calls + e.n_spmm_cols
             saved = (products * (e.t_csr - e.t_hybrid)
                      if e.t_csr > 0 else None)
+            nb = getattr(e.matrix, "nbytes", None)
             out[key] = {
                 "n_blocks": e.matrix.n_blocks,
                 "formats": e.formats(),
-                "bytes": memory_bytes(e.matrix),
+                "bytes": int(nb()) if callable(nb) else memory_bytes(
+                    e.matrix),
                 "device": str(e.device),
                 "t_build_s": e.t_build,
                 "n_calls": e.n_calls,
@@ -955,10 +1179,14 @@ class SpMVService:
                 "tuned": {op: {f: g.to_dict() for f, g in per.items()}
                           for op, per in e.tunings.items() if per},
                 "plan": (None if e.plan is None else {
+                    # ShardedPlan carries axis/strategy instead of
+                    # rule/tier/machine — surface whichever it has
                     "rule": getattr(e.plan, "rule", None),
                     "tier": getattr(e.plan, "tier", None),
                     "machine": getattr(e.plan, "machine", None),
-                    "axis": None, "strategy": None, "n_shards": None,
+                    "axis": getattr(e.plan, "axis", None),
+                    "strategy": getattr(e.plan, "strategy", None),
+                    "n_shards": getattr(e.plan, "n_shards", None),
                     "schema_version": e.plan.schema_version,
                     "batch": e.plan.batch,
                     "from_plan": e.from_plan,   # registration replayed one
@@ -969,6 +1197,18 @@ class SpMVService:
                               else saved >= e.t_build),
                 "telemetry": self._entry_telemetry(key),
             }
+            if e.streaming:
+                out[key]["streaming"] = {
+                    "deltas": e.deltas,
+                    "replans": e.replans,
+                    "d_mat": e.sketch.d_mat if e.sketch is not None
+                    else None,
+                    "k_hat": (e.stream_policy.k_hat
+                              if e.stream_policy is not None else None),
+                    "last_decision": (e.last_stream_decision.reason
+                                      if e.last_stream_decision is not None
+                                      else None),
+                }
         # reserved keys (no matrix may register under them): service-wide
         # plan-cache / plan-store / breaker health — consumers index
         # stats() by matrix key
@@ -982,6 +1222,21 @@ class SpMVService:
                 "/".join(bk): br.snapshot()
                 for bk, br in self._breakers.items()}
         return out
+
+
+class _ShardedReport:
+    """HybridReport-shaped shim for sharded entries: format counts over
+    the per-shard plans, per-shard decision dicts as ``decisions``."""
+
+    def __init__(self, spm: Any):
+        self.decisions = spm.report()
+        self._formats = spm.plan.shard_formats()
+
+    def format_counts(self) -> Dict[str, int]:
+        counts: Dict[str, int] = {}
+        for f in self._formats:
+            counts[f] = counts.get(f, 0) + 1
+        return counts
 
 
 def _evicted(m, x):

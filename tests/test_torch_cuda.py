@@ -1658,3 +1658,177 @@ def test_cuda_service_armed_fault_ladder(cuda):
     assert service_oracle_error(csr, x, svc.spmv("m", x)) <= 1e-4
     assert sum(TK.launch_counts().values()) > sum(before.values())
     assert svc.stats()["m"]["guard"]["spmv"]["served_by"]["tuned"] == 2
+
+
+# ---------------------------------------------------------------------------
+# streaming: deltas edit the served containers on the card
+# ---------------------------------------------------------------------------
+def stream_dense(seed, n_rows=400, n_cols=256):
+    """Rows 2-14 long: several SELL buckets, the widest 16 slots."""
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((n_rows, n_cols), np.float32)
+    for i in range(n_rows):
+        ln = int(rng.integers(2, 15))
+        dense[i, rng.choice(n_cols, ln, replace=False)] = rng.normal(size=ln)
+    return rng, dense
+
+
+def same_tensors(a, b):
+    """Two containers of one format, tensor by tensor, exactly."""
+    from repro_torch.core.formats import to_numpy
+    na, aa, ma = to_numpy(a)
+    nb, ab, mb = to_numpy(b)
+    assert (na, ma["shape"], ma["nnz"]) == (nb, mb["shape"], mb["nnz"])
+    flat = (lambda d: [d["perm"]] + [v for bk in d["buckets"]
+                                     for v in (bk["data"], bk["cols"])]) \
+        if na == "sell" else (lambda d: [d[k] for k in sorted(d)])
+    for u, v in zip(flat(aa), flat(ab)):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["csr", "sell"])
+def test_cuda_delta_edits_the_container_on_the_card(cuda, fmt):
+    """A delta with duplicate updates (one stored entry twice, one absent
+    entry twice), a twice-deleted entry and appended rows, applied to a
+    bound container on the card: every tensor equals the same apply on
+    the CPU (the CUDA stores of repeated indices are deduplicated first),
+    the container stays on the card, and its kernel serves the oracle."""
+    from repro_torch.core.plan import Planner
+    from repro_torch.stream import DeltaBatch, StreamingPlannedMatrix
+    rng, dense = stream_dense(71)
+    ip = TT.csr_from_dense(dense, pad=8, device="cpu").indptr.numpy()
+    cols = TT.csr_from_dense(dense, pad=8, device="cpu").cols.numpy()
+    k = 37
+    sr = int(np.searchsorted(ip, k, side="right") - 1)
+    sc = int(cols[k])
+    delta = DeltaBatch(
+        n_cols=256, append_cols=(np.arange(30, dtype=np.int64),
+                                 np.arange(5, dtype=np.int64)),
+        append_vals=(np.ones(30, np.float32), np.full(5, 2, np.float32)),
+        update_rows=np.asarray([sr, sr, 9, 9, sr, 40], np.int64),
+        update_cols=np.asarray([sc, sc, 255, 255, sc, 200], np.int64),
+        update_vals=np.asarray([1, 2, 3, 4, 5, 6], np.float32),
+        delete_rows=np.asarray([sr, sr, 12], np.int64),
+        delete_cols=np.asarray([sc, sc, 3], np.int64))
+    out = {}
+    for dev in ("cpu", cuda):
+        csr = TT.csr_from_dense(dense, pad=8, device=dev)
+        sm = StreamingPlannedMatrix(
+            csr, Planner(tier="kernel", device=dev), plan_kw={"fmt": fmt})
+        res = sm.apply(delta)
+        assert not res.fallback and res.container.device.type == \
+            torch.device(dev).type
+        out[str(dev)] = (sm, res)
+    (cpu_sm, cpu_res), (gpu_sm, gpu_res) = out["cpu"], out[str(cuda)]
+    assert gpu_res.mode == cpu_res.mode == "splice"
+    same_tensors(cpu_res.csr, gpu_res.csr)
+    same_tensors(cpu_res.container, gpu_res.container)
+    x = torch.from_numpy(rng.normal(size=256).astype(np.float32))
+    before = sum(TK.launch_counts().values())
+    y = (gpu_sm @ x.to(cuda)).cpu()
+    assert sum(TK.launch_counts().values()) > before
+    assert service_oracle_error(gpu_sm.csr, x, y) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_sell_bucket_widened_by_a_delta_is_read_by_k1(cuda):
+    """A row lengthened past the widest bucket widens it on the card; K1
+    reads every bucket up to fresh extents (one launch a bucket) and
+    matches its plain version and the oracle."""
+    from repro_torch.core.plan import Planner
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ell_spmv import ell_extent, ell_spmv_plain
+    from repro_torch.stream import DeltaBatch, StreamingPlannedMatrix
+    rng, dense = stream_dense(73)
+    csr = TT.csr_from_dense(dense, pad=8, device=cuda)
+    sm = StreamingPlannedMatrix(csr, Planner(tier="kernel", device=cuda),
+                                plan_kw={"fmt": "sell"})
+    w0 = sm.bound.matrix.widths[0]
+    row = int(sm.bound.matrix.perm[-1])        # in the narrowest bucket
+    have = set(np.nonzero(dense[row])[0].tolist())
+    new = [c for c in range(256) if c not in have][: w0 + 9]
+    res = sm.apply(DeltaBatch(
+        n_cols=256, update_rows=np.full(len(new), row, np.int64),
+        update_cols=np.asarray(new, np.int64),
+        update_vals=np.ones(len(new), np.float32)))
+    sell = sm.bound.matrix
+    assert not res.fallback and sell.widths[0] > w0
+    x = torch.from_numpy(rng.normal(size=256).astype(np.float32)).to(cuda)
+    before = TK.launch_counts()["ell_spmv"]
+    y = sm @ x
+    assert TK.launch_counts()["ell_spmv"] - before == len(sell.buckets)
+    for off, b in zip(sell.row_offsets, sell.buckets):
+        ext = ops.ell_extent_of(b)
+        assert ext is not None and ext.is_cuda
+        assert torch.equal(ext, ell_extent(b.data, b.cols))
+        want = ell_spmv_plain(b.data, b.cols, x)
+        got = y[sell.perm[off:off + b.n_rows].long()]
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert service_oracle_error(sm.csr, x.cpu(), y) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["csr", "sell"])
+def test_cuda_a_delta_reads_back_only_delta_sized_arrays(cuda, fmt,
+                                                         monkeypatch):
+    """On the card a delta never copies the matrix to the host: every
+    tensor read back during the apply is the size of the delta."""
+    from repro_torch.core.plan import Planner
+    from repro_torch.core.suite import synthesize_power_law
+    from repro_torch.stream import StreamingPlannedMatrix, random_delta
+    csr = synthesize_power_law(n=20000, alpha=1.6, seed=5,
+                               random_values=True, device=cuda)
+    sm = StreamingPlannedMatrix(csr, Planner(tier="kernel", device=cuda),
+                                plan_kw={"fmt": fmt})
+    delta = random_delta(np.random.default_rng(6), sm.csr, n_appends=8,
+                         n_updates=64, n_deletes=16, row_len=12)
+    seen = []
+    real = torch.Tensor.cpu
+
+    def cpu(self, *a, **kw):
+        seen.append(self.numel())
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", cpu)
+    res = sm.apply(delta)
+    monkeypatch.undo()
+    assert not res.fallback and res.container.device.type == "cuda"
+    assert seen and max(seen) <= 2 * delta.nnz_delta < sm.csr.nnz // 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["row", "col"])
+def test_cuda_sharded_dispatch_serves_through_the_kernels(cuda, axis):
+    """``dispatch`` mode on one card: each shard's product launches its
+    format's kernel (a SELL shard once a bucket), every shard on the
+    tuned rung, SpMV and SpMM within 1e-4 of the oracle."""
+    from repro_torch.core.plan import Planner
+    from repro_torch.core.suite import synthesize_power_law
+    csr = synthesize_power_law(n=6000, alpha=1.4, seed=8,
+                               random_values=True, device=cuda)
+    spm = Planner(tier="kernel", device=cuda).build_sharded(
+        csr, n_shards=4, axis=axis)
+    assert spm.mode == "dispatch"
+    assert all(d.type == "cuda" for d in spm.devices)
+    rng = np.random.default_rng(9)
+    for batch in (1, 8):
+        x = torch.from_numpy(rng.normal(
+            size=(6000, batch) if batch > 1 else 6000).astype(np.float32))
+        want = {}
+        for pm in spm.planned:
+            k = {"sell": "ell", "ell_row": "ell", "ell_col": "ell"}.get(
+                pm.fmt, pm.fmt.split("_")[0])
+            k += "_spmv" if batch == 1 else "_spmm"
+            n = len(pm.matrix.buckets) if pm.fmt == "sell" else 1
+            want[k] = want.get(k, 0) + n
+        before = TK.launch_counts()
+        y = spm @ x.to(cuda)
+        after = TK.launch_counts()
+        risen = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        assert risen == want
+        assert y.is_cuda and service_oracle_error(csr, x, y) <= 1e-4
+    for shard in spm.guard_report():
+        assert shard["spmv"]["served_by"]["csr"] == 0
+        assert shard["spmv"]["served_by"]["tuned"] == 1

@@ -6,9 +6,11 @@ breaker, admission control on the micro-batch queue, typed eviction, and
 input validation — all deterministic (fault registry + the port's
 FakeClock, no sleeps), on the CPU, where each kernel runs its plain
 version.  The fault registry is a copy of the JAX package's, and its
-seeded decisions are held against it.  Of the reference's 35 cases,
-``test_sharded_dispatch_per_shard_guards`` waits for the sharded tier
-(ROADMAP.md item A15); here a sharded plan is refused by name instead.
+seeded decisions are held against it.  All 35 of the reference's cases
+are mirrored, ``test_sharded_dispatch_per_shard_guards`` among them (the
+sharded tier's per-shard ladders); streaming and sharded registrations
+serve, and the one refusal left — the multi-device ``shard_map`` mode —
+names ROADMAP.md item A15b.
 """
 import numpy as np
 import pytest
@@ -369,19 +371,50 @@ def test_register_degrades_to_csr_when_transform_faults(problem, rng, tel):
     assert fb
 
 
-def test_sharded_and_streaming_registration_name_their_items(problem):
-    """The sharded tier (and its per-shard guards) and streaming
-    registration are not ported yet: both are refused by name."""
-    _, csr = problem
+def test_sharded_and_streaming_registration_name_their_items(problem, rng):
+    """A sharded plan and a streaming registration both serve (through
+    the sharded tier's and the streaming tier's ladders); the one refusal
+    left, an explicit multi-device ``shard_map``, names A15b."""
+    from repro_torch.core.plan import Planner
+    from repro_torch.stream import random_delta
+    dense, csr = problem
     svc = _svc()
-    sharded = {"kind": "sharded_plan", "schema_version": 1}
-    with pytest.raises(NotImplementedError, match="A15"):
-        svc.register("m", csr, plan=sharded)
-    with pytest.raises(NotImplementedError, match="A14"):
-        svc.register("m", csr, streaming=True)
-    svc.register("m", csr, measure_baseline=False)
-    with pytest.raises(NotImplementedError, match="A14"):
-        svc.apply_delta("m", None)
+    plan = Planner(device="cpu").plan_sharded(csr, n_shards=2)
+    entry = svc.register("s", csr, plan=plan, measure_baseline=False)
+    assert entry.matrix.mode == "dispatch" and entry.from_plan
+    x = rng.normal(size=64).astype(np.float32)
+    np.testing.assert_allclose(svc.spmv("s", x).numpy(), dense @ x,
+                               rtol=2e-4, atol=2e-4)
+    assert svc.stats()["s"]["guard"]["spmv"]["served_by"]["tuned"] == 1
+    with pytest.raises(NotImplementedError, match="A15b"):
+        svc.register("t", csr, plan=plan, measure_baseline=False,
+                     mode="shard_map", devices=["cpu", "cpu"])
+    # a delta edits the registered tensors in place (as the reference's
+    # numpy arrays are): the module's matrix stays untouched on a copy
+    mine = CSR(data=csr.data.clone(), cols=csr.cols.clone(),
+               indptr=csr.indptr.clone(), shape=csr.shape, nnz=csr.nnz)
+    svc.register("m", mine, measure_baseline=False, streaming=True,
+                 plan=Planner(device="cpu").plan(mine, fmt="csr"))
+    res = svc.apply_delta("m", random_delta(np.random.default_rng(3), mine,
+                                            n_updates=4, n_deletes=2))
+    assert not res.fallback
+    src = svc.entries["m"].source
+    np.testing.assert_allclose(svc.spmv("m", x).numpy(), src.todense() @ x,
+                               rtol=2e-4, atol=2e-4)
+    assert svc.stats()["m"]["streaming"]["deltas"] == 1
+
+
+def test_sharded_dispatch_per_shard_guards(problem, rng):
+    dense, csr = problem
+    from repro_torch.sharding.spmv import build_sharded
+    spm = build_sharded(csr, n_shards=2, mode="dispatch", device="cpu")
+    assert len(spm.shard_guards) == 2
+    x = rng.normal(size=64).astype(np.float32)
+    with faults.inject("kernel.raise", prob=1.0):
+        y = spm.spmv(x)
+    np.testing.assert_allclose(y.numpy(), dense @ x, rtol=2e-4, atol=2e-4)
+    for shard in spm.guard_report():
+        assert shard["spmv"]["served_by"]["csr"] == 1
 
 
 def test_guard_off_switch_serves_raw(problem, rng):

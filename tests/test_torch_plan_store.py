@@ -248,22 +248,45 @@ def test_store_corrupt_fault_point_round_trip(problem, tmp_path):
     assert store.get(key) is not None
 
 
-def test_sharded_entry_is_a_miss_left_on_disk(problem, tmp_path, tel):
-    """A sharded plan (valid for the JAX package, not ported: A15) reads
-    as a miss and is neither served nor quarantined."""
-    _, csr = problem
+def test_sharded_entry_is_a_miss_left_on_disk(problem, ref_csr, rng,
+                                              tmp_path, tel):
+    """A sharded plan in the store — one the JAX package minted and wrote,
+    and one the port minted — loads as a ``ShardedPlan`` (a hit, nothing
+    quarantined) and replays: a service registers it with no tuning and
+    serves the dense oracle.  (The name is kept from when the port read
+    such an entry as a miss.)"""
+    from repro_torch.core.plan import ShardedPlan
+    dense, csr = problem
+    ref_store = RPS.PlanStore(str(tmp_path))
+    key = store_key = ref_store.key_for(ref_csr)
+    ref_plan = RPL.Planner().plan_sharded(ref_csr, n_shards=3)
+    ref_store.put(key, ref_plan)
     store = PlanStore(str(tmp_path))
-    payload = {"kind": "sharded_plan", "schema_version": 1, "axis": "row",
-               "strategy": "balanced_nnz", "params": {}, "mesh_shape": [1],
-               "mesh_axis": "shards", "batch": 1, "shards": [
-                   {"rows": [0, 60], "plan": make_plan(csr).to_dict()}]}
-    key = store.key_for(csr)
-    store.put(key, payload)
-    assert store.get(key) is None
-    assert os.path.exists(store.path_for(key))
+    assert store.key_for(csr) == store_key
+    got = store.get(key, fingerprint=csr)
+    assert isinstance(got, ShardedPlan)
+    assert got.to_dict() == ref_plan.to_dict()
+    port_key = store.key_for(csr, batch=4)
+    store.put(port_key, Planner(device="cpu").plan_sharded(
+        csr, n_shards=2, axis="col", batch=4))
+    assert isinstance(ref_store.get(port_key, fingerprint=ref_csr),
+                      RPL.ShardedPlan)
     assert store.stats()["quarantined"] == 0
-    assert store.stats()["misses"] == 1
-    assert tel.sinks[0].named("store.stale")
+    assert store.stats()["hits"] == 1
+    assert not tel.sinks[0].named("store.stale")
+
+    def no_tuning(thunk, geometry):
+        raise AssertionError("a replayed sharded plan tuned")
+
+    svc = SpMVService(device="cpu",
+                      tuner=KernelTuner(timer=no_tuning))
+    x = rng.normal(size=dense.shape[1]).astype(np.float32)
+    for k in (key, port_key):
+        entry = svc.register(k, csr, plan=store.get(k, fingerprint=csr),
+                             measure_baseline=False)
+        assert entry.from_plan and entry.matrix.mode == "dispatch"
+        np.testing.assert_allclose(svc.spmv(k, x).numpy(), dense @ x,
+                                   rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
