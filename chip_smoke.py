@@ -15,9 +15,11 @@ times it beside its bound, checks every served product against an
 independent float64 oracle, runs the launch-geometry tuner
 (``KernelTuner``) on the card, serves the register-once service
 (``SpMVService``), its streaming keys (deltas applied on the card,
-``apply_delta``) and the sharded tier (``plan_sharded``, shard by shard),
-and holds one full-width decode step against the same step with the plain
-attention in the kernel's place.
+``apply_delta``) and the sharded tier (``plan_sharded``, shard by shard);
+then serves one model of each LM family at full width (qwen3-1.7b,
+zamba2-1.2b and xlstm-1.3b whole, dbrx-132b cut to 2 layers with the
+paper's dispatch rule on) and holds one decode step of each against the
+same step with the plain attention in the kernel's place.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
@@ -143,15 +145,33 @@ KERNEL_INFO = {
 SPARSE_KERNELS = tuple(k for k in KERNEL_INFO
                        if k != "decode_attention_int8")
 
-#: the LM the serve_lm phase serves at full width and depth, int8 KV cache
+#: the LM servers of the serve_families phase, bf16 with the int8 KV cache:
+#: (arch, layers (None: the config's), slots, max_len, prompt lengths the
+#: requests draw from, new tokens, moe_dispatch, dtype of the decode step
+#: held against the plain one).  qwen3-1.7b whole (the attention family;
+#: its K11 launches are the main path's), dbrx cut to 2 of its 40 layers
+#: (7.75 G parameters), zamba2 and xLSTM whole; prompts as flash attention
+#: (a multiple of 1024 past 1024) and the chunked SSD (a multiple of 256
+#: past 256) take them, xLSTM's short (its prefill is a loop over time).
+#: zamba2's step is held in float32: with seeded weights each of the six
+#: applications of its shared attention block grows a difference of its
+#: input, so half a bfloat16 ulp of noise on the plain attention's outputs
+#: moves the bfloat16 logits by ~0.45 of theirs
+#: (experiments/torch_lm_step_divergence.py, PERF.md §6); its bfloat16 K11
+#: calls are held one by one (``hold_family_step``) and at its shape in the
+#: decode_attention phase
+FAMILIES = (
+    ("qwen3-1.7b", None, 8, 8192, tuple(range(1024, 6145, 1024)), 32, None,
+     torch.bfloat16),
+    ("dbrx-132b", 2, 8, 4096, (512, 768, 1024, 2048), 16, "auto",
+     torch.bfloat16),
+    ("zamba2-1.2b", None, 8, 2048, (256, 512, 768, 1024), 32, None,
+     torch.float32),
+    ("xlstm-1.3b", None, 4, 256, (32, 64, 96, 128), 16, None, None),
+)
+#: the family whose K11 launches the kernels line reports
 LM_ARCH = "qwen3-1.7b"
-LM_SLOTS = 8
-LM_MAX_LEN = 8192
-#: prompt lengths the requests draw from (flash attention over a prompt
-#: longer than 1024 needs a multiple of 1024, as in the reference)
-LM_PROMPTS = tuple(range(1024, 6145, 1024))
-LM_MAX_NEW = 32
-LM_SEED = 0
+FAMILY_SEED = 1
 #: a full-width decode step with the plain attention in the kernel's place,
 #: relative to max |logits|: every attention output may differ by one
 #: bfloat16 ulp (2^-8 relative) between the two, and 28 bfloat16 layers carry
@@ -911,7 +931,7 @@ def kernels_line(cases, k11_cases, launches):
     scale 4 — past the L2, where the card does real memory work (ELL:
     row-major, the layout the paper's rule serves; SpMM at B =
     ``SERVE_BATCH``) — carries the times; K11's served case (the shape and
-    sequence lengths of the serve_lm phase).  The error is the largest over
+    sequence lengths of qwen3-1.7b in the serve_families phase).  The error is the largest over
     all of the kernel's cases (listed by the ``kernels`` and
     ``decode_attention`` phase lines).  ``launches`` is the count from the
     run of the path the kernel serves."""
@@ -2312,16 +2332,22 @@ def phase_serve_sharded(base, dbs):
 # ---------------------------------------------------------------------------
 # phase: decode_attention (K11 against its plain version)
 # ---------------------------------------------------------------------------
-def lm_prompt_lengths():
-    """The serve_lm phase's prompt lengths, drawn from ``LM_SEED``."""
-    rng = np.random.default_rng(LM_SEED)
-    return [int(n) for n in rng.choice(LM_PROMPTS, size=LM_SLOTS)]
+def family_prompt_lengths(arch):
+    """The prompt lengths the serve_families phase serves ``arch`` at,
+    drawn from ``FAMILY_SEED`` (the first draw of its generator)."""
+    _, _, slots, _, prompts, *_ = next(f for f in FAMILIES if f[0] == arch)
+    rng = np.random.default_rng(FAMILY_SEED)
+    return [int(n) for n in rng.choice(prompts, size=slots)], rng
 
 
 #: (label, B, S, KV, G, Dh, window, q dtype, logit softcap, cache): the
-#: first is the shape the serve_lm phase launches K11 at (qwen3-1.7b, 8 slots
-#: of 8192, bfloat16 q); the softcap cases cap the scores (of about one unit
-#: here) at 1.0, so that the cap bends most of them.  ``cache``: ``prefix``
+#: ``served`` cases are the shapes the serve_families phase launches K11 at
+#: (``SERVED_K11``: qwen3-1.7b, 8 slots of 8192; dbrx-132b, 8 of 4096 and 6
+#: query heads a KV head; zamba2-1.2b's shared block, 8 of 2048, 32 KV heads
+#: of 64), with random codes and q: the scores are of about one unit, so
+#: every valid slot weighs in and a slot masked wrongly moves the output;
+#: the softcap cases cap those scores at 1.0, so that the cap bends most of
+#: them.  ``cache``: ``prefix``
 #: (sequence b holds positions 0 .. lens[b] - 1, queried at the last),
 #: ``ring`` (a full ring: every slot written, at positions S + lens[b] - S
 #: .. S + lens[b] - 1, key_pos from models/attention.py's formula),
@@ -2330,6 +2356,9 @@ def lm_prompt_lengths():
 K11_CASES = (
     ("served", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0, "prefix"),
     ("served_f32", 8, 8192, 8, 2, 128, None, torch.float32, 0.0, "prefix"),
+    ("served_dbrx", 8, 4096, 8, 6, 128, None, torch.bfloat16, 0.0, "prefix"),
+    ("served_zamba2", 8, 2048, 32, 1, 64, None, torch.bfloat16, 0.0,
+     "prefix"),
     ("window", 8, 8192, 8, 2, 128, 4096, torch.bfloat16, 0.0, "prefix"),
     ("g1", 8, 8192, 8, 1, 128, None, torch.bfloat16, 0.0, "prefix"),
     ("g6", 4, 4096, 4, 6, 128, None, torch.bfloat16, 0.0, "prefix"),
@@ -2343,6 +2372,9 @@ K11_CASES = (
     ("masked_row", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0,
      "masked_row"),
 )
+#: the family whose sequence lengths (mid-decode) each served case takes
+SERVED_K11 = {"served": "qwen3-1.7b", "served_f32": "qwen3-1.7b",
+              "served_dbrx": "dbrx-132b", "served_zamba2": "zamba2-1.2b"}
 
 
 def k11_inputs(B, S, KV, G, Dh, q_dtype, lens, seed):
@@ -2365,11 +2397,14 @@ def k11_inputs(B, S, KV, G, Dh, q_dtype, lens, seed):
 
 def k11_case_inputs(i):
     """``(args, kw)`` of ``K11_CASES[i]`` on the card: the served cases at
-    the serve_lm phase's sequence lengths, mid-decode, the others at lengths
-    drawn from a seed, and the cache of the case's kind."""
+    their family's sequence lengths in the serve_families phase, mid-decode,
+    the others at lengths drawn from a seed, and the cache of the case's
+    kind."""
     label, B, S, KV, G, Dh, window, q_dtype, cap, cache = K11_CASES[i]
-    if label.startswith("served"):
-        lens = [n + LM_MAX_NEW // 2 for n in lm_prompt_lengths()]
+    if label in SERVED_K11:
+        arch = SERVED_K11[label]
+        max_new = next(f for f in FAMILIES if f[0] == arch)[5]
+        lens = [n + max_new // 2 for n in family_prompt_lengths(arch)[0]]
     else:
         lens = np.random.default_rng(100 + i).integers(
             S // 2, S, size=B).tolist()
@@ -2439,9 +2474,10 @@ def k11_close(got, want, q_dtype):
 
 
 def phase_decode_attention(reps: int):
-    """K11 against its plain version on the card at the served shape (with
-    the serve_lm phase's sequence lengths, mid-decode) and at the others of
-    ``K11_CASES``; each timed beside its bound and the plain version."""
+    """K11 against its plain version on the card at the served shapes (with
+    the serve_families phase's sequence lengths, mid-decode) and at the
+    others of ``K11_CASES``; each timed beside its bound and the plain
+    version."""
     from repro_torch.kernels import decode_attention as K11
 
     results = []
@@ -2487,30 +2523,12 @@ def phase_decode_attention(reps: int):
 
 
 # ---------------------------------------------------------------------------
-# phase: serve_lm (the LM server at full width, int8 KV cache)
+# phase: serve_families (each family's LM server at full width, int8 KV)
 # ---------------------------------------------------------------------------
 def clone_caches(caches):
-    return {"layers": [{"attn": {n: t.clone() for n, t in c["attn"].items()}}
-                       for c in caches["layers"]]}
-
-
-def decode_step_bytes(cfg, lengths, slots):
-    """Bytes one decode step must move: every matmul weight once (bfloat16),
-    the norm scales, the B token embeddings read and, per layer, the valid
-    slots' int8 codes and bfloat16 scales of K and V (the new token's
-    included) — the least a step at these lengths needs."""
-    from repro_torch.models import model as M
-    from repro_torch.sharding.rules import tree_leaves
-    weights = 0
-    for s in tree_leaves({k: v for k, v in M.model_spec(cfg).items()
-                          if k != "embed"}):
-        weights += int(np.prod(s.shape)) * (4 if len(s.shape) == 1 else 2)
-    B = len(lengths)
-    embed = B * cfg.d_model * 2
-    per_slot = cfg.n_kv_heads * (2 * cfg.head_dim + 2 * 2)
-    cache = cfg.n_layers * per_slot * sum(min(n + 1, slots)
-                                          for n in lengths)
-    return weights + embed + cache, weights
+    """A copy of a cache tree (every block kind's fields)."""
+    from repro_torch.sharding.rules import tree_map
+    return tree_map(torch.clone, caches)
 
 
 def profile_decode(params, cfg, snapshot, steps: int = 2):
@@ -2551,146 +2569,385 @@ def profile_decode(params, cfg, snapshot, steps: int = 2):
                              n / steps} for k, us, n in busy[:10]]}
 
 
-def phase_serve_lm():
-    """``ServeEngine`` at full width and depth on the card: 8 requests into
-    8 slots of ``LM_MAX_LEN``, prompts drawn from ``LM_PROMPTS``,
-    ``LM_MAX_NEW`` tokens each.  The K11 launches are counted from just
-    before the requests are admitted to just after the last step; then one
-    decode step (from a snapshot taken before the first) is held against
-    the same step with the plain attention in the kernel's place."""
-    from repro_torch import kernels
-    from repro_torch.configs import get_config
+class MoeSpy:
+    """Counts the dispatch branch each MoE call takes and keeps the expert
+    choices of each call, by wrapping ``models/moe.py``'s ``moe_ell``,
+    ``moe_csr`` and ``route`` (the package is not changed)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real = moe, {n: getattr(moe, n) for n in
+                                    ("moe_ell", "moe_csr", "route")}
+        self.branches = {"ell": 0, "csr": 0}
+        self.routes = []
+
+        def branch(name):
+            def call(*a, **kw):
+                self.branches[name] += 1
+                return self.real["moe_" + name](*a, **kw)
+            return call
+
+        def route(*a, **kw):
+            out = self.real["route"](*a, **kw)
+            self.routes.append(out[0])
+            return out
+        moe.moe_ell, moe.moe_csr, moe.route = branch("ell"), branch("csr"), \
+            route
+
+    def take(self):
+        """Branch counts and expert choices since the last take."""
+        out = (dict(self.branches), self.routes)
+        self.branches = {"ell": 0, "csr": 0}
+        self.routes = []
+        return out
+
+    def close(self):
+        for name, fn in self.real.items():
+            setattr(self.moe, name, fn)
+
+
+def family_weight_bytes(cfg, experts_hit=None):
+    """Bytes of the parameters one decode step reads, each leaf in its
+    storage dtype: all but the embedding table (its B rows are counted
+    apart) and, of a MoE layer's experts, those that got a token
+    (``experts_hit[layer]``)."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import tree_leaves
+
+    def nbytes(tree):
+        return sum(int(np.prod(s.shape)) *
+                   torch.finfo(M.storage_dtype(s, cfg)).bits // 8
+                   for s in tree_leaves(tree))
+    spec = M.model_spec(cfg)
+    total = nbytes({k: v for k, v in spec.items()
+                    if k not in ("embed", "layers")})
+    for i, layer in enumerate(spec["layers"]):
+        for name, block in layer.items():
+            if name == "moe" and experts_hit is not None:
+                experts = {k: v for k, v in block.items() if k != "router"}
+                total += nbytes(block["router"]) + nbytes(experts) * \
+                    experts_hit[i] // cfg.n_experts
+            else:
+                total += nbytes(block)
+    return total
+
+
+def family_step_bytes(cfg, caches, lengths, experts_hit=None):
+    """Bytes one decode step must move: the weights it reads
+    (:func:`family_weight_bytes`), the B token embeddings, every recurrent
+    state field read and written once (float32; the conv windows in the
+    cache's dtype), and per attention layer the valid slots' int8 codes and
+    bfloat16 scales of K and V, the new token's included."""
+    B = len(lengths)
+    state = kv = 0
+    for layer in caches["layers"]:
+        for sub, fields in layer.items():
+            if sub == "attn":
+                slots = fields["k"].shape[1]
+                per_slot = cfg.n_kv_heads * (2 * cfg.head_dim + 2 * 2)
+                kv += per_slot * sum(min(n + 1, slots) for n in lengths)
+            else:
+                state += 2 * sum(t.numel() * t.element_size()
+                                 for t in fields.values())
+    return (family_weight_bytes(cfg, experts_hit) + B * cfg.d_model * 2 +
+            state + kv)
+
+
+def routes_disagree(a, b):
+    """Rows (sequences of a decode step) whose expert choices differ in any
+    MoE layer between two runs of one step."""
+    rows = set()
+    for x, y in zip(a, b):
+        rows |= set(torch.nonzero((x != y).any(-1)).flatten().tolist())
+    return sorted(rows)
+
+
+def k11_oracle_f64(args, window=None, softcap=0.0):
+    """K11's masked (capped) softmax over the same dequantized operands in
+    float64 on the card; also the largest |score| of a valid slot."""
+    q, k_q, k_s, v_q, v_s, key_pos, q_pos = args
+    k = k_q.double() * k_s.double()[..., None]
+    v = v_q.double() * v_s.double()[..., None]
+    s = torch.einsum("bkgd,bskd->bkgs", q.double(), k) / \
+        float(np.sqrt(q.shape[-1]))
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    valid = (key_pos >= 0) & (key_pos <= q_pos[:, None])
+    if window is not None:
+        valid &= key_pos > (q_pos[:, None] - window)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    top = float(s.masked_fill(~valid[:, None, None, :], 0.0).abs().max())
+    return torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, dim=-1), v), top
+
+
+def k11_against_oracle(got, plain, args, window=None, softcap=0.0):
+    """A served K11 call held against a float64 oracle of its operands,
+    sequence by sequence: a sequence's output passes within one bfloat16
+    ulp (:func:`k11_close`'s rule), or no further from the oracle than
+    twice the plain version's output for that sequence is.  Scores of
+    hundreds of units (seeded weights, no qk-norm) make float32 scores
+    alone move a near-tied softmax by more than an ulp, in the plain
+    version as in the kernel; a slot whose weight is not negligible,
+    masked or read wrongly, moves the output far past that.  The
+    decode_attention phase holds K11 at the same shapes, on scores of about
+    one unit, at the one-ulp rule alone."""
+    want, top = k11_oracle_f64(args, window, softcap)
+    rows = [k11_close(got[b], want[b], got.dtype) for b in range(len(got))]
+    plain_err = [float((plain[b].double() - want[b]).abs().max())
+                 for b in range(len(got))]
+    one_ulp = [ok for _, ok in rows]
+    ok = [u or e <= 2 * p for (e, u), p in zip(rows, plain_err)]
+    return {"err": [e for e, _ in rows], "plain_err": plain_err,
+            "one_ulp": one_ulp, "ok": ok, "max_abs_score": top}
+
+
+def hold_family_step(params, cfg, snapshot, served, spy, arch, step_dtype):
+    """One decode step from ``snapshot`` with K11 against the same step with
+    its plain version in its place.  In the served dtype the step's argmax
+    must be ``served`` (the tokens the engine served from that snapshot),
+    and every K11 call of the step is held against a float64 oracle of its
+    operands (:func:`k11_against_oracle`).  The logits of the step in
+    ``step_dtype`` (the weights cast to it) must be within
+    ``LM_STEP_REL_TOL`` of the plain step's, over the sequences whose expert
+    choices are the same in both steps: a near tie moved by one ulp of
+    attention sends a token to another expert, a different function, so
+    one sequence may be routed otherwise (its own K11 outputs held as every
+    sequence's are, and reported)."""
     from repro_torch.kernels import decode_attention as K11
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
+    from repro_torch.sharding.rules import tree_map
+
+    caches, toks, lengths = snapshot
+    dev = torch.device("cuda")
+    toks = torch.from_numpy(toks).long().to(dev)
+    pos = torch.from_numpy(lengths).to(dev)
+    calls = []
+
+    def checked(*a, **kw):
+        got = K11.decode_attention_int8(*a, **kw)
+        calls.append(k11_against_oracle(
+            got, K11.decode_attention_int8_plain(*a, **kw), a, **kw))
+        return got
+
+    def step(fn, p, c):
+        A.decode_attention_int8 = fn
+        try:
+            with torch.no_grad():
+                logits, _ = M.decode_step(p, toks, clone_caches(caches), pos,
+                                          c)
+        finally:
+            A.decode_attention_int8 = K11.decode_attention_int8
+        return logits.float(), (spy.take()[1] if spy else [])
+
+    kernel = step(checked, params, cfg)
+    lk = kernel[0]
+    B = lk.shape[0]
+    if lk.shape != (B, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"serve_families {arch}: bad logits "
+                             f"{tuple(lk.shape)}")
+    if lk.argmax(-1)[:, 0].tolist() != served:
+        raise AssertionError(f"serve_families {arch}: the step from the "
+                             f"snapshot does not give the served tokens")
+    bad = [c for c in calls if not all(c["ok"])]
+    if bad:
+        raise AssertionError(f"serve_families {arch}: a K11 call of the step "
+                             f"is further from the float64 oracle than its "
+                             f"plain version allows: {bad[0]}")
+    if step_dtype == cfg.compute_dtype:
+        held = {"kernel": kernel,
+                "plain": step(K11.decode_attention_int8_plain, params, cfg)}
+    else:
+        p = tree_map(lambda t: t.to(step_dtype) if t.is_floating_point()
+                     else t, params)
+        c = cfg.replace(dtype={torch.float32: "float32",
+                               torch.bfloat16: "bfloat16"}[step_dtype])
+        held = {name: step(fn, p, c) for name, fn in (
+            ("kernel", K11.decode_attention_int8),
+            ("plain", K11.decode_attention_int8_plain))}
+        del p
+    other = routes_disagree(held["kernel"][1], held["plain"][1])
+    if len(other) > 1:
+        raise AssertionError(f"serve_families {arch}: sequences {other} are "
+                             f"routed otherwise in the plain step (at most "
+                             f"one may be)")
+    keep = [b for b in range(B) if b not in other]
+    kk, pk = held["kernel"][0][keep], held["plain"][0][keep]
+    rel = float((kk - pk).abs().max() / pk.abs().max())
+    if rel > LM_STEP_REL_TOL:
+        raise AssertionError(
+            f"serve_families {arch}: the {step_dtype} decode step with K11 is "
+            f"{rel} (of max |logits|) off the plain step")
+    return {"dtype": str(step_dtype).replace("torch.", ""),
+            "max_rel_err": rel, "tolerance": LM_STEP_REL_TOL,
+            "argmax_agree": float((kk.argmax(-1) == pk.argmax(-1)
+                                   ).float().mean()),
+            "sequences_routed_otherwise": other,
+            "routed_otherwise_k11": [
+                {"sequence": b, "err": [c["err"][b] for c in calls],
+                 "plain_err": [c["plain_err"][b] for c in calls],
+                 "one_ulp": [c["one_ulp"][b] for c in calls]}
+                for b in other],
+            "k11_calls": len(calls),
+            "k11_calls_within_one_ulp": sum(all(c["one_ulp"]) for c in calls),
+            "k11_calls_on_plain_rule": sum(not all(c["one_ulp"])
+                                           for c in calls),
+            "k11_outputs_on_plain_rule": sum(not u for c in calls
+                                             for u in c["one_ulp"]),
+            "k11_outputs": sum(len(c["one_ulp"]) for c in calls),
+            "k11_calls_err_to_oracle": max(max(c["err"]) for c in calls),
+            "plain_calls_err_to_oracle": max(max(c["plain_err"])
+                                             for c in calls),
+            "max_abs_score": max(c["max_abs_score"] for c in calls)}
+
+
+def serve_family(arch, layers, slots, max_len, prompts, max_new, dispatch,
+                 step_dtype):
+    """One family through ``ServeEngine`` on the card (bf16, int8 KV cache,
+    weights from a seeded generator there, float32 reductions in cuBLAS):
+    prefill of every request, then decode steps until each has ``max_new``
+    tokens; K11 launches counted over both, one decode step from a snapshot
+    held against the same step with K11's plain version where the model
+    has attention (:func:`hold_family_step`), and two steps profiled."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN_KINDS
+    from repro_torch.models import model as M
+    from repro_torch.models.blocks import MOE_KINDS
     from repro_torch.serve import ServeEngine
 
     # on by default: cuBLAS may reduce bfloat16 products in bfloat16; off
     # here, so the served numbers are those of float32 reductions
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    cfg = get_config(LM_ARCH).replace(kv_quant=True)
+    cfg = get_config(arch).replace(kv_quant=True)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    if dispatch is not None:
+        cfg = cfg.replace(moe_dispatch=dispatch)
     dev = torch.device("cuda")
+    kinds = M.layer_kinds(cfg)
+    attn_layers = sum(k in ATTN_KINDS + ("mamba_attn",) for k in kinds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = M.init(cfg, torch.Generator(device=dev).manual_seed(LM_SEED),
-                    device=dev)
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(
+        FAMILY_SEED), device=dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(params, cfg, max_batch=LM_SLOTS, max_len=LM_MAX_LEN,
+    eng = ServeEngine(params, cfg, max_batch=slots, max_len=max_len,
                       device=dev)
-    rng = np.random.default_rng(LM_SEED + 1)
-    lens = lm_prompt_lengths()
+    lens, rng = family_prompt_lengths(arch)
     for n in lens:
         eng.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                   max_new_tokens=LM_MAX_NEW)
-
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng._admit()              # one prefill per request, caches copied in
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    snapshot = (clone_caches(eng.caches), eng.last_tokens.copy(),
-                eng.lengths.copy())
-    step_ms, step_tokens, step_bytes = [], [], []
-    while any(r is not None for r in eng.active):
-        lengths = eng.lengths.tolist()
+                   max_new_tokens=max_new)
+    spy = MoeSpy() if cfg.n_experts else None
+    try:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        n = eng.step()        # reads the tokens back: the card is done
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        step_tokens.append(n)
-        step_bytes.append(decode_step_bytes(cfg, lengths, LM_MAX_LEN)[0])
-    lm_path = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    steps = len(step_ms)
-    if lm_path["decode_attention_int8"] != cfg.n_layers * steps:
-        raise AssertionError(
-            f"serve_lm: {lm_path['decode_attention_int8']} K11 launches for "
-            f"{steps} decode steps of {cfg.n_layers} layers")
-    done = eng.finished
-    if len(done) != LM_SLOTS or any(
-            len(r.generated) != LM_MAX_NEW or not r.done or
-            not all(0 <= t < cfg.vocab_size for t in r.generated)
-            for r in done.values()):
-        raise AssertionError("serve_lm: a request did not finish with "
-                             f"{LM_MAX_NEW} tokens in the vocabulary")
+        eng._admit()          # one prefill per request, caches copied in
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        prefill_branches = spy.take()[0] if spy else None
+        snapshot = (clone_caches(eng.caches), eng.last_tokens.copy(),
+                    eng.lengths.copy())
+        step_ms, step_tokens, step_bytes = [], [], []
+        decode_branches = {"ell": 0, "csr": 0}
+        while any(r is not None for r in eng.active):
+            lengths = eng.lengths.tolist()
+            t0 = time.perf_counter()
+            n = eng.step()    # reads the tokens back: the card is done
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_tokens.append(n)
+            hit = None
+            if spy:
+                branches, routes = spy.take()
+                for k, v in branches.items():
+                    decode_branches[k] += v
+                moe_layers = [i for i, k in enumerate(kinds)
+                              if k in MOE_KINDS]
+                hit = {i: int(torch.unique(r).numel())
+                       for i, r in zip(moe_layers, routes)}
+            step_bytes.append(family_step_bytes(cfg, eng.caches, lengths,
+                                                hit))
+        path = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        steps = len(step_ms)
+        if path["decode_attention_int8"] != attn_layers * steps:
+            raise AssertionError(
+                f"serve_families {arch}: {path['decode_attention_int8']} K11 "
+                f"launches for {steps} decode steps of {attn_layers} "
+                f"attention layers")
+        done = [r for _, r in sorted(eng.finished.items())]
+        if len(done) != slots or any(
+                len(r.generated) != max_new or not r.done or
+                not all(0 <= t < cfg.vocab_size for t in r.generated)
+                for r in done):
+            raise AssertionError(f"serve_families {arch}: a request did not "
+                                 f"finish with {max_new} tokens in the "
+                                 f"vocabulary")
 
-    # one full-width step: K11 against its plain version in its place
-    caches, toks, lengths = snapshot
-    toks = torch.from_numpy(toks).long().to(dev)
-    pos = torch.from_numpy(lengths).to(dev)
-    with torch.no_grad():
-        logits_k, _ = M.decode_step(params, toks, clone_caches(caches), pos,
-                                    cfg)
-        A.decode_attention_int8 = (
-            lambda *a, **kw: K11.decode_attention_int8_plain(*a, **kw))
-        try:
-            logits_p, _ = M.decode_step(params, toks, caches, pos, cfg)
-        finally:
-            A.decode_attention_int8 = K11.decode_attention_int8
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-        reduced
-    lk, lp = logits_k.float(), logits_p.float()
-    if lk.shape != (LM_SLOTS, 1, cfg.vocab_size) or \
-            not bool(torch.isfinite(lk).all()):
-        raise AssertionError(f"serve_lm: bad logits {tuple(lk.shape)}")
-    rel = float((lk - lp).abs().max() / lp.abs().max())
-    if rel > LM_STEP_REL_TOL:
-        raise AssertionError(f"serve_lm: the decode step with K11 is "
-                             f"{rel} (of max |logits|) off the plain step")
-    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    trace = profile_decode(params, cfg, snapshot)
-    first_step = [r.generated[1] for r in sorted(done.values(),
-                                                 key=lambda r: r.rid)]
+        step_check = (hold_family_step(
+            params, cfg, snapshot, [r.generated[1] for r in done], spy, arch,
+            step_dtype) if attn_layers else None)
+        trace = profile_decode(params, cfg, snapshot)
+    finally:
+        if spy:
+            spy.close()
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
 
     decode_s = sum(step_ms) / 1e3
-    decode_tokens = sum(step_tokens)
-    generated = sum(len(r.generated) for r in done.values())
-    _, weight_bytes = decode_step_bytes(cfg, [0] * LM_SLOTS, LM_MAX_LEN)
-    whole_cache = cfg.n_layers * LM_SLOTS * LM_MAX_LEN * cfg.n_kv_heads * (
-        2 * cfg.head_dim + 4)
+    generated = sum(len(r.generated) for r in done)
+    median = statistics.median(step_ms)
     out = {
-        "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-        "kv_quant": True, "n_params": M.n_params(cfg), "slots": LM_SLOTS,
-        "max_len": LM_MAX_LEN, "prompt_lengths": lens,
-        "max_new_tokens": LM_MAX_NEW,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "layer_kinds": sorted(set(kinds)), "dtype": cfg.dtype,
+        "kv_quant": True, "n_params": M.n_params(cfg),
+        "n_active_params": M.n_active_params(cfg), "slots": slots,
+        "max_len": max_len, "prompt_lengths": lens, "max_new_tokens": max_new,
+        "moe_dispatch": cfg.moe_dispatch if cfg.n_experts else None,
         "bf16_reduced_precision_reduction": False,
         "t_init_s": t_init,
-        "prefill_ms_per_request": t_prefill * 1e3 / LM_SLOTS,
+        "prefill_ms_per_request": t_prefill * 1e3 / slots,
         "prefill_tokens_per_s": sum(lens) / t_prefill,
-        "decode_steps": steps,
+        "decode_steps": steps, "decode_ms_median": median,
         "decode_ms_per_step": decode_s * 1e3 / steps,
-        "decode_ms_median": statistics.median(step_ms),
         "decode_ms_steps": step_ms,
-        "decode_tokens_per_s": decode_tokens / decode_s,
+        "decode_tokens_per_s": sum(step_tokens) / decode_s,
         "tokens_per_s": generated / (t_prefill + decode_s),
-        "generated_tokens": generated,
-        "peak_memory_gb": peak / 1e9,
+        "generated_tokens": generated, "peak_memory_gb": peak / 1e9,
+        "weight_bytes": family_weight_bytes(cfg),
         "step_bound_ms": sum(step_bytes) / steps / PEAK_BYTES_PER_S * 1e3,
         "step_bytes_mean": sum(step_bytes) / steps,
-        "weight_bytes": weight_bytes, "whole_cache_bytes": whole_cache,
-        "step_bound_ms_whole_cache": (weight_bytes + whole_cache)
-        / PEAK_BYTES_PER_S * 1e3,
-        "trace": trace,
+        "attention_layers": attn_layers,
+        "k11_launches": path["decode_attention_int8"],
+        "k11_launches_per_step": path["decode_attention_int8"] / steps,
+        "step_vs_plain": step_check, "trace": trace,
         # the card's idle share of a decode step: 1 - busy time / step time
-        "idle_share": 1.0 - trace["device_ms_per_step"]
-        / statistics.median(step_ms),
-        "k11_launches": lm_path["decode_attention_int8"],
-        "k11_launches_per_step": lm_path["decode_attention_int8"] / steps,
-        "step_vs_plain": {"max_rel_err": rel, "tolerance": LM_STEP_REL_TOL,
-                          "argmax_agree": agree,
-                          "argmax_is_served_token": float(np.mean(
-                              [a == b for a, b in zip(
-                                  lk.argmax(-1)[:, 0].tolist(),
-                                  first_step)]))}}
-    emit("serve_lm", **out)
-    del eng, params, snapshot, caches, logits_k, logits_p
+        "idle_share": 1.0 - trace["device_ms_per_step"] / median}
+    if spy:
+        out["dispatch"] = {"prefill": prefill_branches,
+                           "decode": decode_branches}
+    del eng, params, snapshot
     torch.cuda.empty_cache()
-    return out, lm_path
+    return out, path
+
+
+def phase_serve_families():
+    """``serve_family`` for each of ``FAMILIES``, one ``emit`` line each;
+    returns the K11 launches of each family's run and its decode steps."""
+    paths, steps = {}, {}
+    for family in FAMILIES:
+        out, paths[family[0]] = serve_family(*family)
+        emit("serve_families", **out)
+        steps[family[0]] = {"decode_steps": out["decode_steps"],
+                            "k11_per_step": out["k11_launches_per_step"]}
+    return paths, steps
 
 
 # ---------------------------------------------------------------------------
@@ -2787,17 +3044,16 @@ def main() -> int:
             raise AssertionError(f"{name} never launched {idle}")
     del dbs, db, mats, stream_base
     torch.cuda.empty_cache()
-    # the LM server, counted on its own inside the phase
-    lm, lm_path = timed("serve_lm", phase_serve_lm)
+    # the LM servers, each family counted on its own inside the phase
+    lm_paths, lm_steps = timed("serve_families", phase_serve_families)
     launches = {k: (spmm_path if k.endswith("_spmm") else spmv_path)[k]
                 for k in SPARSE_KERNELS}
-    launches["decode_attention_int8"] = lm_path["decode_attention_int8"]
+    launches["decode_attention_int8"] = \
+        lm_paths[LM_ARCH]["decode_attention_int8"]
     emit("launches", main_path=launches, spmv_path=spmv_path,
          spmm_path=spmm_path, hybrid_path=hybrid_path,
          service_path=service_path, stream_path=stream_path,
-         sharded_path=sharded_path, lm_path=lm_path,
-         lm_decode_steps=lm["decode_steps"],
-         k11_per_decode_step=lm["k11_launches_per_step"])
+         sharded_path=sharded_path, lm_paths=lm_paths, lm_steps=lm_steps)
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"the main path never launched {idle}")

@@ -54,8 +54,9 @@ the kernel's plain version.  ``--kernels`` picks the set:
   kernel forced (``mma``, ``rows`` — the first port's lane groups); K11
   ``decode_attention_int8`` at every case of ``chip_smoke.K11_CASES`` (this
   checkout's list, inputs built as ``chip_smoke.py`` builds them).
-* ``decode_step``: the LM server's decode step, as ``chip_smoke.py``'s
-  ``serve_lm`` phase serves it (this checkout's phase, the checkout's
+* ``decode_step``: the LM server's decode step, as ``chip_smoke.py``
+  serves qwen3-1.7b (the ``serve_families`` phase's first model, or the
+  ``serve_lm`` phase of a checkout that has it; the checkout's
   ``repro_torch``: qwen3-1.7b at full width and depth, 8 requests into 8
   slots of 8192, 32 new tokens each): the host-clock ms of each decode step
   and the card's busy ms a step from its ``torch.profiler`` trace.
@@ -631,15 +632,18 @@ def bcsr_k11_cases():
 
 
 def decode_step_cases():
-    """The LM server's decode steps, served as ``chip_smoke.py``'s
-    ``serve_lm`` phase serves them (``--kernels decode_step``): the
-    host-clock ms of every step and the card's busy ms a step."""
+    """The LM server's decode steps, served as ``chip_smoke.py`` serves
+    qwen3-1.7b (``--kernels decode_step``): the host-clock ms of every step
+    and the card's busy ms a step."""
     import repro_torch       # the checkout's, before chip_smoke adds ROOT/src
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke as smoke
 
-    out, _ = smoke.phase_serve_lm()
+    if hasattr(smoke, "phase_serve_lm"):      # an older checkout
+        out, _ = smoke.phase_serve_lm()
+    else:
+        out, _ = smoke.serve_family(*smoke.FAMILIES[0])
     return ([{"key": "serve_lm/decode_ms_step", "ms": out["decode_ms_steps"],
               "library_ms": None},
              {"key": "serve_lm/device_ms_step",

@@ -1,14 +1,14 @@
 """Block kinds: spec/apply/cache-init triples, composed by ``model.py``.
 
-The port of the JAX package's ``models/blocks.py`` for the attention kinds
-``attn`` (global attention + MLP) and ``local`` (sliding-window attention
-with a ring-buffer cache + MLP):
+The port of the JAX package's ``models/blocks.py``, every kind.  Residual
+structure:
 
-    x += Attn(LN(x)); x += MLP(LN(x))
+  attn/local[_moe]: x += Attn(LN(x)); x += MLP-or-MoE(LN(x))
+  mamba[_attn]:     x += Mamba(LN(x)); [+ the zamba2 *shared* attn+MLP block]
+  mlstm/slstm:      x += xLSTM(LN(x))   (projections live inside the block)
 
-The other kinds of the reference (``moe``, ``local_moe``, ``mamba``,
-``mamba_attn``, ``mlstm``, ``slstm``) raise ``NotImplementedError``: they
-are still to port (ROADMAP A16).
+Caches are written in place; :func:`block_apply` returns the dict it was
+given.
 """
 from __future__ import annotations
 
@@ -16,28 +16,38 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ATTN_KINDS, ModelConfig
 from ..device import DeviceLike
 from .attention import (attention_apply, attention_spec, init_kv_cache,
                         kv_cache_len)
 from .layers import mlp_apply, mlp_spec, rms_norm, rms_norm_spec
+from .moe import moe_apply, moe_spec
+from .ssm import init_mamba_cache, mamba_apply, mamba_spec
+from .xlstm import (init_mlstm_cache, init_slstm_cache, mlstm_apply,
+                    mlstm_spec, slstm_apply, slstm_spec)
 
-PORTED_KINDS = ("attn", "local")
-UNPORTED_KINDS = ("moe", "local_moe", "mamba", "mamba_attn", "mlstm",
-                  "slstm")
-
-
-def _check_kind(kind: str) -> None:
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported to PyTorch yet (ROADMAP "
-            f"A16); the port runs {PORTED_KINDS}")
-    if kind not in PORTED_KINDS:
-        raise KeyError(kind)
+MOE_KINDS = ("moe", "local_moe")
 
 
 def block_spec(kind: str, cfg: ModelConfig) -> Dict[str, Any]:
-    _check_kind(kind)
+    d = cfg.d_model
+    if kind in ("attn", "local"):
+        return {"ln1": rms_norm_spec(d), "attn": attention_spec(cfg),
+                "ln2": rms_norm_spec(d), "mlp": mlp_spec(cfg)}
+    if kind in MOE_KINDS:
+        return {"ln1": rms_norm_spec(d), "attn": attention_spec(cfg),
+                "ln2": rms_norm_spec(d), "moe": moe_spec(cfg)}
+    if kind in ("mamba", "mamba_attn"):
+        return {"ln": rms_norm_spec(d), "mamba": mamba_spec(cfg)}
+    if kind == "mlstm":
+        return {"ln": rms_norm_spec(d), "mlstm": mlstm_spec(cfg)}
+    if kind == "slstm":
+        return {"ln": rms_norm_spec(d), "slstm": slstm_spec(cfg)}
+    raise KeyError(kind)
+
+
+def shared_block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """zamba2's weight-shared attention block (one param set, many calls)."""
     d = cfg.d_model
     return {"ln1": rms_norm_spec(d), "attn": attention_spec(cfg),
             "ln2": rms_norm_spec(d), "mlp": mlp_spec(cfg)}
@@ -45,28 +55,75 @@ def block_spec(kind: str, cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, device: DeviceLike = None) -> Dict[str, Any]:
-    _check_kind(kind)
-    return {"attn": init_kv_cache(cfg, batch, kv_cache_len(cfg, kind, max_len),
-                                  dtype, device=device)}
+    if kind in ATTN_KINDS:
+        return {"attn": init_kv_cache(
+            cfg, batch, kv_cache_len(cfg, kind, max_len), dtype,
+            device=device)}
+    if kind == "mamba":
+        return {"mamba": init_mamba_cache(cfg, batch, dtype, device)}
+    if kind == "mamba_attn":
+        return {"mamba": init_mamba_cache(cfg, batch, dtype, device),
+                "attn": init_kv_cache(cfg, batch, max_len, dtype,
+                                      device=device)}
+    if kind == "mlstm":
+        return {"mlstm": init_mlstm_cache(cfg, batch, dtype, device)}
+    if kind == "slstm":
+        return {"slstm": init_slstm_cache(cfg, batch, dtype, device)}
+    raise KeyError(kind)
 
 
 def block_apply(kind: str, cfg: ModelConfig, params, x: torch.Tensor, *,
-                cache=None, cache_len=None
+                shared_params=None, cache=None, cache_len=None
                 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (x, cache, aux_loss); a given cache is updated in place."""
-    _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    window = cfg.window if kind == "local" else None
-    theta = (cfg.rope_theta_global
-             if kind == "attn" and cfg.rope_theta_global else None)
-    h, kv = attention_apply(
-        params["attn"], rms_norm(params["ln1"], x, cfg.norm_eps), cfg,
-        window=window, rope_theta=theta,
-        cache=None if cache is None else cache["attn"], cache_len=cache_len)
-    x = x + h
-    x = x + mlp_apply(params["mlp"], rms_norm(params["ln2"], x, cfg.norm_eps),
-                      cfg)
-    return x, (None if cache is None else {"attn": kv}), aux
+
+    def sub(name):
+        return None if cache is None else cache[name]
+
+    if kind in ATTN_KINDS:
+        local = kind in ("local", "local_moe")
+        theta = (cfg.rope_theta_global
+                 if kind == "attn" and cfg.rope_theta_global else None)
+        h, _ = attention_apply(
+            params["attn"], rms_norm(params["ln1"], x, cfg.norm_eps), cfg,
+            window=cfg.window if local else None, rope_theta=theta,
+            cache=sub("attn"), cache_len=cache_len)
+        x = x + h
+        h2_in = rms_norm(params["ln2"], x, cfg.norm_eps)
+        if kind in MOE_KINDS:
+            h2, aux = moe_apply(params["moe"], h2_in, cfg)
+        else:
+            h2 = mlp_apply(params["mlp"], h2_in, cfg)
+        return x + h2, cache, aux
+
+    if kind in ("mamba", "mamba_attn"):
+        h, _ = mamba_apply(params["mamba"],
+                           rms_norm(params["ln"], x, cfg.norm_eps), cfg,
+                           cache=sub("mamba"))
+        x = x + h
+        if kind == "mamba_attn":
+            if shared_params is None:
+                raise ValueError("mamba_attn needs the shared block's "
+                                 "params (zamba2's params['shared'])")
+            h, _ = attention_apply(
+                shared_params["attn"],
+                rms_norm(shared_params["ln1"], x, cfg.norm_eps), cfg,
+                cache=sub("attn"), cache_len=cache_len)
+            x = x + h
+            x = x + mlp_apply(shared_params["mlp"],
+                              rms_norm(shared_params["ln2"], x, cfg.norm_eps),
+                              cfg)
+        return x, cache, aux
+
+    if kind in ("mlstm", "slstm"):
+        apply = mlstm_apply if kind == "mlstm" else slstm_apply
+        h, _ = apply(params[kind], rms_norm(params["ln"], x, cfg.norm_eps),
+                     cfg, cache=sub(kind))
+        return x + h, cache, aux
+
+    raise KeyError(kind)
 
 
-__all__ = ["PORTED_KINDS", "block_spec", "init_block_cache", "block_apply"]
+__all__ = ["block_spec", "shared_block_spec", "init_block_cache",
+           "block_apply", "MOE_KINDS"]

@@ -6,9 +6,10 @@ position of the layer pattern stacked over its repetitions under
 ``rem/rem{i}``.  :func:`params_from_jax` takes that tree as numpy arrays and
 returns the port's: one dict per layer under ``layers`` (layer
 ``r * period + i`` is repetition ``r`` of position ``i``; the remainder
-follows), each matmul weight stored once in the compute dtype (the cast the
-reference applies on every call, so the numbers are equal) and each norm
-scale in float32.
+follows) and zamba2's unstacked ``shared`` block as it is, each matmul
+weight stored once in the compute dtype (the cast the reference applies on
+every call, so the numbers are equal) and each norm scale, and each matrix
+the reference reads in float32 (``model.storage_dtype``), in float32.
 """
 from __future__ import annotations
 
@@ -39,10 +40,7 @@ def params_from_jax(tree: Any, cfg: ModelConfig, device: DeviceLike = None,
     """The port's parameters from the reference's tree of numpy arrays (or
     anything ``np.asarray`` takes), on ``device`` (default: the card).
     ``dtype`` is the dtype of the matmul weights (default
-    ``cfg.compute_dtype``); norm scales stay float32."""
-    if "shared" in tree:
-        raise NotImplementedError("shared blocks (zamba2's mamba_attn) are "
-                                  "not ported yet (ROADMAP A16)")
+    ``cfg.compute_dtype``); the float32 leaves stay float32."""
     dev = resolve_device(device)
     spec = model_spec(cfg)
 
@@ -66,6 +64,8 @@ def params_from_jax(tree: Any, cfg: ModelConfig, device: DeviceLike = None,
         layers.append(tree["rem"][f"rem{i}"])
     src = {"embed": tree["embed"], "final_norm": tree["final_norm"],
            "head": tree.get("head", {})}
+    if "shared" in spec:        # one set, not stacked
+        src["shared"] = tree["shared"]
     out = _walk({k: v for k, v in spec.items() if k != "layers"}, src, "",
                 put)
     out["layers"] = [_walk(s, layer, f"/layers/{n}", put)

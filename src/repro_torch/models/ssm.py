@@ -1,0 +1,194 @@
+"""Mamba-2 (SSD) block — zamba2's backbone.
+
+The port of the JAX package's ``models/ssm.py``.  State-space recurrence per
+head h with scalar decay:
+
+    a_t = exp(dt_t * A_h)            (A_h < 0)
+    H_t = a_t * H_{t-1} + dt_t * B_t (x) x_t        H: (state, head_dim)
+    y_t = C_t . H_t + D_h * x_t
+
+Prefill runs the *chunked* SSD algorithm (:func:`_ssd_chunked`: an
+intra-chunk quadratic term plus the state carried between chunks, a Python
+loop over chunks where the reference scans).  Decode is the one-step
+recurrence with a (state x head_dim) cache per head plus a (conv_w-1)-deep
+conv cache.  The ``h`` cache, ``dt``, ``A`` and every state stay float32; the
+conv cache is in the cache dtype.  A given cache is written in place.
+
+Plain PyTorch throughout: the reference computes these with einsums and a
+``lax.scan`` outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..device import DeviceLike, resolve_device
+from ..sharding.rules import ParamSpec
+from .layers import rms_norm
+
+
+def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    d_in = cfg.ssm_expand * cfg.d_model
+    heads = d_in // cfg.ssm_head_dim
+    return d_in, heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def mamba_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    d_in, H, hd, N = _dims(cfg)
+    conv_ch = d_in + 2 * N
+    return {
+        # [z (d_in) | x (d_in) | B (N) | C (N) | dt (H)]
+        "in_proj": ParamSpec((d, 2 * d_in + 2 * N + H), ("embed", "inner")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_ch), ("conv", "inner")),
+        "conv_b": ParamSpec((conv_ch,), ("inner",), init="zeros"),
+        "A_log": ParamSpec((H,), (None,), init="zeros"),
+        "D": ParamSpec((H,), (None,), init="ones"),
+        "dt_bias": ParamSpec((H,), (None,), init="zeros"),
+        "norm": ParamSpec((d_in,), (None,), init="ones"),
+        "out_proj": ParamSpec((d_in, d), ("inner", "embed")),
+    }
+
+
+def causal_conv(u: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv then SiLU: u (B, L, C), w (K, C), b (C,)."""
+    K, L = w.shape[0], u.shape[1]
+    u_pad = F.pad(u, (0, 0, K - 1, 0))
+    out = sum(u_pad[:, i:i + L, :] * w[i] for i in range(K))
+    return F.silu(out + b)
+
+
+def conv_step(conv_win: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """One step of :func:`causal_conv` over the window [cache | current]
+    (B, K, C), in the promoted dtype of the cache and the weights (the
+    reference's ``einsum`` promotes a float32 cache with bfloat16
+    weights)."""
+    dt = torch.promote_types(conv_win.dtype, w.dtype)
+    co = torch.einsum("bkc,kc->bc", conv_win.to(dt), w.to(dt)) + b.to(dt)
+    return F.silu(co)
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
+                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    d_in, H, hd, N = _dims(cfg)
+    dev = resolve_device(device)
+    return {
+        "h": torch.zeros((batch, H, N, hd), dtype=torch.float32, device=dev),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in + 2 * N),
+                            dtype=dtype, device=dev),
+    }
+
+
+def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
+                cache: Optional[Dict[str, Any]] = None,
+                chunk: int = 256) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: (B, S, d).  Train/prefill when cache is None (chunked SSD);
+    prefill-and-fill when a cache is given and S > 1; one decode step when a
+    cache is given and S == 1.  A given cache is written in place and
+    returned."""
+    ct = cfg.compute_dtype
+    B, S, d = x.shape
+    d_in, H, hd, N = _dims(cfg)
+    proj = x @ params["in_proj"].to(ct)
+    z, xin, Bm, Cm, dt_raw = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+
+    A = -torch.exp(params["A_log"].float())                     # (H,) < 0
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())  # (B,S,H)
+    D = params["D"].float()
+
+    if cache is None or S > 1:
+        conv_out = causal_conv(conv_in, params["conv_w"].to(ct),
+                               params["conv_b"].to(ct))
+        xc, Bc, Cc = torch.split(conv_out, [d_in, N, N], dim=-1)
+        xh = xc.reshape(B, S, H, hd).float()
+        y, h_fin = _ssd_chunked(xh, Bc.float(), Cc.float(), dt, A,
+                                chunk=chunk,
+                                h0=None if cache is None else cache["h"])
+        y = y + D[None, None, :, None] * xh
+        if cache is not None:  # prefill: final SSM state + last (K-1) inputs
+            K = cfg.ssm_conv
+            tail = torch.cat([cache["conv"], conv_in.to(cache["conv"].dtype)],
+                             dim=1)[:, -(K - 1):, :]
+            cache["h"].copy_(h_fin)
+            cache["conv"].copy_(tail)
+    else:
+        # decode: conv over [cache | current], one recurrence step
+        conv_win = torch.cat([cache["conv"], conv_in.to(cache["conv"].dtype)],
+                             dim=1)                              # (B, K, C)
+        co = conv_step(conv_win, params["conv_w"].to(ct),
+                       params["conv_b"].to(ct))                  # (B, C)
+        xc, Bc, Cc = torch.split(co, [d_in, N, N], dim=-1)
+        xh = xc.reshape(B, H, hd).float()
+        Bt, Ct = Bc.float(), Cc.float()                          # (B, N)
+        dt1 = dt[:, 0]                                           # (B, H)
+        a = torch.exp(dt1 * A[None, :])
+        h_new = (a[:, :, None, None] * cache["h"] +
+                 dt1[:, :, None, None] * Bt[:, None, :, None]
+                 * xh[:, :, None, :])
+        y = torch.einsum("bn,bhnd->bhd", Ct, h_new)
+        y = (y + D[None, :, None] * xh)[:, None]                 # (B,1,H,hd)
+        cache["h"].copy_(h_new)
+        cache["conv"].copy_(conv_win[:, 1:])
+
+    y = y.reshape(B, S, d_in).to(ct)
+    y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps)
+    y = y * F.silu(z)
+    return y @ params["out_proj"].to(ct), cache
+
+
+def _ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                 dt: torch.Tensor, A: torch.Tensor, *, chunk: int,
+                 h0: Optional[torch.Tensor] = None):
+    """Chunked SSD: x (B,S,H,hd), Bm/Cm (B,S,N), dt (B,S,H), A (H,).
+
+    Per chunk of length L:
+      intra: y[t] += sum_{s<=t} exp(lam_t - lam_s) dt_s (C_t.B_s) x_s
+      inter: y[t] += exp(lam_t) C_t . Hprev ;
+             Hnew = exp(lam_L) Hprev + sum_s exp(lam_L - lam_s) dt_s B_s x_s^T
+
+    S must be a multiple of ``min(chunk, S)``, as in the reference (a
+    prompt longer than a chunk and not a multiple of it fails there too).
+    """
+    B, S, H, hd = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    assert S % L == 0, (S, L)
+    dev = x.device
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+    h = (torch.zeros((B, H, N, hd), dtype=torch.float32, device=dev)
+         if h0 is None else h0)
+    ys = []
+    for c0 in range(0, S, L):
+        xk, bk, ck = x[:, c0:c0 + L], Bm[:, c0:c0 + L], Cm[:, c0:c0 + L]
+        dtk = dt[:, c0:c0 + L]                                   # (B,L,H)
+        lam = torch.cumsum(dtk * A[None, None, :], dim=1)        # (B,L,H)
+        # intra-chunk quadratic term; exp of the masked upper triangle
+        # overflows to inf, so select, never multiply by the mask
+        cb = torch.einsum("bln,bmn->blm", ck, bk)                # (B,L,L)
+        decay = lam[:, :, None, :] - lam[:, None, :, :]          # (B,L,L,H)
+        M = torch.where(mask[None, :, :, None],
+                        torch.exp(decay) * cb[..., None] * dtk[:, None, :, :],
+                        zero)
+        y = torch.einsum("blsh,bshd->blhd", M, xk)
+        # inter-chunk: contribution of the carried state
+        y = y + torch.exp(lam)[..., None] * torch.einsum(
+            "bln,bhnd->blhd", ck, h)
+        # state update
+        lam_L = lam[:, -1:, :]                                   # (B,1,H)
+        w = torch.exp(lam_L - lam) * dtk                         # (B,L,H)
+        h = (torch.exp(lam_L)[:, 0, :, None, None] * h +
+             torch.einsum("blh,bln,blhd->bhnd", w, bk, xk))
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+__all__ = ["mamba_spec", "mamba_apply", "init_mamba_cache", "causal_conv",
+           "conv_step"]

@@ -38,7 +38,10 @@ class Request:
 
 
 def _insert_cache(caches, slot_caches, b: int) -> None:
-    """Copy a single-sequence cache tree into batch index ``b``."""
+    """Copy a single-sequence cache tree into batch index ``b``.  Every leaf
+    holds the batch first, so a slot's KV rows and its recurrent states
+    (Mamba's ``h`` and ``conv``, xLSTM's ``C/n/m/conv`` and ``c/n/h/m``) are
+    replaced whole."""
     for full, one in zip(tree_leaves(caches), tree_leaves(slot_caches)):
         full[b].copy_(one[0])
 

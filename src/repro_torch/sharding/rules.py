@@ -7,7 +7,7 @@ axes are kept so a spec reads the same in both packages; on one card nothing
 maps them onto a mesh, and the reference's activation constraints
 (``with_logical_constraint``) are the identity here, so the port has no
 counterpart of them.  Meshes and ``ShardingRules`` shard LM parameters and
-come with the rest of the LM substrate (ROADMAP.md item A16); the sharded
+come with the rest of the LM substrate (ROADMAP.md item A16b); the sharded
 SpMV tier (``sharding/spmv.py``) reads none of them.
 
 Spec trees are nested ``dict``s and ``list``s with ``ParamSpec`` leaves.
@@ -15,7 +15,7 @@ Spec trees are nested ``dict``s and ``list``s with ``ParamSpec`` leaves.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
@@ -31,6 +31,9 @@ class ParamSpec:
     axes: Axes
     init: str = "normal"        # normal | zeros | ones | embed
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in) for "normal"
+    #: port only: the leaf is read in float32 (the reference casts its
+    #: float32 master with ``.astype(float32)``), so it is stored so
+    float32: bool = False
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -57,9 +60,8 @@ def tree_leaves(tree: Any) -> list:
 def stack_spec(spec_tree: Any, reps: int, axis_name: Optional[str] = None) -> Any:
     """Add a leading (reps,) 'layers' dimension to every spec — the stacked
     layout of the reference's scan over layer repetitions."""
-    return tree_map(lambda s: ParamSpec(shape=(reps,) + s.shape,
-                                        axes=(axis_name,) + s.axes,
-                                        init=s.init, scale=s.scale), spec_tree)
+    return tree_map(lambda s: replace(s, shape=(reps,) + s.shape,
+                                      axes=(axis_name,) + s.axes), spec_tree)
 
 
 def _init_leaf(gen: torch.Generator, s: ParamSpec, dtype: torch.dtype,

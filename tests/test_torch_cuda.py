@@ -495,6 +495,47 @@ def test_cuda_int8_decode_step_launches_k11_per_layer(cuda, arch):
                                logits["cpu"].numpy(), rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["dbrx-132b", "mixtral-8x22b",
+                                  "zamba2-1.2b"])
+def test_cuda_new_families_decode_step_k11_against_plain(cuda, arch,
+                                                         monkeypatch):
+    """The MoE and hybrid archs' int8 decode step on the card: K11 launches
+    once per attention layer (every layer of dbrx and mixtral, zamba2's
+    shared block in its mamba_attn layers), and the step's logits equal
+    the same step with K11's plain version in its place (float32)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import decode_attention as K11
+    from repro_torch.models import attention as TA
+    from repro_torch.models import model as TM
+    from repro_torch.sharding.rules import tree_map
+    cfg = smoke_config(get_config(arch)).replace(kv_quant=True,
+                                                 moe_dispatch="auto")
+    params = tree_map(lambda t: t.to(cuda), TM.init(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(46).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda)
+    caches = TM.init_caches(cfg, 2, 48, torch.float32, device=cuda)
+    TM.prefill(params, {"tokens": toks[:, :-1]}, caches, cfg)
+    snapshot = tree_map(torch.clone, caches)
+    pos = torch.tensor([39, 30], device=cuda)
+    attn_layers = sum(k in ("moe", "local_moe", "mamba_attn")
+                      for k in TM.layer_kinds(cfg))
+    before = TK.launch_counts()["decode_attention_int8"]
+    got, _ = TM.decode_step(params, toks[:, -1:], caches, pos, cfg)
+    torch.cuda.synchronize()
+    assert TK.launch_counts()["decode_attention_int8"] - before == \
+        attn_layers > 0
+    monkeypatch.setattr(TA, "decode_attention_int8",
+                        K11.decode_attention_int8_plain)
+    want, _ = TM.decode_step(params, toks[:, -1:], snapshot, pos, cfg)
+    assert torch.isfinite(got).all()
+    # K11 and its plain version sum the slots in other orders (float32,
+    # 2e-4 apart at most per output, test_torch_decode_attention.py)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # K2: entry slices, rows joined by a keyed scan and carries — deterministic
 # ---------------------------------------------------------------------------

@@ -39,9 +39,7 @@ from repro_torch.sharding import rules as TR
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
-PORTED = ("qwen3-1.7b", "h2o-danube-1.8b", "gemma3-12b", "internvl2-2b",
-          "minitron-8b", "musicgen-medium")
-UNPORTED = ("dbrx-132b", "mixtral-8x22b", "xlstm-1.3b", "zamba2-1.2b")
+PORTED = RC.ARCH_IDS
 
 
 def f32(a):
@@ -114,20 +112,103 @@ def test_param_count_and_layer_shapes_match_reference(arch):
         for path, s in mine.items():
             assert (stacked[path].shape[1:], stacked[path].axes[1:],
                     stacked[path].init) == (s.shape, s.axes, s.init), path
-    for name in ("embed", "final_norm", "head"):
+    assert ("shared" in tspec) == ("shared" in rspec) == \
+        ("mamba_attn" in t.layer_pattern)
+    for name in ("embed", "final_norm", "head", "shared"):
         want = {p: (s.shape, s.axes, s.init)
-                for p, s in by_path(rspec[name]).items()}
+                for p, s in by_path(rspec.get(name, {})).items()}
         assert want == {p: (s.shape, s.axes, s.init)
-                        for p, s in by_path(tspec[name]).items()}
+                        for p, s in by_path(tspec.get(name, {})).items()}
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_block_kinds_raise_naming_the_roadmap(arch):
-    cfg = TC.smoke_config(TC.get_config(arch))
-    with pytest.raises(NotImplementedError, match="A16"):
-        TM.model_spec(cfg)
-    with pytest.raises(NotImplementedError, match="A16"):
-        TM.init_caches(cfg, 1, 8, torch.float32, device="cpu")
+@pytest.mark.parametrize("scale", ["full", "smoke"])
+@pytest.mark.parametrize("arch", RC.ARCH_IDS)
+def test_n_active_params_matches_reference(arch, scale):
+    """Active parameters per token: all of them, but for the MoE archs,
+    whose experts count top_k / n_experts."""
+    r, t = RC.get_config(arch), TC.get_config(arch)
+    if scale == "smoke":
+        r, t = RC.smoke_config(r), TC.smoke_config(t)
+    assert TM.n_active_params(t) == RM.n_active_params(r)
+    assert (TM.n_active_params(t) < TM.n_params(t)) == bool(t.n_experts)
+
+
+def test_every_block_kind_builds_and_caches():
+    """Every architecture builds, initialises and fills its caches with
+    finite prefill and decode logits (no kind is left to port)."""
+    for arch in RC.ARCH_IDS:
+        cfg = TC.smoke_config(TC.get_config(arch))
+        p = TM.init(cfg, torch.Generator().manual_seed(1), device="cpu")
+        caches = TM.init_caches(cfg, 1, 16, torch.float32, device="cpu")
+        toks = torch.arange(8)[None] % cfg.vocab_size
+        logits, _ = TM.prefill(p, {"tokens": toks}, caches, cfg)
+        step, _ = TM.decode_step(p, toks[:, -1:], caches, 8, cfg)
+        assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+
+
+@pytest.mark.parametrize("arch,leaf", [("dbrx-132b", ("moe", "router")),
+                                       ("mixtral-8x22b", ("moe", "router")),
+                                       ("xlstm-1.3b", ("slstm", "R"))])
+def test_bf16_config_stores_float32_read_leaves_in_float32(arch, leaf):
+    """The MoE router and sLSTM's recurrent ``R`` are read in float32 from
+    float32 masters in the reference; a bfloat16 model stores them in
+    float32 (their specs say ``float32``), by ``init`` and by
+    ``params_from_jax``, so that the router's logits (and the top-k they
+    pick) are the reference's.  The other matrices are bfloat16."""
+    rcfg, tcfg = configs(arch, dtype="bfloat16")
+    rp, tp = both_params(rcfg, tcfg)
+    i = next(n for n, layer in enumerate(tp["layers"]) if leaf[0] in layer)
+    drawn = TM.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    for params in (tp, drawn):
+        block = params["layers"][i][leaf[0]]
+        assert block[leaf[1]].dtype == torch.float32
+        assert all(v.dtype == torch.bfloat16 for k, v in block.items()
+                   if k != leaf[1] and v.ndim > 1)
+    pos = f"pos{i % tcfg.period}"
+    np.testing.assert_array_equal(
+        f32(tp["layers"][i][leaf[0]][leaf[1]]),
+        np.asarray(rp["scan"][pos][leaf[0]][leaf[1]][i // tcfg.period]))
+
+
+@pytest.mark.parametrize("arch", RC.ARCH_IDS)
+def test_only_the_flagged_matrices_are_stored_in_float32(arch):
+    """A bfloat16 model stores a matrix in float32 only where its spec says
+    so — the MoE router and sLSTM's ``R``, which the reference reads in
+    float32 — and ``stack_spec`` keeps that flag."""
+    _, tcfg = configs(arch, dtype="bfloat16")
+    p = TM.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    trees = {f"/layers/{i}": layer for i, layer in enumerate(p["layers"])}
+    trees.update({f"/{k}": v for k, v in p.items() if k != "layers"})
+    leaves = {path: t for name, tree in trees.items()
+              for path, t in by_path(tree, name).items()}
+    found = {path for path, t in leaves.items()
+             if t.ndim > 1 and t.dtype == torch.float32}
+    assert found == {path for path in leaves
+                     if path.endswith(("/moe/router", "/slstm/R"))}
+    assert bool(found) == (arch in ("dbrx-132b", "mixtral-8x22b",
+                                    "xlstm-1.3b"))
+    for layer in TM.model_spec(tcfg)["layers"]:
+        flagged = {path for path, s in by_path(layer).items() if s.float32}
+        stacked = by_path(TR.stack_spec(layer, 3, "layers"))
+        assert flagged == {path for path, s in stacked.items() if s.float32}
+
+
+def test_params_from_jax_carries_zamba2s_shared_block():
+    """zamba2's shared attention block is one set, not stacked: it comes
+    across as it is, and every mamba_attn layer reads that one set."""
+    rcfg, tcfg = configs("zamba2-1.2b")
+    rp, tp = both_params(rcfg, tcfg)
+    assert set(tp["shared"]) == {"ln1", "attn", "ln2", "mlp"}
+    for path, a in by_path(tp["shared"]).items():
+        ref = rp["shared"]
+        for key in path.strip("/").split("/"):
+            ref = ref[key]
+        np.testing.assert_array_equal(f32(a), np.asarray(ref))
+    assert "attn" not in tp["layers"][0]
+    bad = jax.tree.map(np.array, rp)
+    del bad["shared"]
+    with pytest.raises(KeyError, match="shared"):
+        params_from_jax(bad, tcfg, device="cpu")
 
 
 def test_stack_spec_and_param_count_match_reference():
@@ -403,7 +484,7 @@ def test_int8_decode_applies_the_logit_softcap_as_the_reference():
     tc = TM.init_caches(tcfg, B, S + 2, torch.float32, device="cpu")
     _, rc = r_prefill(rp, {"tokens": jnp.asarray(toks[:, :-1])}, rc)
     for t, r in zip(tc["layers"], reference_caches(rc, rcfg)):
-        for n, a in r.items():
+        for n, a in r["attn"].items():
             t["attn"][n].copy_(torch.from_numpy(np.array(f32(a))))
     uncapped = [{"attn": {n: a.clone() for n, a in c["attn"].items()}}
                 for c in tc["layers"]]
