@@ -19,7 +19,10 @@ independent float64 oracle, runs the launch-geometry tuner
 then serves one model of each LM family at full width (qwen3-1.7b,
 zamba2-1.2b and xlstm-1.3b whole, dbrx-132b cut to 2 layers with the
 paper's dispatch rule on) and holds one decode step of each against the
-same step with the plain attention in the kernel's place.
+same step with the plain attention in the kernel's place; then trains
+(``Trainer``, autograd through every block kind, AdamW): five smoke models'
+steps held against the host's, qwen3-1.7b and zamba2-1.2b whole at full
+width in float32 masters and bf16, and a restart drill from a checkpoint.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
@@ -177,6 +180,31 @@ FAMILY_SEED = 1
 #: bfloat16 ulp (2^-8 relative) between the two, and 28 bfloat16 layers carry
 #: that to the logits; a wrong head, mask or scale moves them by O(1)
 LM_STEP_REL_TOL = 4e-2
+#: the train phase's held steps: the archs whose grads the reference's
+#: smoke test takes (smoke configs, float32, TF32 off), each with the
+#: tolerances of tests/test_torch_train_model.py: a gradient leaf (and a
+#: parameter leaf after one AdamW step) relative to its max magnitude, and
+#: a looser one by the leaf's path suffix.  gemma3 without its qk-norm at
+#: 5e-2: a one-ulp perturbation of these masters moves its grads by up to
+#: 2.4e-2; with it, 1e-4.  zamba2's per-channel SSM leaves at 4e-4: the
+#: reference's own jitted and op-by-op grads differ there by 1.4e-4
+#: (experiments/torch_train_grad_spread.py reads both)
+SSM_LOOSE = {f"mamba/{k}": 4e-4 for k in ("D", "A_log", "dt_bias", "norm")}
+TRAIN_HELD = (("qwen3-1.7b", {}, 1e-4, {}), ("gemma3-12b", {}, 5e-2, {}),
+              ("gemma3-12b", {"qk_norm": True}, 1e-4, {}),
+              ("dbrx-132b", {}, 1e-4, {}),
+              ("zamba2-1.2b", {}, 1e-4, SSM_LOOSE),
+              ("xlstm-1.3b", {}, 1e-4, {}))
+#: a held step's loss, relative
+TRAIN_LOSS_RTOL = 1e-4
+#: whole models trained at full width: (arch, batch, seq, steps, whether
+#: the last step's loss must be below the first's: the motif data is
+#: learnable); float32 masters, bf16 compute, remat "full", SyntheticLM
+#: seed 0, no checkpoint
+TRAIN_FULL = (("qwen3-1.7b", 8, 1024, 8, True), ("zamba2-1.2b", 4, 512, 4,
+                                                 False))
+#: H100 SXM data-sheet dense bf16 peak, the MFU's and the step bound's
+PEAK_BF16_FLOPS = 989e12
 #: (matrix, scale) served as hybrid plans (``None``: the power-law matrix
 #: ``synthesize_power_law(n=8192, alpha=1.3)``), with the four partition
 #: strategies of ``benchmarks/hybrid_blocks.py``'s sweep
@@ -2531,23 +2559,26 @@ def clone_caches(caches):
     return tree_map(torch.clone, caches)
 
 
-def profile_decode(params, cfg, snapshot, steps: int = 2):
-    """``torch.profiler`` over ``steps`` decode steps from a copy of
-    ``snapshot``: the card's busy time and the kernels launched per step,
-    and the kernels that take most of the busy time."""
+def profile_calls(fn, calls: int, cpu_ops: bool = True):
+    """``torch.profiler`` over ``calls`` calls of ``fn(i)`` (a host clock
+    around them, ended by a synchronize): the card's busy time and the
+    kernels launched per call, the share of the wall time the card was
+    idle, and the kernels that take most of the busy time.  ``cpu_ops=
+    False`` traces the CUDA activity alone (the runtime's launch calls and
+    the card's kernels, not every operator on the host): a training step's
+    tens of thousands of operators take the trace's reader seconds."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import model as M
 
-    caches, toks, lengths = snapshot
-    caches = clone_caches(caches)
-    toks = torch.from_numpy(toks).long().cuda()
-    pos = torch.from_numpy(lengths).cuda()
     torch.cuda.synchronize()
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        for i in range(steps):
-            M.decode_step(params, toks, caches, pos + i, cfg)
+    activities = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     events = prof.key_averages()
 
     def dev_us(e):
@@ -2562,11 +2593,28 @@ def profile_decode(params, cfg, snapshot, steps: int = 2):
     launches = sum(e.count for e in events
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
                                 "cuLaunchKernel"))
-    return {"steps": steps, "device_ms_per_step": total / 1e3 / steps,
-            "launches_per_step": launches / steps,
-            "top_kernels": [{"name": k[:80], "ms_per_step": us / 1e3 / steps,
+    return {"steps": calls, "device_ms_per_step": total / 1e3 / calls,
+            "wall_ms_per_step": wall * 1e3 / calls,
+            "idle_share": 1.0 - total / 1e6 / wall,
+            "launches_per_step": launches / calls,
+            "top_kernels": [{"name": k[:80], "ms_per_step": us / 1e3 / calls,
                              "share": us / total, "calls_per_step":
-                             n / steps} for k, us, n in busy[:10]]}
+                             n / calls} for k, us, n in busy[:10]]}
+
+
+def profile_decode(params, cfg, snapshot, steps: int = 2):
+    """:func:`profile_calls` over ``steps`` decode steps from a copy of
+    ``snapshot``."""
+    from repro_torch.models import model as M
+
+    caches, toks, lengths = snapshot
+    caches = clone_caches(caches)
+    toks = torch.from_numpy(toks).long().cuda()
+    pos = torch.from_numpy(lengths).cuda()
+    with torch.no_grad():
+        return profile_calls(
+            lambda i: M.decode_step(params, toks, caches, pos + i, cfg),
+            steps)
 
 
 class MoeSpy:
@@ -2951,6 +2999,233 @@ def phase_serve_families():
 
 
 # ---------------------------------------------------------------------------
+# phase: train
+# ---------------------------------------------------------------------------
+def leaf_rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 where both are all zero)."""
+    scale = float(want.abs().max())
+    err = float((got.float().cpu() - want.float()).abs().max())
+    return err / scale if scale > 0 else err
+
+
+def leaf_paths(tree, path: str = "") -> list:
+    """Each leaf's path (``layers/3/mamba/D``), in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in leaf_paths(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{path}/{i}")]
+    return [path]
+
+
+def train_held_step(arch, kw, rel, loose):
+    """One training step of ``arch``'s smoke model on the card against the
+    same step on the host, from one set of float32 masters and one batch:
+    the loss and every gradient leaf, and the parameters after AdamW given
+    the host's gradients, each leaf within its tolerance (``rel``, or
+    ``loose`` by the end of the leaf's path).  Then the card's whole step:
+    Adam's first step is lr * sign(g), so a parameter may move the other
+    way (by more than 1.5 lr) only where the host's gradient is within the
+    tolerance of zero."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg = smoke_config(get_config(arch)).replace(**kw)
+    params = M.init(cfg, torch.Generator().manual_seed(FAMILY_SEED),
+                    device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(FAMILY_SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+             for k in ("tokens", "labels")}
+    p_card = tree_map(lambda t: t.to(dev), params)
+    loss_c, g_c = value_and_grad(params, batch, cfg)
+    loss_g, g_g = value_and_grad(
+        p_card, {k: v.to(dev) for k, v in batch.items()}, cfg)
+    tols = [next((t for k, t in loose.items() if path.endswith("/" + k)),
+                 rel) for path in leaf_paths(params)]
+    grad_err = max(leaf_rel_err(a, b) / tol
+                   for a, b, tol in zip(g_g, g_c, tols))
+    loss_err = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    opt = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+
+    def tree_of(leaves):
+        it = iter(leaves)
+        return tree_map(lambda _: next(it), params)
+    want, _, _ = adamw.update(opt, tree_of(g_c), adamw.init(params), params)
+    got, _, _ = adamw.update(opt, tree_of([g.to(dev) for g in g_c]),
+                             adamw.init(p_card), p_card)
+    param_err = max(leaf_rel_err(a, b) / tol for a, b, tol in
+                    zip(tree_leaves(got), tree_leaves(want), tols))
+    # the card's own step: a parameter may move the other way only where
+    # the host's gradient is within the leaf's tolerance of zero (a sign
+    # the two gradients need not share)
+    own, _, _ = adamw.update(opt, tree_of(g_g), adamw.init(p_card), p_card)
+    flipped = near_zero = stray = 0
+    for a, b, g, tol in zip(tree_leaves(own), tree_leaves(want), g_c, tols):
+        off = (a.cpu() - b).abs() > 1.5 * opt.lr
+        near = g.abs() <= tol * g.abs().max()
+        flipped += int(off.sum())
+        near_zero += int(near.sum())
+        stray += int((off & ~near).sum())
+    out = {"arch": arch, **kw, "tol": rel, "tol_leaves": loose,
+           "loss": float(loss_g), "loss_rel_err": loss_err,
+           "grad_max_err_over_tol": grad_err,
+           "param_max_err_over_tol": param_err,
+           "own_step_params_flipped": flipped,
+           "own_step_grads_near_zero": near_zero,
+           "own_step_flips_off_near_zero": stray,
+           "n_params": sum(p.numel() for p in tree_leaves(params))}
+    if not (loss_err <= TRAIN_LOSS_RTOL and grad_err <= 1 and param_err <= 1
+            and stray == 0):
+        raise AssertionError(f"train step on the card is not the host's: "
+                             f"{out}")
+    return out
+
+
+def train_full(arch, batch, seq, steps, falls):
+    """``arch`` whole at full width through the port's ``Trainer`` on the
+    card: float32 masters from a seeded generator there, bf16 compute,
+    ``remat="full"``, ``SyntheticLM`` seed 0, no checkpoint (the state of
+    a full-width model is tens of GB).  The step time is the trainer's
+    (host clock around a step that reads its loss); one more step is
+    profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.launch.analytic import analytic_costs
+    from repro_torch.launch.dryrun import model_flops_for
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import batch_to_device
+
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    data = SyntheticLM(data_config_for(cfg, seq, batch, seed=0))
+    tc = TrainConfig(steps=steps, ckpt_every=10 ** 9, log_every=10 ** 9,
+                     seed=0)          # ckpt_every past the run: none written
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, data, tc, device=dev)
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    state = tr.run(state)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics]
+    norms = [m["grad_norm"] for m in tr.metrics]
+    step_s = [m["sec_per_step"] for m in tr.metrics]
+    median = statistics.median(step_s[1:])
+    extra = batch_to_device(data.batch_at(steps), dev)
+    trace = profile_calls(lambda i: tr._step_fn(
+        state.params, state.opt_state, extra)[2]["loss"].item(), 1,
+        cpu_ops=False)
+    if not trace["launches_per_step"] > 0:
+        raise AssertionError(f"{arch}: the profiled step shows no launch")
+    shape = ShapeConfig("train", seq, batch, "train")
+    costs = analytic_costs(cfg, shape, 1, 1, 1)
+    model_flops = model_flops_for(cfg, shape)
+    out = {"arch": arch, "batch": batch, "seq": seq, "steps": steps,
+           "dtype": cfg.dtype, "remat": cfg.remat, "masters": "float32",
+           "n_params": M.n_params(cfg), "t_init_s": t_init,
+           "ms_per_step_median": median * 1e3,
+           "ms_steps": [t * 1e3 for t in step_s],
+           "tokens_per_s": batch * seq / median,
+           "model_flops": model_flops,
+           "mfu": model_flops / median / PEAK_BF16_FLOPS,
+           "mfu_peak": "989 TF/s dense bf16 (H100 SXM data sheet)",
+           "analytic_flops": costs.flops, "analytic_bytes": costs.bytes,
+           "step_bound_ms": max(costs.flops / PEAK_BF16_FLOPS,
+                                costs.bytes / PEAK_BYTES_PER_S) * 1e3,
+           "peak_memory_gb": peak / 1e9, "losses": losses,
+           "grad_norms": norms, "profiled_step": trace}
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"{arch}: a loss or grad norm is not finite: "
+                             f"{losses} {norms}")
+    if falls and not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
+    del tr, state, extra
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_restart_drill():
+    """qwen3's smoke model cut to 2 layers trained on the card for 6 steps
+    with a checkpoint every 2 and a failure injected at step 3: it resumes
+    from step 2's checkpoint, ends at 6, and its parameters equal an
+    uninterrupted run's within the reference test's rtol=1e-6.  Also
+    reports how far two uninterrupted runs on the card are apart."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.sharding.rules import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer, run_with_restarts
+
+    cfg = smoke_config(get_config("qwen3-1.7b")).replace(n_layers=2)
+    data = SyntheticLM(data_config_for(cfg, seq_len=32, global_batch=4))
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def trainer(name, hook=None):
+            return Trainer(cfg, data, TrainConfig(
+                steps=6, ckpt_every=2, log_every=10 ** 9,
+                ckpt_dir=os.path.join(root, name)), failure_hook=hook,
+                device=dev)
+        runs = []
+        for name in ("a", "b"):
+            tr = trainer(name)
+            runs.append(tr.run(tr.init_state()).params)
+        armed = [True]
+
+        def boom(step):
+            if step == 3 and armed[0]:
+                armed[0] = False
+                raise RuntimeError("injected failure at step 3")
+        tr = trainer("drill", boom)
+        state = run_with_restarts(tr, max_restarts=2)
+        seen = [m["step"] for m in tr.metrics]
+        diffs = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                 for a, b in zip(tree_leaves(state.params),
+                                 tree_leaves(runs[0]))]
+        repeat = max(float((a - b).abs().max()) for a, b in
+                     zip(tree_leaves(runs[1]), tree_leaves(runs[0])))
+        for a, b in zip(tree_leaves(state.params), tree_leaves(runs[0])):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    finally:
+        shutil.rmtree(root)
+    if seen != [1, 2, 3, 3, 4, 5, 6] or state.step != 6:
+        raise AssertionError(f"restart drill resumed wrongly: {seen}")
+    return {"steps_seen": seen, "final_step": state.step,
+            "max_rel_diff_vs_uninterrupted": max(diffs),
+            "two_uninterrupted_runs_max_abs_diff": repeat,
+            "ckpt_dir_removed": not os.path.exists(root)}
+
+
+def phase_train():
+    """The LM substrate trained on the card, one ``emit`` line a row: the
+    held smoke steps, qwen3-1.7b and zamba2-1.2b whole at full width, and
+    the restart drill."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    if tf32:
+        raise AssertionError("TF32 matmuls are on: the held steps compare "
+                             "float32 products")
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit("train", part=name, seconds=time.perf_counter() - t0, **out)
+    for held in TRAIN_HELD:
+        part("held_step", train_held_step, *held)
+    for full in TRAIN_FULL:
+        part("full", train_full, *full)
+    part("restart_drill", train_restart_drill)
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3046,6 +3321,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the LM servers, each family counted on its own inside the phase
     lm_paths, lm_steps = timed("serve_families", phase_serve_families)
+    # the LM substrate trained: no kernel of this repo is on its path
+    kernels.reset_launch_counts()
+    timed("train", phase_train)
+    train_path = kernels.launch_counts()
     launches = {k: (spmm_path if k.endswith("_spmm") else spmv_path)[k]
                 for k in SPARSE_KERNELS}
     launches["decode_attention_int8"] = \
@@ -3053,7 +3332,8 @@ def main() -> int:
     emit("launches", main_path=launches, spmv_path=spmv_path,
          spmm_path=spmm_path, hybrid_path=hybrid_path,
          service_path=service_path, stream_path=stream_path,
-         sharded_path=sharded_path, lm_paths=lm_paths, lm_steps=lm_steps)
+         sharded_path=sharded_path, lm_paths=lm_paths, lm_steps=lm_steps,
+         train_path=train_path)
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
         raise AssertionError(f"the main path never launched {idle}")

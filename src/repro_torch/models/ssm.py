@@ -161,7 +161,6 @@ def _ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     assert S % L == 0, (S, L)
     dev = x.device
     mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
 
     h = (torch.zeros((B, H, N, hd), dtype=torch.float32, device=dev)
          if h0 is None else h0)
@@ -170,13 +169,15 @@ def _ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         xk, bk, ck = x[:, c0:c0 + L], Bm[:, c0:c0 + L], Cm[:, c0:c0 + L]
         dtk = dt[:, c0:c0 + L]                                   # (B,L,H)
         lam = torch.cumsum(dtk * A[None, None, :], dim=1)        # (B,L,H)
-        # intra-chunk quadratic term; exp of the masked upper triangle
-        # overflows to inf, so select, never multiply by the mask
+        # intra-chunk quadratic term.  The upper triangle's decay is
+        # positive and its exp overflows to inf past ~88 (a long chunk), so
+        # it is masked to -inf *before* the exp: the backward then
+        # multiplies zeros by zeros, where a select after the exp would
+        # give 0 * inf = NaN
         cb = torch.einsum("bln,bmn->blm", ck, bk)                # (B,L,L)
         decay = lam[:, :, None, :] - lam[:, None, :, :]          # (B,L,L,H)
-        M = torch.where(mask[None, :, :, None],
-                        torch.exp(decay) * cb[..., None] * dtk[:, None, :, :],
-                        zero)
+        decay = decay.masked_fill(~mask[None, :, :, None], float("-inf"))
+        M = torch.exp(decay) * cb[..., None] * dtk[:, None, :, :]
         y = torch.einsum("blsh,bshd->blhd", M, xk)
         # inter-chunk: contribution of the carried state
         y = y + torch.exp(lam)[..., None] * torch.einsum(

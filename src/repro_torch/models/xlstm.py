@@ -10,9 +10,12 @@ C: (dk, dv), normalizer n: (dk,), stabilizer m):
     C_t = f' C_{t-1} + i' k_t (x) v_t;       n_t = f' n_{t-1} + i' k_t
     y_t = (q_t . C_t) / max(|q_t . n_t|, 1)
 
-Both kinds run their step in a Python loop over time at prefill, where the
-reference scans (``scan_chunked_remat``; its rematerialization matters only
-to training).  All state is float32, sLSTM's ``R`` included (stored in
+Both kinds run their step in a Python loop over time at prefill and in
+training, where the reference scans with two-level rematerialization
+(``scan_chunked_remat``): autograd keeps every step's state of a layer for
+its backward, so a long training sequence holds O(S) states per layer
+(``remat="full"`` bounds that to the layers being recomputed).  All state
+is float32, sLSTM's ``R`` included (stored in
 float32: its spec says ``float32``); the conv cache is in the cache dtype.  A
 given cache is written in place.
 

@@ -1,6 +1,6 @@
 """Sharding tier: parameter specs (the one-device subset of the JAX
 package's ``sharding/rules.py``; its meshes and ``ShardingRules`` come with
-ROADMAP.md item A16b) and the sharded SpMV/SpMM executor
+ROADMAP.md item A16c) and the sharded SpMV/SpMM executor
 (``ShardedPlannedMatrix``; the multi-device ``shard_map`` mode is item
 A15b)."""
 from .rules import ParamSpec, init_params, param_count, stack_spec

@@ -6,9 +6,9 @@ The one-device subset of the JAX package's ``sharding/rules.py``: the specs,
 axes are kept so a spec reads the same in both packages; on one card nothing
 maps them onto a mesh, and the reference's activation constraints
 (``with_logical_constraint``) are the identity here, so the port has no
-counterpart of them.  Meshes and ``ShardingRules`` shard LM parameters and
-come with the rest of the LM substrate (ROADMAP.md item A16b); the sharded
-SpMV tier (``sharding/spmv.py``) reads none of them.
+counterpart of them.  Meshes and ``ShardingRules`` shard LM parameters over
+several devices and come with the multi-device slice (ROADMAP.md item
+A16c); the sharded SpMV tier (``sharding/spmv.py``) reads none of them.
 
 Spec trees are nested ``dict``s and ``list``s with ``ParamSpec`` leaves.
 """

@@ -1873,3 +1873,93 @@ def test_cuda_sharded_dispatch_serves_through_the_kernels(cuda, axis):
     for shard in spm.guard_report():
         assert shard["spmv"]["served_by"]["csr"] == 0
         assert shard["spmv"]["served_by"]["tuned"] == 1
+
+
+# ---------------------------------------------------------------------------
+# training: one step on the card against the same step on the host
+# ---------------------------------------------------------------------------
+def _leaf_paths(tree, path=""):
+    """Each leaf's path (``layers/3/mamba/D``), in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, f"{path}/{k}")]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{path}/{i}")]
+    return [path]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,loose", [
+    ("qwen3-1.7b", {}), ("dbrx-132b", {}),
+    ("zamba2-1.2b", {f"mamba/{k}": 4e-4 for k in ("D", "A_log", "dt_bias",
+                                                   "norm")})])
+def test_cuda_train_step_matches_the_cpu(cuda, arch, loose):
+    """One training step of the smoke model (float32, TF32 off) from one set
+    of float32 masters and one batch: the card's loss and every gradient
+    leaf equal the host's within 1e-4 of the leaf's max |g| (cuBLAS and
+    the CPU sum in other orders; zamba2's per-channel SSM leaves at 4e-4,
+    as in test_torch_train_model.py), and AdamW on the card, given the
+    host's gradients, gives the host's parameters.  (The whole step's
+    parameters are not compared: Adam's first step is lr * sign(g), so a
+    gradient within rounding of zero may step the other way.)"""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import tree_leaves, tree_map
+    cfg = smoke_config(get_config(arch))
+    params = TM.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                     dtype=torch.float32)
+    rng = np.random.default_rng(47)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 32)))
+             for k in ("tokens", "labels")}
+    p_card = tree_map(lambda t: t.to(cuda), params)
+    loss_c, g_c = value_and_grad(params, batch, cfg)
+    loss_g, g_g = value_and_grad(
+        p_card, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    assert float(loss_g) == pytest.approx(float(loss_c), rel=1e-5)
+    for path, a, b in zip(_leaf_paths(params), g_g, g_c):
+        rel = next((t for k, t in loose.items() if path.endswith("/" + k)),
+                   1e-4)
+        assert float((a.cpu() - b).abs().max()) <= \
+            rel * float(b.abs().max()), path
+    opt = adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+    it = iter(g_c)
+    grads = tree_map(lambda _: next(it), params)
+    want, _, n_c = adamw.update(opt, grads, adamw.init(params), params)
+    got, _, n_g = adamw.update(opt, tree_map(lambda t: t.to(cuda), grads),
+                               adamw.init(p_card), p_card)
+    assert float(n_g) == pytest.approx(float(n_c), rel=1e-5)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_on_the_card(cuda, tmp_path):
+    """A training state saved from the card's tensors (through the
+    reference's layout) restores onto the card, leaf for leaf."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import (jax_spec, model as TM, opt_state_from_jax,
+                                    opt_state_to_jax, params_from_jax,
+                                    params_to_jax)
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import tree_leaves
+    cfg = smoke_config(get_config("zamba2-1.2b"))
+    params = TM.init(cfg, torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda, dtype=torch.float32)
+    state = adamw.init(params)
+    save(str(tmp_path), 3, {"params": params_to_jax(params, cfg),
+                            "opt": opt_state_to_jax(state, cfg)})
+    spec = jax_spec(cfg)
+    tree, _ = restore(str(tmp_path), 3, {
+        "params": spec, "opt": adamw.AdamWState(
+            step=np.zeros((), np.int32), m=spec, v=spec)},
+        verify=True, device=cuda)
+    got = params_from_jax(tree["params"], cfg, device=cuda,
+                          dtype=torch.float32)
+    opt = opt_state_from_jax(tree["opt"], cfg, device=cuda)
+    for a, b in zip(tree_leaves(got), tree_leaves(params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    assert opt.step.device.type == "cuda" and int(opt.step) == 0
