@@ -15,8 +15,10 @@ times it beside its bound, checks every served product against an
 independent float64 oracle, runs the launch-geometry tuner
 (``KernelTuner``) on the card, serves the register-once service
 (``SpMVService``), its streaming keys (deltas applied on the card,
-``apply_delta``) and the sharded tier (``plan_sharded``, shard by shard);
-then serves one model of each LM family at full width (qwen3-1.7b,
+``apply_delta``) and the sharded tier (``plan_sharded``, shard by shard,
+then ``shard_map`` in a world of two ranks on the one card over ``gloo``,
+which also trains qwen3-1.7b at full width on a 2x1 mesh against one
+rank); then serves one model of each LM family at full width (qwen3-1.7b,
 zamba2-1.2b and xlstm-1.3b whole, dbrx-132b cut to 2 layers with the
 paper's dispatch rule on) and holds one decode step of each against the
 same step with the plain attention in the kernel's place; then trains
@@ -1045,7 +1047,11 @@ def phase_offline(mats, seconds_synthesize: float, iters: int):
 def phase_offline_spmm(mats, iters: int):
     """The off-line phase with a batch axis: one run per B of
     ``OFFLINE_BATCHES``, each timing the SpMM kernels on ``(n_cols, B)``
-    panels — the per-B D* table."""
+    panels — the per-B D* table.  The host transforms do not depend on B
+    and the SpMV phase has taken the best of three of each: here each
+    ``t_trans`` is one transform (their sum moved 3.7 % across the three
+    tables of a best-of-three run, whose ``TT`` were all >= 12.6 and ``SP``
+    <= 2.4: every ``R`` < 0.2, far from crossing ``c`` = 1)."""
     from repro_torch import api
     from repro_torch.kernels import ops
 
@@ -1054,7 +1060,8 @@ def phase_offline_spmm(mats, iters: int):
         t0 = time.perf_counter()
         db = api.offline_phase(mats, formats=OFFLINE_FORMATS, batch=batch,
                                machine=torch.cuda.get_device_name(0),
-                               spmm_impls=ops.KERNEL_SPMM_IMPLS, iters=iters)
+                               spmm_impls=ops.KERNEL_SPMM_IMPLS, iters=iters,
+                               trans_iters=1)
         if any(r.batch != batch for r in db.records):
             raise AssertionError(f"offline B={batch}: records of another B")
         rows = offline_rows(db)
@@ -2358,6 +2365,223 @@ def phase_serve_sharded(base, dbs):
 
 
 # ---------------------------------------------------------------------------
+# phase: serve_shard_map (the sharded tier's SPMD executor, ranks on a card)
+# ---------------------------------------------------------------------------
+#: ranks of the serve_shard_map world: two, both on the one card, over gloo
+SHARD_MAP_RANKS = 2
+#: products a timing averages over (each a collective of both ranks)
+SHARD_MAP_ITERS = 5
+#: the mesh train: arch (full width), layers kept, batch, sequence, steps
+MESH_TRAIN = ("qwen3-1.7b", 2, 2, 256, 3)
+#: the world's wall limit, seconds
+SHARD_MAP_WALL_S = 240
+
+
+def import_checkpoint_deps():
+    """Start importing, on a thread, what ``torch.utils.checkpoint`` imports
+    at its first call (``torch._dynamo``; a fresh process's first train
+    step took 13.7 s against 0.09 s after it on the card's host), so the
+    import runs while the process waits or works on other things."""
+    import importlib
+    return ThreadPoolExecutor(1).submit(importlib.import_module,
+                                        "torch._dynamo")
+
+
+def shard_map_times(fn, v):
+    """``(ms by CUDA events, ms by the host clock)`` of one product,
+    averaged over ``SHARD_MAP_ITERS`` back-to-back calls (each a collective
+    of every rank, so every rank runs this)."""
+    fn(v)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(SHARD_MAP_ITERS):
+        fn(v)
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / SHARD_MAP_ITERS,
+            (time.perf_counter() - t0) * 1e3 / SHARD_MAP_ITERS)
+
+
+def mesh_train_setup():
+    """(config, data, train config) of the mesh train: ``MESH_TRAIN``'s
+    arch at full width cut to its layers, no checkpoint written."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, data_config_for
+    from repro_torch.train import TrainConfig
+    arch, layers, batch, seq, steps = MESH_TRAIN
+    cfg = get_config(arch).replace(n_layers=layers)
+    return (cfg, SyntheticLM(data_config_for(cfg, seq, batch, seed=0)),
+            TrainConfig(steps=steps, ckpt_every=10 ** 9, log_every=10 ** 9,
+                        seed=0))
+
+
+def shard_map_rank(rank):
+    """One rank of the serve_shard_map world (``launch.mesh.spawn``; the
+    rank computes on ``cuda:{rank % device_count()}``): xenon2@x4 in
+    ``SHARD_MAP_RANKS`` row and column shards under ``mode="shard_map"``,
+    SpMV and SpMM at B = ``SERVICE_BATCH`` held against the float64
+    oracle, this rank's K2/K5 launches counted and each product timed;
+    then the mesh train on a ``SHARD_MAP_RANKS`` x 1 mesh."""
+    import tempfile
+    from repro_torch import api, kernels
+    from repro_torch.core import suite
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import collectives as C
+    from repro_torch.train import Trainer
+
+    marks = {"start": time.perf_counter()}
+    imported = import_checkpoint_deps()
+    base = suite.synthesize(
+        {s.name: s for s in suite.TABLE1}[STREAM_MATRIX[0]],
+        scale=STREAM_MATRIX[1])
+    marks["synthesized"] = time.perf_counter()
+    x = device_normal(base.n_cols, 71)
+    X = device_normal((base.n_cols, SERVICE_BATCH), 72)
+    inputs = {"spmv": (x, oracle_f64(base, x)),
+              "spmm": (X, oracle_f64(base, X))}
+    imported.result()      # done before anything below is timed
+    marks["oracles"] = time.perf_counter()
+    planner = api.Planner(tier="kernel")
+    out = {"rank": rank, "device": str(torch.device(
+        "cuda", torch.cuda.current_device())), "axes": {}}
+    for axis in ("row", "col"):
+        plan = planner.plan_sharded(base, n_shards=SHARD_MAP_RANKS,
+                                    axis=axis, batch=SERVICE_BATCH)
+        t0 = time.perf_counter()
+        spm = api.build_sharded(base, plan=plan, mode="auto")
+        torch.cuda.synchronize()
+        row = {"mode": spm.mode, "t_bind_s": time.perf_counter() - t0,
+               "nbytes": spm.nbytes(), "rows_pad": spm.spmd.rows_pad,
+               "nnz_pad": spm.spmd.nnz_pad}
+        if spm.mode != "shard_map":
+            raise AssertionError(f"serve_shard_map {axis}: {spm}")
+        for op, (v, oracle) in inputs.items():
+            fn = spm.spmv if op == "spmv" else spm.spmm
+            kernels.reset_launch_counts()
+            staged = C.stage.bytes
+            y = fn(v)
+            torch.cuda.synchronize()
+            staged = C.stage.bytes - staged
+            launched = {k: n for k, n in kernels.launch_counts().items()
+                        if n}
+            want = "csr_spmv" if op == "spmv" else "csr_spmm"
+            if set(launched) != {want}:
+                raise AssertionError(f"serve_shard_map rank {rank} {axis} "
+                                     f"{op}: launched {launched}")
+            ms, ms_host = shard_map_times(fn, v)
+            row[op] = {"max_rel_err": close_to(
+                f"shard_map rank {rank} {axis} {op}", y, oracle),
+                "launched": launched, "staged_bytes": staged,
+                "ms": ms, "ms_host": ms_host}
+            del y
+        out["axes"][axis] = row
+        del spm
+        marks[axis] = time.perf_counter()
+    del base, x, X, inputs
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh((SHARD_MAP_RANKS, 1), ("data", "model"))
+    cfg, data, tc = mesh_train_setup()
+    with tempfile.TemporaryDirectory() as root:
+        tc.ckpt_dir = root
+        tr = Trainer(cfg, data, tc, device=torch.device(
+            "cuda", torch.cuda.current_device()), mesh=mesh)
+        staged = C.stage.bytes
+        t0 = time.perf_counter()
+        state = tr.init_state()
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        tr.run(state)
+        del state
+        out["train"] = {"losses": [m["loss"] for m in tr.metrics],
+                        "t_init_s": t_init,
+                        "grad_norms": [m["grad_norm"] for m in tr.metrics],
+                        "ms_steps": [m["sec_per_step"] * 1e3
+                                     for m in tr.metrics],
+                        "seconds": time.perf_counter() - t0,
+                        "staged_bytes": C.stage.bytes - staged,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+    marks["train"] = time.perf_counter()
+    names = list(marks)
+    out["seconds"] = {b: marks[b] - marks[a] for a, b in zip(names, names[1:])}
+    return out
+
+
+def phase_serve_shard_map():
+    """The sharded tier's ``shard_map`` executor and the LM substrate's
+    mesh: a world of ``SHARD_MAP_RANKS`` ranks on the one card over
+    ``gloo`` (``shard_map_rank``), then the same train on one rank here;
+    the mesh's losses against this rank's."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.train import Trainer
+
+    imported = import_checkpoint_deps()
+    t0 = time.perf_counter()
+    ranks = spawn(shard_map_rank, SHARD_MAP_RANKS, wall_s=SHARD_MAP_WALL_S)
+    t_world = time.perf_counter() - t0
+    imported.result()
+    cfg, data, tc = mesh_train_setup()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, data, tc, device=torch.device("cuda"))
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    t_one_init = time.perf_counter() - t0
+    tr.run(state)
+    one = [m["loss"] for m in tr.metrics]
+    one_ms = [m["sec_per_step"] * 1e3 for m in tr.metrics]
+    t_one = time.perf_counter() - t0
+    del tr, state
+    torch.cuda.empty_cache()
+    for r in ranks:
+        got = r["train"]["losses"]
+        if len(got) != len(one) or any(
+                abs(a - b) > TRAIN_LOSS_RTOL * abs(b)
+                for a, b in zip(got, one)):
+            raise AssertionError(f"serve_shard_map: rank {r['rank']}'s "
+                                 f"mesh losses {got}, one rank's {one}")
+    arch, layers, batch, seq, steps = MESH_TRAIN
+    out = {"ranks": SHARD_MAP_RANKS, "cards": torch.cuda.device_count(),
+           "backend": "gloo", "matrix": matrix_label(*STREAM_MATRIX),
+           "batch": SERVICE_BATCH, "iters": SHARD_MAP_ITERS,
+           "t_world_s": t_world, "rank0_seconds": ranks[0]["seconds"],
+           "axes": {axis: {
+               "mode": ranks[0]["axes"][axis]["mode"],
+               "nbytes": ranks[0]["axes"][axis]["nbytes"],
+               "rows_pad": ranks[0]["axes"][axis]["rows_pad"],
+               "nnz_pad": ranks[0]["axes"][axis]["nnz_pad"],
+               **{op: {"max_rel_err": max(r["axes"][axis][op]["max_rel_err"]
+                                          for r in ranks),
+                       "launched": [r["axes"][axis][op]["launched"]
+                                    for r in ranks],
+                       "staged_bytes": [r["axes"][axis][op]["staged_bytes"]
+                                        for r in ranks],
+                       "ms": ranks[0]["axes"][axis][op]["ms"],
+                       "ms_host": ranks[0]["axes"][axis][op]["ms_host"]}
+                  for op in ("spmv", "spmm")}}
+               for axis in ("row", "col")},
+           "train": {"arch": arch, "layers": layers, "batch": batch,
+                     "seq": seq, "mesh": f"{SHARD_MAP_RANKS}x1",
+                     "losses_one_rank": one, "seconds_one_rank": t_one,
+                     "t_init_one_rank_s": t_one_init,
+                     "ms_steps_one_rank": one_ms,
+                     "t_init_mesh_s": ranks[0]["train"]["t_init_s"],
+                     "losses_mesh": ranks[0]["train"]["losses"],
+                     "ms_steps_mesh": ranks[0]["train"]["ms_steps"],
+                     "seconds_mesh": ranks[0]["train"]["seconds"],
+                     "staged_bytes": [r["train"]["staged_bytes"]
+                                      for r in ranks],
+                     "peak_bytes": [r["train"]["peak_bytes"]
+                                    for r in ranks]}}
+    emit("serve_shard_map", **out)
+    return {k: sum(r["axes"][a][op]["launched"].get(k, 0) for r in ranks
+                   for a in ("row", "col") for op in ("spmv", "spmm"))
+            for k in ("csr_spmv", "csr_spmm")}
+
+
+# ---------------------------------------------------------------------------
 # phase: decode_attention (K11 against its plain version)
 # ---------------------------------------------------------------------------
 def family_prompt_lengths(arch):
@@ -3311,6 +3535,10 @@ def main() -> int:
     kernels.reset_launch_counts()
     timed("serve_sharded", phase_serve_sharded, stream_base, dbs)
     sharded_path = kernels.launch_counts()
+    # the shard_map executor: each rank counts its own launches
+    shard_map_path = timed("serve_shard_map", phase_serve_shard_map)
+    if not all(shard_map_path.values()):
+        raise AssertionError(f"serve_shard_map launched {shard_map_path}")
     for path, name in ((stream_path, "serve_stream"),
                        (sharded_path, "serve_sharded")):
         idle = [k for k in ("csr_spmv", "csr_spmm", "ell_spmv", "ell_spmm")
@@ -3332,7 +3560,8 @@ def main() -> int:
     emit("launches", main_path=launches, spmv_path=spmv_path,
          spmm_path=spmm_path, hybrid_path=hybrid_path,
          service_path=service_path, stream_path=stream_path,
-         sharded_path=sharded_path, lm_paths=lm_paths, lm_steps=lm_steps,
+         sharded_path=sharded_path, shard_map_path=shard_map_path,
+         lm_paths=lm_paths, lm_steps=lm_steps,
          train_path=train_path)
     idle = [k for k, v in launches.items() if v == 0]
     if idle:

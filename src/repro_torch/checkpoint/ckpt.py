@@ -18,10 +18,14 @@ restores in the other (the trainer writes its state through
 is stored as its raw bytes under the dtype name ``bfloat16``, as the
 reference stores its own.
 
-``restore`` places the leaves on one device; the reference's placement
-under a tree of shardings (elastic re-shard) is multi-device (ROADMAP.md
-item A16c).  ``AsyncCheckpointer`` moves serialization off the training
-thread and keeps the latest K checkpoints.
+Leaves are stored as *global* tensors.  In a ``torch.distributed`` world
+``save`` is a collective: DTensor leaves are gathered whole on every rank,
+rank 0 writes, and the other ranks wait on a barrier.  ``restore`` with a
+tree of shardings (``sharding.rules.NamedSharding``) places each leaf with
+``distribute_tensor`` on its mesh — the elastic re-shard: a checkpoint
+saved by an N-rank mesh restores under an M-rank one.
+``AsyncCheckpointer`` moves serialization off the training thread and
+keeps the latest K checkpoints.
 """
 from __future__ import annotations
 
@@ -84,6 +88,24 @@ def _unflatten(tree: Any, leaves: List[Any]) -> Any:
     return walk(tree)
 
 
+def _world() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def _whole(tree: Any) -> Any:
+    """``tree`` with each DTensor leaf gathered to its global tensor (a
+    collective in a world; a tree without DTensors is returned as is)."""
+    from torch.distributed.tensor import DTensor
+    from ..sharding.collectives import full_tensor
+    leaves = [leaf for _, leaf in _leaf_paths(tree)]
+    if not any(isinstance(leaf, DTensor) for leaf in leaves):
+        return tree
+    return _unflatten(tree, [
+        full_tensor(leaf.to_local(), leaf.device_mesh, leaf.placements)
+        if isinstance(leaf, DTensor) else leaf for leaf in leaves])
+
+
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     """(host array, dtype name); bfloat16 travels as its 16-bit pattern."""
     if isinstance(leaf, torch.Tensor):
@@ -115,7 +137,22 @@ class _HostLeaf:
 
 def save(directory: str, step: int, tree: Any,
          extra: Optional[Dict[str, Any]] = None) -> str:
-    """Write an atomic checkpoint; returns the final path."""
+    """Write an atomic checkpoint; returns the final path.  In a world, a
+    collective: every rank calls it, rank 0 writes."""
+    if not _world():
+        return _write(directory, step, tree, extra)
+    import torch.distributed as dist
+    tree = _whole(tree)
+    try:
+        if dist.get_rank() == 0:
+            return _write(directory, step, tree, extra)
+        return os.path.join(directory, f"step_{step:09d}")
+    finally:
+        dist.barrier()
+
+
+def _write(directory: str, step: int, tree: Any,
+           extra: Optional[Dict[str, Any]] = None) -> str:
     final = os.path.join(directory, f"step_{step:09d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
@@ -178,19 +215,21 @@ def restore(directory: str, step: int, target_tree: Any,
             device: DeviceLike = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target_tree`` (its leaves need only
     a ``shape``: tensors, arrays, ``ParamSpec``s); every leaf a tensor on
-    ``device`` (default: the card) in its stored dtype."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places leaves over a device mesh: "
-            "multi-device, ROADMAP.md item A16c")
+    ``device`` (default: the card) in its stored dtype.  ``shardings``, a
+    tree like ``target_tree`` with a ``NamedSharding`` a leaf, places each
+    leaf as a DTensor on its mesh (every rank reads the whole leaf and keeps
+    its shard: no communication)."""
     dev = resolve_device(device)
+    targets = _leaf_paths(target_tree)
+    placing = ([sh for _, sh in _leaf_paths(shardings)]
+               if shardings is not None else [None] * len(targets))
     path = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {m["key"]: m for m in manifest["leaves"]}
     dctx = zstd.ZstdDecompressor() if HAVE_ZSTD else None
     leaves = []
-    for key, tgt in _leaf_paths(target_tree):
+    for (key, tgt), sh in zip(targets, placing, strict=True):
         m = by_key[key]
         codec = m.get("codec", "zstd")  # pre-codec manifests were all zstd
         with open(os.path.join(path, m["file"]), "rb") as f:
@@ -208,7 +247,12 @@ def restore(directory: str, step: int, target_tree: Any,
         if tuple(t.shape) != want:
             raise ValueError(f"checkpoint leaf {key}: shape "
                              f"{tuple(t.shape)}, expected {want}")
-        leaves.append(t.to(dev))
+        t = t.to(dev)
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+            t = distribute_tensor(t, sh.mesh, sh.placements,
+                                  src_data_rank=None)
+        leaves.append(t)
     return _unflatten(target_tree, leaves), manifest["extra"]
 
 
@@ -227,25 +271,39 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._issued = False
 
     def wait(self) -> None:
+        """Join the save in flight; in a world every rank then meets a
+        barrier, so no rank reads a checkpoint rank 0 is still writing."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._issued and _world():
+            import torch.distributed as dist
+            dist.barrier()
+        self._issued = False
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def save_async(self, step: int, tree: Any,
                    extra: Optional[Dict[str, Any]] = None) -> None:
+        """In a world, a collective (DTensor leaves are gathered); rank 0
+        writes."""
         self.wait()
         # copied to the host *before* returning, so the training step may
         # overwrite the state's buffers in place
-        host_tree = _host_tree(tree)
+        host_tree = _host_tree(_whole(tree))
+        self._issued = True
+        if _world():
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                return
 
         def work():
             try:
-                save(self.directory, step, host_tree, extra)
+                _write(self.directory, step, host_tree, extra)
                 gc_keep_last(self.directory, self.keep)
             except BaseException as e:  # surfaced on next wait()
                 self._error = e

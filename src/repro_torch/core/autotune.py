@@ -300,6 +300,7 @@ def offline_phase(
     spmm_impls: Optional[Dict[str, Callable]] = None,
     tuner: Optional[Any] = None,
     device: DeviceLike = None,
+    trans_iters: int = 3,
 ) -> TuningDB:
     """Measure the suite, build the D_mat–R graph, learn D* per format.
 
@@ -328,6 +329,10 @@ def offline_phase(
     given (with kernel impls), every format whose impl was overridden is
     launch-geometry-tuned on each matrix *before* it is timed, and the
     tuner's winners ship in the returned db's ``geometries``.
+
+    ``trans_iters``: host transforms ``t_trans`` is the best of (the
+    reference's 3; a caller that has measured the same transforms already
+    may take fewer).
     """
     dev = resolve_device(device)
     batch = max(int(batch), 1)
@@ -380,7 +385,7 @@ def offline_phase(
             base_mem = memory_bytes(csr)
             for f in formats:
                 trans = TRANSFORMS_HOST[f]
-                t_trans = time_host(trans, csr)
+                t_trans = time_host(trans, csr, iters=trans_iters)
                 fmt_obj = trans(csr).to(dev)
                 f_fn = impls.get(f, default_op)
                 if f in impls:

@@ -206,6 +206,15 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     (one chunk when it does not divide the sequence), each under a
     checkpoint, so the (B, S, V) logits never exist at once: the backward
     recomputes one chunk's logits at a time."""
+    nll, cnt, aux = loss_terms(params, batch, cfg, seq_chunk)
+    return nll / cnt.clamp_min(1.0) + aux_weight * aux
+
+
+def loss_terms(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               seq_chunk: int = 512):
+    """The terms of :func:`loss_fn`: (summed token NLL, unmasked label
+    count, auxiliary loss), float32 scalars — a step over a sharded batch
+    sums the first two over the shards before it divides."""
     x, aux = backbone(params, batch, cfg)               # (B, S, d)
     labels = batch["labels"].long()
     if cfg.frontend is not None and "frontend_embeds" in batch:
@@ -233,7 +242,7 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         n, k = checkpoint(chunk_nll, x[:, c:c + chunk],
                           labels[:, c:c + chunk], use_reentrant=False)
         nll, cnt = nll + n, cnt + k
-    return nll / cnt.clamp_min(1.0) + aux_weight * aux
+    return nll, cnt, aux
 
 
 # ---------------------------------------------------------------------------
@@ -275,4 +284,4 @@ def prefill(params, batch: Dict[str, torch.Tensor], caches, cfg: ModelConfig):
 
 __all__ = ["layer_kinds", "model_spec", "storage_dtype",
            "init", "n_params", "n_active_params", "backbone", "forward",
-           "loss_fn", "init_caches", "decode_step", "prefill"]
+           "loss_fn", "loss_terms", "init_caches", "decode_step", "prefill"]

@@ -1,7 +1,7 @@
-"""Optimizer: AdamW, the port of the JAX package's ``optim/adamw.py`` (its
-gradient compression, ``optim/compress.py``, is multi-device: ROADMAP.md
-item A16c)."""
-from . import adamw
+"""Optimizer: AdamW (the port of the JAX package's ``optim/adamw.py``) and
+the int8 compressed all-reduce with error feedback (``optim/compress.py``)."""
+from . import adamw, compress
 from .adamw import AdamWConfig, AdamWMixedState, AdamWState
 
-__all__ = ["adamw", "AdamWConfig", "AdamWMixedState", "AdamWState"]
+__all__ = ["adamw", "compress", "AdamWConfig", "AdamWMixedState",
+           "AdamWState"]

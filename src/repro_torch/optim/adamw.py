@@ -13,18 +13,20 @@ and return those (what the reference's jitted step does with donated
 buffers), so a full-width step holds one copy of its state.  Each leaf is
 updated on its own, so the temporaries are one leaf's size.
 
-The ZeRO sharding of the moments is the reference's mesh half: on one card
-nothing shards them.
+On a mesh (``launch/steps.py:jitted_step_for_cell``) each rank runs these
+updates on its own shards of the parameters and moments, with the grad
+norm of the whole tree passed in as ``gnorm``: the update is elementwise,
+so a rank's shard steps exactly as that part of the whole tree would.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..sharding.rules import tree_leaves, tree_map
+from ..sharding.rules import paired_leaves, tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -94,10 +96,13 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.stack(leaves).sum().sqrt()
 
 
-def _scalars(cfg: AdamWConfig, grads: Any, step: torch.Tensor):
+def _scalars(cfg: AdamWConfig, grads: Any, step: torch.Tensor,
+             gnorm: Optional[torch.Tensor] = None):
     """(grad norm, clip factor, lr, 1 - b1^t, 1 - b2^t) as float32 scalars,
-    each as the reference computes it."""
-    gnorm = global_norm(grads)
+    each as the reference computes it; ``gnorm`` given (a sharded step's
+    norm of the whole gradient) is used as the norm."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.full_like(gnorm, cfg.clip_norm)
     scale = torch.clamp(clip / gnorm.clamp_min(1e-9), max=1.0)
     lr = schedule(cfg, step)
@@ -121,13 +126,16 @@ def _rebuild(tree: Any, leaves: list) -> Any:
 
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Any, state: AdamWState, params: Any,
-           inplace: bool = False) -> Tuple[Any, AdamWState, torch.Tensor]:
-    """Returns (new_params, new_state, grad_norm)."""
+           inplace: bool = False, gnorm: Optional[torch.Tensor] = None
+           ) -> Tuple[Any, AdamWState, torch.Tensor]:
+    """Returns (new_params, new_state, grad_norm).  The trees pair leaf by
+    leaf; trees whose paths differ (another dict order included) raise
+    ``ValueError``."""
     step = state.step + 1
-    gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, step)
+    gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, step, gnorm)
     new_p, new_m, new_v = [], [], []
-    for p, g, m0, v0 in zip(tree_leaves(params), tree_leaves(grads),
-                            tree_leaves(state.m), tree_leaves(state.v)):
+    for p, g, m0, v0 in zip(*paired_leaves(params, grads, state.m,
+                                           state.v), strict=True):
         m, v = _moments(cfg, g, m0, v0, scale)
         mh = m / b1c
         vh = v / b2c
@@ -146,17 +154,17 @@ def update(cfg: AdamWConfig, grads: Any, state: AdamWState, params: Any,
 
 @torch.no_grad()
 def update_mixed(cfg: AdamWConfig, grads: Any, state: AdamWMixedState,
-                 inplace: bool = False
+                 inplace: bool = False, gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, AdamWMixedState, torch.Tensor]:
     """Mixed-precision step: grads (any dtype) -> float32 master update ->
     fresh bfloat16 working params.  Returns (params_bf16, state,
     grad_norm)."""
     step = state.step + 1
-    gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, step)
+    gnorm, scale, lr, b1c, b2c = _scalars(cfg, grads, step, gnorm)
     work, new_master, new_m, new_v = [], [], [], []
-    for master, g, m0, v0 in zip(tree_leaves(state.master),
-                                 tree_leaves(grads), tree_leaves(state.m),
-                                 tree_leaves(state.v)):
+    for master, g, m0, v0 in zip(*paired_leaves(state.master, grads,
+                                                state.m, state.v),
+                                 strict=True):
         m, v = _moments(cfg, g, m0, v0, scale)
         step_ = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + \
             cfg.weight_decay * master

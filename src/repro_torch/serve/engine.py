@@ -42,7 +42,8 @@ def _insert_cache(caches, slot_caches, b: int) -> None:
     holds the batch first, so a slot's KV rows and its recurrent states
     (Mamba's ``h`` and ``conv``, xLSTM's ``C/n/m/conv`` and ``c/n/h/m``) are
     replaced whole."""
-    for full, one in zip(tree_leaves(caches), tree_leaves(slot_caches)):
+    for full, one in zip(tree_leaves(caches), tree_leaves(slot_caches),
+                         strict=True):
         full[b].copy_(one[0])
 
 

@@ -70,10 +70,11 @@ What differs from the JAX package's service on CUDA:
     edits the source CSR and a single-block CSR/SELL container on the
     service's device (``repro_torch.stream``): a delta never copies the
     matrix between host and card.
-  * **Sharded plans** serve shard by shard on one device (or round robin
-    over several) through ``sharding.spmv.ShardedPlannedMatrix``; its
-    multi-device ``shard_map`` mode is not ported (ROADMAP.md item A15b)
-    and raises :class:`NotImplementedError` when asked for.
+  * **Sharded plans** serve through ``sharding.spmv.ShardedPlannedMatrix``:
+    shard by shard on one device (or round robin over several) in one
+    process, or, in a ``torch.distributed`` world of a rank a shard,
+    ``shard_map`` — then registration and every product are collectives
+    (every rank registers the same key and serves the same calls).
 """
 from __future__ import annotations
 

@@ -15,6 +15,13 @@ each step overwrites them in place (``make_train_step(inplace=True)``).
 With ``TrainConfig.mixed_precision`` the model runs on bfloat16 working
 parameters and the float32 masters live in the optimizer state
 (``AdamWMixedState``), which each step updates in place.
+
+Under a ``mesh`` (``launch/mesh.py``) every rank of it runs the trainer in
+step: the state is DTensors placed by the cell's shardings
+(``launch/steps.py:jitted_step_for_cell``), each rank reads the same
+global batch from the seekable pipeline and takes its shard, and a
+checkpoint gathers the state whole (rank 0 writes) and is placed again on
+restore.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import AsyncCheckpointer, latest_step, restore
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..data import Prefetcher, SyntheticLM
 from ..device import DeviceLike, resolve_device
 from ..models import model as M
@@ -95,9 +102,10 @@ class Trainer:
                  tc: TrainConfig,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
                  failure_hook: Optional[Callable[[int], None]] = None,
-                 device: DeviceLike = None):
-        from ..launch.steps import make_train_step
+                 device: DeviceLike = None, mesh: Any = None):
+        from ..launch.steps import jitted_step_for_cell, make_train_step
         self.cfg = cfg
+        self.mesh = mesh
         self.data = data
         self.tc = tc
         self.device = resolve_device(device)
@@ -107,10 +115,25 @@ class Trainer:
         self.ckpt = AsyncCheckpointer(tc.ckpt_dir, keep=tc.keep_ckpts)
         self.watchdog = StragglerWatchdog(tc.straggler_factor)
         self.metrics: List[Dict[str, float]] = []
-        self._step_fn = make_train_step(cfg, self.opt_cfg,
-                                        microbatches=tc.microbatches,
-                                        mixed_precision=tc.mixed_precision,
-                                        inplace=True)
+        if mesh is None:
+            self._step_fn = make_train_step(
+                cfg, self.opt_cfg, microbatches=tc.microbatches,
+                mixed_precision=tc.mixed_precision, inplace=True)
+        else:
+            dc = data.cfg
+            shape = ShapeConfig("train", dc.seq_len, dc.global_batch,
+                                "train")
+            self._step_fn = jitted_step_for_cell(
+                cfg, shape, mesh, self.opt_cfg,
+                microbatches=tc.microbatches,
+                mixed_precision=tc.mixed_precision)[0]
+
+    @property
+    def _lead(self) -> bool:
+        """Whether this process reports: one process, or rank 0 of a
+        mesh."""
+        import torch.distributed as dist
+        return self.mesh is None or dist.get_rank() == 0
 
     # -- state management ----------------------------------------------------
     def init_state(self, params: Any = None) -> TrainState:
@@ -136,7 +159,18 @@ class Trainer:
                             opt_state.master),
             opt_state=opt_state, step=step)
 
+    def _whole(self, state: TrainState) -> TrainState:
+        """The state with its DTensors gathered (a collective on a mesh)."""
+        if self.mesh is None:
+            return state
+        from ..launch.steps import gather_full
+        opt = type(state.opt_state)(*(gather_full(f)
+                                      for f in state.opt_state))
+        return TrainState(params=gather_full(state.params), opt_state=opt,
+                          step=state.step)
+
     def save(self, state: TrainState) -> None:
+        state = self._whole(state)
         self.ckpt.save_async(
             state.step,
             {"params": params_to_jax(state.params, self.cfg),
@@ -190,7 +224,7 @@ class Trainer:
                        "grad_norm": m["grad_norm"].item(),
                        "sec_per_step": dt, "straggler": bool(slow)}
                 self.metrics.append(rec)
-                if state.step % self.tc.log_every == 0:
+                if state.step % self.tc.log_every == 0 and self._lead:
                     print(f"[train] step={rec['step']} "
                           f"loss={rec['loss']:.4f} "
                           f"gnorm={rec['grad_norm']:.3f} "

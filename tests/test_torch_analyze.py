@@ -23,7 +23,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.analyze import lint_plan as ref_lint_plan
 from repro.analyze import lint_source as ref_lint_source

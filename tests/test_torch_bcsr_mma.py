@@ -14,7 +14,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import transform as RT
 from repro.kernels import ops as R_ops

@@ -20,7 +20,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import autotune as RA
 from repro.core import dispatch as RD

@@ -11,7 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as TK
 from repro_torch.core import dispatch as TD
@@ -1873,6 +1873,49 @@ def test_cuda_sharded_dispatch_serves_through_the_kernels(cuda, axis):
     for shard in spm.guard_report():
         assert shard["spmv"]["served_by"]["csr"] == 0
         assert shard["spmv"]["served_by"]["tuned"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["row", "col"])
+def test_cuda_shard_map_slab_pads_are_never_read(cuda, axis):
+    """A ``shard_map`` rank's slab, padded to the envelope (``nnz_pad >
+    nnz`` and rows past its own), through K2 and K5 as the executor calls
+    them: the pad entries lie past ``IRP[-1]``, so NaN written there is
+    never read — each product is the plain version's on the unpadded
+    slab, and the padded rows are zero."""
+    from repro_torch.core import dispatch as TD_
+    from repro_torch.core.formats import CSR as TCSR
+    from repro_torch.core.suite import synthesize_power_law
+    from repro_torch.kernels import ops
+    from repro_torch.sharding.spmv import _envelope, _pad_slab, shard_csr
+    csr = synthesize_power_law(n=6000, alpha=1.4, seed=8,
+                               random_values=True, device="cpu")
+    _, subs = shard_csr(csr, 4, axis=axis, strategy="balanced_nnz")
+    rows_pad, nnz_pad, width_pad = _envelope(subs)
+    rng = np.random.default_rng(10)
+    assert sum(nnz_pad > m.nnz for m in subs) >= 3
+    for m in subs:
+        d, c, ip = _pad_slab(m, rows_pad, nnz_pad)
+        d[m.nnz:] = float("nan")
+        n_cols = m.n_cols if axis == "row" else width_pad
+        local = ops.prepare(TCSR(data=d.to(cuda), cols=c.to(cuda),
+                                 indptr=ip.to(cuda),
+                                 shape=(rows_pad, n_cols), nnz=m.nnz))
+        for batch in (1, 8, 64):
+            x = torch.from_numpy(rng.normal(size=(n_cols, batch) if batch > 1
+                                            else n_cols).astype(np.float32))
+            op = "spmv" if batch == 1 else "spmm"
+            before = TK.launch_counts()
+            y = TD_.get_impl("csr", op, "kernel")(local, x.to(cuda))
+            after = TK.launch_counts()
+            assert after[f"csr_{op}"] == before[f"csr_{op}"] + 1
+            want = TD_.get_impl("csr", op, "reference")(
+                m, x[:m.n_cols])
+            got = y.cpu()
+            assert torch.isfinite(got).all()
+            np.testing.assert_allclose(got[:m.n_rows].numpy(),
+                                       want.numpy(), **TOL["float32"])
+            assert not got[m.n_rows:].any()
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ where the sums cancel, by the float32 error of ~1e-7 too).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as R_ref
 from repro.kernels.decode_attention import decode_attention_int8 as R_k11

@@ -23,7 +23,7 @@ import time
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as R_ops
 from repro_torch.core import autotune as TA

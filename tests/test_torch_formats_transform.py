@@ -11,7 +11,7 @@ import re
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import formats as RF
 from repro.core import transform as RT

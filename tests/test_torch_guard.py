@@ -14,7 +14,7 @@ names ROADMAP.md item A15b.
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro_torch.obs as obs
 from repro.serve import faults as ref_faults
@@ -373,9 +373,11 @@ def test_register_degrades_to_csr_when_transform_faults(problem, rng, tel):
 
 def test_sharded_and_streaming_registration_name_their_items(problem, rng):
     """A sharded plan and a streaming registration both serve (through
-    the sharded tier's and the streaming tier's ladders); the one refusal
-    left, an explicit multi-device ``shard_map``, names A15b."""
-    from repro_torch.core.plan import Planner
+    the sharded tier's and the streaming tier's ladders); an explicit
+    ``shard_map`` in one process (one rank) raises the reference's
+    ``PlanError`` with the rank count (it serves in a world of a rank a
+    shard: test_torch_shard_map.py)."""
+    from repro_torch.core.plan import PlanError, Planner
     from repro_torch.stream import random_delta
     dense, csr = problem
     svc = _svc()
@@ -386,7 +388,7 @@ def test_sharded_and_streaming_registration_name_their_items(problem, rng):
     np.testing.assert_allclose(svc.spmv("s", x).numpy(), dense @ x,
                                rtol=2e-4, atol=2e-4)
     assert svc.stats()["s"]["guard"]["spmv"]["served_by"]["tuned"] == 1
-    with pytest.raises(NotImplementedError, match="A15b"):
+    with pytest.raises(PlanError, match="needs >= 2 devices.*have 1"):
         svc.register("t", csr, plan=plan, measure_baseline=False,
                      mode="shard_map", devices=["cpu", "cpu"])
     # a delta edits the registered tensors in place (as the reference's

@@ -11,7 +11,7 @@ import json
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import autotune as RA
 from repro.core import kernel_tune as RKT

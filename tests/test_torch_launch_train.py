@@ -9,7 +9,7 @@ import sys
 
 import jax
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs import ARCH_IDS, SHAPES as R_SHAPES, get_config as r_get
 from repro.configs.base import ShapeConfig as RShapeConfig
@@ -136,9 +136,17 @@ def test_cli_trains_at_smoke_size_on_the_cpu(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--dry-run"]])
-def test_cli_refuses_multi_device_work(flags):
+def test_cli_refuses_multi_device_work(flags, monkeypatch):
+    """``--dry-run`` is not ported (A16c's second half); a ``--mesh`` of
+    more ranks than the host has cards refuses, naming both counts, rather
+    than run on the CPU (a mesh on the CPU: test_torch_mesh_train.py)."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="A16c"):
+    if "--dry-run" in flags:
+        with pytest.raises(NotImplementedError, match="A16c"):
+            train.main(["--arch", "qwen3-1.7b", *flags])
+        return
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 ranks over NCCL.*1 card"):
         train.main(["--arch", "qwen3-1.7b", *flags])
 
 

@@ -12,7 +12,7 @@ the seeded router logits hold no ties.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.models import moe as RMoE
 from repro_torch.models import moe as TMoE

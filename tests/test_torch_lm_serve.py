@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from repro.serve import ServeEngine as RServeEngine
+torch = pytest.importorskip("torch")
 from repro_torch.serve import ServeEngine
 from test_torch_lm import ROOT, both_params, configs
 

@@ -11,7 +11,7 @@ against torch's).
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.models import ssm as RS
 from repro_torch.models import ssm as TS

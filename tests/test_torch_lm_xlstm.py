@@ -10,7 +10,7 @@ both sides compute in float32 and differ only in summation order.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.models import xlstm as RX
 from repro_torch.models import xlstm as TX

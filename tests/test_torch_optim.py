@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.optim import adamw as RA
 from repro_torch.models import opt_state_from_jax
@@ -237,3 +237,21 @@ def test_opt_state_crosses_both_ways():
         for a, b in zip(jax.tree.leaves(tuple(back)),
                         jax.tree.leaves(tuple(rs))):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_trees_that_do_not_pair_by_path_raise(mixed):
+    """A gradient tree whose dict keys were inserted in another order (the
+    same leaves, shapes and count) would pair ``w`` with ``b`` by position:
+    ``update`` raises instead, as it does for a tree of other length."""
+    params = {"w": torch.zeros((4, 4)), "b": torch.zeros((4, 4))}
+    g = tree(1)
+    reordered = {"b": g["w"][:4, :4], "w": g["w"][4:, :4]}
+    short = {"w": g["w"][:4, :4]}
+    for bad, match in ((reordered, r"\('b',\) against \('w',\)"),
+                       (short, "does not pair")):
+        with pytest.raises(ValueError, match=match):
+            if mixed:
+                adamw.update_mixed(CFG, bad, adamw.init_mixed(params))
+            else:
+                adamw.update(CFG, bad, adamw.init(params), params)

@@ -14,7 +14,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import autotune as RA
 from repro.core import formats as RF

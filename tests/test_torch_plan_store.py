@@ -19,7 +19,7 @@ import threading
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro_torch.obs as obs
 from repro.analyze import lint_plan as ref_lint_plan

@@ -20,7 +20,7 @@ import json
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import plan as RPL
 from repro.core.kernel_tune import KernelTuner as RTuner

@@ -1,8 +1,8 @@
 """Port vs reference: the sharded SpMV/SpMM tier on one device.
 
 Every case of ``tests/test_sharded_spmv.py`` but its two 8-device
-subprocess cases (the multi-device ``shard_map`` executor, ROADMAP.md item
-A15b) runs through ``repro_torch.sharding`` and ``repro_torch.core.plan``
+subprocess cases (the multi-rank ``shard_map`` executor:
+``test_torch_shard_map.py``) runs through ``repro_torch.sharding`` and ``repro_torch.core.plan``
 on the CPU beside the JAX package on the same numpy matrix: device-count
 partitioning (the same boundaries), column slabs and ``shard_csr`` (the
 same slabs, field by field), ``dispatch`` mode on every axis and strategy
@@ -11,15 +11,16 @@ same slabs, field by field), ``dispatch`` mode on every axis and strategy
 written by either package and loaded in the other; future schemas
 refused; a mismatched matrix re-partitioned), telemetry, and the
 service's sharded registration, plan cache and batch seeding.  An explicit
-``shard_map`` raises the reference's ``PlanError`` with fewer devices than
-shards and ``NotImplementedError`` naming A15b otherwise.  The per-shard
-guards are held in ``test_torch_guard.py``.
+``shard_map`` in one process raises the reference's ``PlanError`` (one
+process is one rank: fewer ranks than shards); the multi-rank executor is
+held in ``test_torch_shard_map.py``.  The per-shard guards are held in
+``test_torch_guard.py``.
 """
 import json
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import plan as RPL
 from repro.core.transform import csr_from_dense as r_csr_from_dense
@@ -234,11 +235,12 @@ def test_shard_map_mode_requires_devices(problem):
     with pytest.raises(RPL.PlanError, match="needs >= 4 devices"):
         r_build_sharded(rcsr, n_shards=4, mode="shard_map")
     assert "have 1" in str(te.value)
-    # with a device a shard, or a mesh, the executor is what is missing
-    with pytest.raises(NotImplementedError, match="A15b"):
+    # one process is one rank: devices= picks the rank's device, it adds
+    # no ranks (the multi-rank executor: test_torch_shard_map.py)
+    with pytest.raises(PlanError, match="needs >= 2 devices.*have 1"):
         build_sharded(csr, n_shards=2, mode="shard_map",
                       devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A15b"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         build_sharded(csr, n_shards=2, mode="shard_map", device="cpu",
                       mesh=object())
     with pytest.raises(PlanError, match="unknown mode"):

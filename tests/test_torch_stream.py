@@ -29,7 +29,7 @@ import json
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.obs as r_obs

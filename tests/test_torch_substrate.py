@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.checkpoint import restore as r_restore
 from repro.configs import get_config as r_get, smoke_config as r_smoke
@@ -147,8 +147,12 @@ def test_checkpoint_format_is_the_references(tmp_path):
     for a, b in zip(jax.tree.leaves(rt), jax.tree.leaves(back)):
         np.testing.assert_array_equal(np.asarray(a, np.float32),
                                       np.asarray(b, np.float32))
-    with pytest.raises(NotImplementedError, match="A16c"):
-        restore(str(tmp_path / "port"), 3, t, shardings=t, device="cpu")
+    # shardings= places each leaf over a mesh (a DTensor): collectives of a
+    # world (test_torch_distributed.py); a tree of them that does not pair
+    # with the target's leaves raises
+    with pytest.raises(ValueError, match="shorter"):
+        restore(str(tmp_path / "port"), 3, t, shardings={"one": None},
+                device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import formats as RF
 from repro.core import policy as RP

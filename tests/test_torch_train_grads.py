@@ -5,6 +5,7 @@ tolerances: ``test_torch_train_model.py``)."""
 import pytest
 
 from repro.models import moe as RMoE
+torch = pytest.importorskip("torch")
 from repro_torch.models import moe as TMoE
 from test_torch_train_model import (GRAD_ARCHS, LOSS_RTOL,
                                     assert_grads_match, configs, make_batch,

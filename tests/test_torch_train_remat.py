@@ -3,7 +3,7 @@ masters through every block kind (helpers: ``test_torch_train_model.py``).
 """
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.launch.steps import value_and_grad
 from repro_torch.models import model as TM
