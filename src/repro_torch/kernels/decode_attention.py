@@ -126,14 +126,27 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     ``softcap * tanh(s / softcap)`` before the mask.  CPU tensors run
     :func:`decode_attention_int8_plain`; CUDA tensors launch the kernel (which
     takes bfloat16 scales — the cache layout of ``models/attention.py`` — and
-    heads of a multiple of 16) or raise."""
-    B, S, KV, G, Dh = _check(q, k_q, k_s, v_q, v_s, key_pos, q_pos)
-    if q.device.type == "cpu":
-        return decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, key_pos,
-                                           q_pos, window, softcap)
-    if q.device.type != "cuda":
+    heads of a multiple of 16) or raise.
+
+    The call goes through the custom operator
+    ``torch.ops.repro_torch.decode_attention_int8`` (a CPU and a CUDA
+    implementation, a fake one that gives the output's shape and dtype, and
+    a FLOP formula), so a trace on fake tensors (``launch/dryrun.py``)
+    counts this kernel on either device and launches nothing."""
+    _check(q, k_q, k_s, v_q, v_s, key_pos, q_pos)
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention_int8 takes CPU or CUDA tensors; "
                          f"got {q.device}")
+    return _op(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap)
+
+
+def _launch(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+            v_q: torch.Tensor, v_s: torch.Tensor, key_pos: torch.Tensor,
+            q_pos: torch.Tensor, window: Optional[int],
+            softcap: float) -> torch.Tensor:
+    """Launch the kernel on checked CUDA operands (one launch, counted)."""
+    B, S, KV, Dh = k_q.shape
+    G = q.shape[2]
     check_current_device(q)
     check_contiguous(q=q, k_q=k_q, k_s=k_s, v_q=v_q, v_s=v_s,
                      key_pos=key_pos, q_pos=q_pos)
@@ -170,8 +183,47 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("repro_torch::decode_attention_int8",
+                         mutates_args=(), device_types="cuda")
+def _op(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+        v_q: torch.Tensor, v_s: torch.Tensor, key_pos: torch.Tensor,
+        q_pos: torch.Tensor, window: Optional[int],
+        softcap: float) -> torch.Tensor:
+    return _launch(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap)
+
+
+@_op.register_kernel("cpu")
+def _op_cpu(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap):
+    return decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, key_pos, q_pos,
+                                       window, softcap)
+
+
+@_op.register_fake
+def _op_fake(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap):
+    return torch.empty_like(q)
+
+
+def decode_attention_flops(q_shape, k_q_shape, *args, **kwargs) -> int:
+    """FLOPs of one call counted over every cache slot (``4 KV G Dh`` a
+    slot and sequence: ``q . k`` and ``p v``): the arithmetic of the
+    ``kernels`` phase's bound in ``chip_smoke.py`` with every slot valid —
+    a trace has shapes, not the positions that mask slots out."""
+    B, S, KV, Dh = k_q_shape
+    return 4 * B * KV * q_shape[2] * Dh * S
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(torch.ops.repro_torch.decode_attention_int8)(
+        decode_attention_flops)
+
+
+_register_flops()
+
+
 #: number of kernel launches made by :func:`decode_attention_int8` in this
 #: process
 decode_attention_int8.launches = 0
 
-__all__ = ["decode_attention_int8", "decode_attention_int8_plain"]
+__all__ = ["decode_attention_int8", "decode_attention_int8_plain",
+           "decode_attention_flops"]

@@ -3,10 +3,10 @@
 A copy of the JAX package's ``launch/analytic.py``: the same FLOP, byte and
 collective counts for the same configs.  The reference records these
 beside XLA's ``compiled.cost_analysis()``, which counts every while-loop
-body once; the port has no compiled HLO to read (ROADMAP.md item A16c
-holds the dry-run), so the closed form is its only static count, and the
+body once; the port records them beside its dry run's trace of the step
+(``launch/dryrun.py:analyze_cell``; ``launch/roofline.py``), and the
 ``train`` phase of ``chip_smoke.py`` states a training step's bound from
-it.
+them.
 
 Conventions:
   * FLOPs: 2*M*N*K per matmul; train = 3x forward (fwd + 2x bwd) + 1x fwd
@@ -19,8 +19,8 @@ Conventions:
     recompute + bwd = 3x per microbatch, bf16) + gradient reduce-scatter
     (f32) + TP activation all-reduces (2 per block) + MoE all-to-all
     (dispatch+combine buffers) + SP/CP gathers for sequence-sharded
-    attention (the reference's ``roofline.py`` divides them by its TPU
-    links' bandwidth; one card moves none of them).
+    attention (``launch/dryrun.py`` divides them by the slowest link the
+    mesh spans; one card moves none of them).
 """
 from __future__ import annotations
 

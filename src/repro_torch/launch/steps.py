@@ -320,6 +320,12 @@ def _rewrap(like: Any, local: torch.Tensor) -> Any:
                               run_check=False)
 
 
+def _rewrap_tree(like: Any, new: Any) -> Any:
+    """The leaves of ``new`` placed as the leaves of ``like``."""
+    leaves = iter(tree_leaves(new))
+    return tree_map(lambda t: _rewrap(t, next(leaves)), like)
+
+
 def _local(t: Any) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
     return t.to_local() if isinstance(t, DTensor) else t
@@ -347,13 +353,15 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
                          batch_axes: Optional[Tuple[str, ...]],
                          microbatches: int = 1,
                          mixed_precision: bool = False,
-                         aux_weight: float = 0.01) -> Callable:
+                         aux_weight: float = 0.01,
+                         inplace: bool = True) -> Callable:
     """The train step on a mesh (see the module docstring): ``(params,
     opt_state, batch) -> (params, opt_state, {"loss", "grad_norm"})`` with
-    DTensor parameters and moments, updated in place, and the global batch
-    (the same tensors on every rank; microbatch ``m`` is its ``m``-th
-    slice of rows, as in the reference's scan, and a rank takes its shard
-    of each).  A collective: every rank of ``mesh`` calls it."""
+    DTensor parameters and moments, updated in place (new ones with
+    ``inplace=False``), and the global batch (the same tensors on every
+    rank; microbatch ``m`` is its ``m``-th slice of rows, as in the
+    reference's scan, and a rank takes its shard of each).  A collective:
+    every rank of ``mesh`` calls it."""
     rows, reduce_, n_shards = _batch_ops(mesh, batch_axes)
 
     def train_step(params, opt_state, batch):
@@ -402,33 +410,27 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
             return tree_map(_local, t)
         gl = iter(g_local)
         g_tree = tree_map(lambda _: next(gl), params)
-        step = opt_state.step
+        local = type(opt_state)(*(tree_map(_local, f) for f in opt_state))
         if mixed_precision:
-            state = adamw.AdamWMixedState(
-                step=_local(step), m=local_tree(opt_state.m),
-                v=local_tree(opt_state.v),
-                master=local_tree(opt_state.master))
-            work, new, gnorm = adamw.update_mixed(opt_cfg, g_tree, state,
-                                                  inplace=True, gnorm=gnorm)
-            wl = iter(tree_leaves(work))
-            new_params = tree_map(lambda p: _rewrap(p, next(wl)), params)
-            new_state = opt_state._replace(step=_rewrap(step, new.step))
+            new_p, new, gnorm = adamw.update_mixed(
+                opt_cfg, g_tree, local, inplace=inplace, gnorm=gnorm)
         else:
-            state = adamw.AdamWState(step=_local(step),
-                                     m=local_tree(opt_state.m),
-                                     v=local_tree(opt_state.v))
-            _, new, gnorm = adamw.update(opt_cfg, g_tree, state,
-                                         local_tree(params), inplace=True,
-                                         gnorm=gnorm)
-            new_params = params
-            new_state = opt_state._replace(step=_rewrap(step, new.step))
+            new_p, new, gnorm = adamw.update(
+                opt_cfg, g_tree, local, local_tree(params), inplace=inplace,
+                gnorm=gnorm)
+        new_params = _rewrap_tree(params, new_p)
+        new_state = type(opt_state)(*(
+            _rewrap_tree(a, b) for a, b in zip(opt_state, new, strict=True)))
         return new_params, new_state, {"loss": loss, "grad_norm": gnorm}
     return train_step
 
 
-def _cache_ops(mesh, bax):
+def _cache_ops(mesh, bax, donate: bool):
     """(a cache tree's rank-local view: the rank's batch rows, every other
-    dim whole; the inverse: those back to the tree's placements)."""
+    dim whole; the inverse: those back to the tree's placements).  With
+    ``donate`` the step writes the given caches' shards in place and
+    returns them (the reference's donated cache); without, the given
+    caches are left as they are and new ones returned."""
     from torch.distributed.tensor import Shard
     names = list(mesh.mesh_dim_names)
     bdims = {names.index(a) for a in (bax or ())}
@@ -437,15 +439,36 @@ def _cache_ops(mesh, bax):
         return [i for i, p in enumerate(t.placements)
                 if not (i in bdims and p == Shard(0))]
 
+    def view(t):
+        local = t.to_local()
+        out = C.full_tensor(local, t.device_mesh, t.placements, other(t))
+        return out.clone() if not donate and _same(out, local) else out
+
     def to_local(caches):
-        return tree_map(lambda t: C.full_tensor(
-            t.to_local(), t.device_mesh, t.placements, other(t)), caches)
+        return tree_map(view, caches)
 
     def back(like, new):
         out = iter(tree_leaves(new))
-        return tree_map(lambda t: _rewrap(t, C.local_shard(
-            next(out), t.device_mesh, t.placements, other(t))), like)
+
+        def leaf(t):
+            got, local = next(out), t.to_local()
+            if not donate:
+                return _rewrap(t, C.local_shard(got, t.device_mesh,
+                                                t.placements, other(t)))
+            if not _same(got, local):
+                local.copy_(C.local_shard(got, t.device_mesh, t.placements,
+                                          other(t)))
+            return t
+        return tree_map(leaf, like)
     return to_local, back
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` are the same elements of one storage
+    (``Tensor.is_set_to`` is false for any two fake tensors)."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset()
+            and a.shape == b.shape and a.stride() == b.stride())
 
 
 def mesh_forward(params: Any, batch: Dict[str, torch.Tensor],
@@ -463,12 +486,14 @@ def mesh_forward(params: Any, batch: Dict[str, torch.Tensor],
     return C.full_tensor(logits, mesh, sh.placements)
 
 
-def _mesh_serving(fn: Callable, mesh, bax) -> Callable:
+def _mesh_serving(fn: Callable, mesh, bax, donate: bool = True
+                  ) -> Callable:
     """A prefill or serve step on a mesh: parameters gathered, the batch
     rows and cache rows of this rank, the new tokens gathered over the
-    batch axes, the caches placed back as they came."""
+    batch axes, the caches placed back as they came (written in place
+    with ``donate``)."""
     rows, _, _ = _batch_ops(mesh, bax)
-    to_local, back = _cache_ops(mesh, bax)
+    to_local, back = _cache_ops(mesh, bax, donate)
 
     def step(params, inputs, caches, *rest):
         inputs = ({k: rows(v) for k, v in inputs.items()}
@@ -486,13 +511,25 @@ def _placing(fn: Callable, *shardings: Any) -> Callable:
     def placed(*args):
         return fn(*(a if sh is None else distribute(a, sh)
                     for a, sh in zip(args, shardings, strict=True)))
+    placed.shardings = shardings
     return placed
+
+
+#: why the port's serving cells do not keep weights stationary (the
+#: reference's default decode cell does)
+WEIGHT_STATIONARY_NOTE = (
+    "the port's mesh steps gather every parameter whole on every rank "
+    "(FSDP): a weight-stationary serve step needs the reference's "
+    "RULES_SERVE activation shardings, i.e. tensor parallelism over the "
+    "model axis, which the port does not have yet (ROADMAP.md item A16d)")
 
 
 def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                          opt_cfg: Optional[adamw.AdamWConfig] = None,
                          rules: Optional[ShardingRules] = None,
+                         donate: bool = True,
                          microbatches: Optional[int] = None,
+                         serve_weight_stationary: Optional[bool] = None,
                          zero1: bool = False,
                          kv_quant: Optional[bool] = None,
                          mixed_precision: bool = False):
@@ -507,10 +544,16 @@ def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     arguments.  The step places whole-tensor arguments by the cell's
     shardings (``params_sharding`` under ``rules``, or ``RULES_ZERO1`` with
     ``zero1``: parameters replicated, moments still sharded by ``rules``;
-    ``opt_sharding``; ``cache_sharding``) and returns DTensors so placed;
-    the batch is the global one on every rank.  Serving cells run with the
-    int8 KV cache unless ``kv_quant`` says otherwise.  Every step is a
-    collective over ``mesh``."""
+    ``opt_sharding``; ``cache_sharding``; ``step_fn.shardings`` holds them,
+    ``None`` for an argument taken as it comes) and returns DTensors so
+    placed; the batch is the global one on every rank.  ``donate`` (the
+    reference's donated arguments): the train step updates the parameters
+    and moments in place, a serving step writes the caches in place;
+    without it both return new tensors and leave the given ones.  Serving
+    cells run with the int8 KV cache unless ``kv_quant`` says otherwise,
+    and never weight-stationary (``serve_weight_stationary=True`` raises
+    ``NotImplementedError``: :data:`WEIGHT_STATIONARY_NOTE`).  Every step
+    is a collective over ``mesh``."""
     rules = rules or rules_for_mesh(mesh)
     bax = batch_axes_for(shape.global_batch, mesh)
     binp = input_specs(cfg, shape)
@@ -519,8 +562,15 @@ def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         opt_cfg = opt_cfg or adamw.AdamWConfig()
         mb = (microbatches if microbatches is not None
               else default_microbatches(cfg, shape))
+        shards = math.prod(mesh_shape(mesh)[a] for a in (bax or ()))
+        if (shape.global_batch // mb) % shards:
+            raise ValueError(
+                f"a microbatch of {shape.global_batch // mb} rows "
+                f"({shape.global_batch} over {mb} microbatches) does not "
+                f"split over the {shards} batch shards of mesh axes {bax}")
         fn = make_mesh_train_step(cfg, opt_cfg, mesh, bax, microbatches=mb,
-                                  mixed_precision=mixed_precision)
+                                  mixed_precision=mixed_precision,
+                                  inplace=donate)
         base = params_sharding(cfg, mesh, rules)
         rep = NamedSharding(mesh, ())
         p32 = param_specs(cfg, torch.float32)
@@ -535,14 +585,18 @@ def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
             osh = adamw.AdamWState(step=rep, m=base, v=base)
             args = (p32, adamw.AdamWState(step=step, m=p32, v=p32), binp)
         return _placing(fn, ps, osh, None), args
+    if serve_weight_stationary:
+        raise NotImplementedError(
+            f"serve_weight_stationary=True: {WEIGHT_STATIONARY_NOTE}")
     cfg = cfg.replace(kv_quant=True if kv_quant is None else kv_quant)
     csh = cache_sharding(cfg, shape, mesh)
     cargs = cache_specs(cfg, shape)
     params = param_specs(cfg, torch.bfloat16)
     if shape.kind == "prefill":
-        return (_placing(_mesh_serving(make_prefill_step(cfg), mesh, bax),
-                         ps, None, csh), (params, binp, cargs))
-    return (_placing(_mesh_serving(make_serve_step(cfg), mesh, bax),
+        return (_placing(_mesh_serving(make_prefill_step(cfg), mesh, bax,
+                                       donate), ps, None, csh),
+                (params, binp, cargs))
+    return (_placing(_mesh_serving(make_serve_step(cfg), mesh, bax, donate),
                      ps, None, csh, None),
             (params, binp["tokens"], cargs, TensorSpec((), torch.int32)))
 
@@ -552,4 +606,5 @@ __all__ = ["TensorSpec", "input_specs", "cache_specs", "param_specs",
            "make_serve_step", "default_microbatches", "batch_axes_for",
            "params_sharding", "opt_sharding", "batch_sharding",
            "cache_sharding", "distribute", "gather_full",
-           "make_mesh_train_step", "mesh_forward", "jitted_step_for_cell"]
+           "make_mesh_train_step", "mesh_forward", "WEIGHT_STATIONARY_NOTE",
+           "jitted_step_for_cell"]

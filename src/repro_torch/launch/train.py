@@ -5,6 +5,8 @@
         --scale smoke --steps 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --scale smoke --steps 3 --mesh 2x2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --scale full --seq 4096 --batch 256 --mesh 16x16 --dry-run
 
 The flags are the JAX launcher's (``repro.launch.train``), plus
 ``--device`` and ``--mixed-precision`` (the reference's mixed step:
@@ -16,8 +18,14 @@ process joins that world (its size must be the mesh's); otherwise the
 launcher spawns the ranks itself on this host: over ``gloo`` with
 ``--device cpu``, else over NCCL with one card a rank (it raises when the
 host has fewer cards than the mesh has ranks).  Rank 0 prints the final
-line.  ``--dry-run`` (lower and compile a TPU mesh's step) is not ported:
-it raises ``NotImplementedError`` (ROADMAP.md item A16c).
+line.
+
+``--dry-run`` trains nothing: it traces the step these flags would run
+(``ShapeConfig("custom", seq, batch, "train")`` on ``--mesh``) for rank 0
+of a fake world on fake tensors of ``--device``'s type (``launch/
+dryrun.py``; no card and no memory needed) and prints its peak memory and
+its FLOPs and bytes, as the reference prints XLA's ``memory_analysis()``
+and ``cost_analysis()``.
 """
 from __future__ import annotations
 
@@ -25,9 +33,6 @@ import argparse
 import math
 import os
 import tempfile
-
-DRY_RUN = ("the compiled dry run (a 512-device mesh's memory and cost "
-           "analysis) is ROADMAP.md item A16c")
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -46,7 +51,8 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_launch_train"))
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower+compile the step and exit (A16c)")
+                    help="trace the step on a fake world, print its memory "
+                         "and costs, and exit")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     return ap.parse_args(argv)
@@ -88,6 +94,31 @@ def run(args: argparse.Namespace, device=None) -> None:
               f"final loss {trainer.metrics[-1]['loss']:.4f}", flush=True)
 
 
+def dry_run(args: argparse.Namespace) -> None:
+    """Trace the flags' step for rank 0 of a fake world (one device: the
+    trainer's own step) and print what the trace reads."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import memory_of, trace_cell
+
+    dims, axes = mesh_of(args.mesh)
+    cfg = get_config(args.arch)
+    if args.scale == "smoke":
+        cfg = smoke_config(cfg)
+    cfg = cfg.resolve_for_tp(dims[-1])
+    shape = ShapeConfig("custom", args.seq, args.batch, "train")
+    rl, tr = trace_cell(cfg, shape, dims, axes, arch=args.arch,
+                        mesh_name=args.mesh, device=args.device or "cuda",
+                        microbatches=args.microbatches,
+                        mixed_precision=args.mixed_precision)
+    mem = memory_of(tr)
+    cost = {"flops": rl.traced_flops, "bytes accessed": rl.traced_bytes,
+            "collective bytes": rl.collectives_by_axis}
+    print(f"memory (rank 0 of {math.prod(dims)}, fake "
+          f"{args.device or 'cuda'} tensors): {mem}")
+    print(cost, flush=True)
+
+
 def _rank(rank: int, argv) -> None:
     """One spawned rank of a ``--mesh`` run."""
     from repro_torch.launch.mesh import rank_device
@@ -99,7 +130,8 @@ def main(argv=None) -> None:
     args = parse(argv)
     dims, _ = mesh_of(args.mesh)
     if args.dry_run:
-        raise NotImplementedError(f"--dry-run: {DRY_RUN}")
+        dry_run(args)
+        return
     n = math.prod(dims)
     if n == 1:
         run(args)

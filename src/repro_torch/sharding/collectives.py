@@ -13,7 +13,11 @@ takes card tensors directly.
 
 Every staged call adds the bytes it copied to the host to ``stage.bytes``
 (a process-wide counter, as the kernels count their launches); a caller
-reads it before and after.  The
+reads it before and after.  Beside it, every collective adds the bytes of
+its result on this rank (the reference's HLO collective bytes) to
+``moved.bytes`` and one to ``moved.calls``, keyed by ``(op, group
+name)``: the dry run (``launch/roofline.py``) reads them around a traced
+step and maps each group to its mesh axis.  The
 host copies are pinned (a copy out of the card runs at 26 GB/s into
 pinned memory against 7 GB/s into pageable memory on the H100's host:
 ``experiments/torch_gloo_staging.py``).
@@ -39,8 +43,31 @@ def stage(t: torch.Tensor, group=None) -> bool:
 stage.bytes = 0
 
 
+def group_name(group=None) -> str:
+    """The name of ``group`` (the world's when ``None``), as
+    ``moved`` keys it."""
+    return (group if group is not None else dist.group.WORLD).group_name
+
+
+def moved(op: str, group, nbytes: int) -> None:
+    """Count one collective: ``nbytes`` of result on this rank."""
+    key = (op, group_name(group))
+    moved.bytes[key] = moved.bytes.get(key, 0) + nbytes
+    moved.calls[key] = moved.calls.get(key, 0) + 1
+
+
+#: bytes of every collective's result on this rank, by (op, group name)
+moved.bytes = {}
+#: calls of every collective, by (op, group name)
+moved.calls = {}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def _host(t: torch.Tensor) -> torch.Tensor:
-    stage.bytes += t.numel() * t.element_size()
+    stage.bytes += _nbytes(t)
     return _pinned_like(t).copy_(t.detach())
 
 
@@ -52,6 +79,7 @@ def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
     """Every rank's ``t`` (same shape and dtype on each), in group-rank
     order, on ``t``'s device."""
     n = dist.get_world_size(group)
+    moved("all_gather", group, n * _nbytes(t))
     if not stage(t, group):
         out = [torch.empty_like(t, memory_format=torch.contiguous_format)
                for _ in range(n)]
@@ -65,6 +93,7 @@ def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
 def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
                 group=None) -> torch.Tensor:
     """``t`` reduced over the group, in place; returns ``t``."""
+    moved("all_reduce", group, _nbytes(t))
     if stage(t, group):
         h = _host(t)
         dist.all_reduce(h, op=op, group=group)
@@ -76,6 +105,7 @@ def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
 
 def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` from global rank ``src`` on every rank, in place."""
+    moved("broadcast", group, _nbytes(t))
     if stage(t, group):
         h = _host(t)
         dist.broadcast(h, src, group=group)
@@ -92,6 +122,7 @@ def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
     n = dist.get_world_size(group)
     if n == 1:
         return t.clone()
+    moved("ring_shift", group, _nbytes(t))
     me = dist.get_group_rank(group, dist.get_rank()) if group is not None \
         else dist.get_rank()
 
@@ -140,5 +171,5 @@ def local_shard(full: torch.Tensor, mesh, placements,
     return out.clone(memory_format=torch.contiguous_format)
 
 
-__all__ = ["stage", "all_gather", "all_reduce_",
+__all__ = ["stage", "group_name", "moved", "all_gather", "all_reduce_",
            "broadcast_", "ring_shift", "full_tensor", "local_shard"]

@@ -426,6 +426,33 @@ def test_cuda_decode_attention_int8_matches_plain(cuda, B, S, KV, G, Dh,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_cuda_decode_attention_int8_custom_op_is_the_launch(cuda, q_dtype):
+    """K11 through its custom operator (as the model calls it) gives the
+    direct launch's output, element for element, with one launch each; on
+    fake card tensors (a dry run's trace) it gives the output's shape,
+    dtype and device and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import decode_attention as K11
+    args = [a.to(cuda) for a in k11_inputs(np.random.default_rng(44), 3, 600,
+                                           2, 4, 128, q_dtype)]
+    count = lambda: TK.launch_counts()["decode_attention_int8"]  # noqa: E731
+    before = count()
+    via_op = K11.decode_attention_int8(*args, window=256, softcap=30.0)
+    assert count() == before + 1
+    direct = K11._launch(*args, 256, 30.0)
+    torch.cuda.synchronize()
+    assert count() == before + 2
+    assert torch.equal(via_op, direct)
+    with FakeTensorMode() as mode:
+        out = K11.decode_attention_int8(*[mode.from_tensor(a) for a in args],
+                                        window=256, softcap=30.0)
+    assert (out.shape, out.dtype, out.device) == \
+        (via_op.shape, via_op.dtype, via_op.device)
+    assert count() == before + 2
+
+
+@pytest.mark.cuda
 def test_cuda_decode_attention_int8_fully_masked_rows(cuda):
     """No valid slot (empty cache, or q_pos before every key): the mean of
     V over all slots, as the reference gives, never NaN."""

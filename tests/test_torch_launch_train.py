@@ -1,7 +1,8 @@
 """The port's training launcher and its step helpers: input and cache
 specs, the microbatch rule, the closed-form step costs and model FLOPs
 against the reference's for every arch and shape, and the CLI at smoke
-size on the CPU (a mesh and the dry run are multi-device: A16c)."""
+size on the CPU (a mesh: test_torch_mesh_train.py; the dry run:
+test_torch_dryrun.py)."""
 import dataclasses
 import os
 import subprocess
@@ -136,14 +137,18 @@ def test_cli_trains_at_smoke_size_on_the_cpu(tmp_path, flags):
 
 
 @pytest.mark.parametrize("flags", [["--mesh", "2x1"], ["--dry-run"]])
-def test_cli_refuses_multi_device_work(flags, monkeypatch):
-    """``--dry-run`` is not ported (A16c's second half); a ``--mesh`` of
-    more ranks than the host has cards refuses, naming both counts, rather
-    than run on the CPU (a mesh on the CPU: test_torch_mesh_train.py)."""
+def test_cli_refuses_multi_device_work(flags, monkeypatch, capsys):
+    """A ``--mesh`` of more ranks than the host has cards refuses, naming
+    both counts, rather than run on the CPU (a mesh on the CPU:
+    test_torch_mesh_train.py).  ``--dry-run`` needs no card: on a 2x1
+    mesh it traces rank 0's step on fake CPU tensors and prints its
+    memory and costs (the flags' step: a smoke model, B 4 x S 32)."""
     from repro_torch.launch import train
     if "--dry-run" in flags:
-        with pytest.raises(NotImplementedError, match="A16c"):
-            train.main(["--arch", "qwen3-1.7b", *flags])
+        got = train.main(["--arch", "qwen3-1.7b", "--seq", "32", "--batch",
+                          "4", "--mesh", "2x1", "--device", "cpu", *flags])
+        out = capsys.readouterr().out
+        assert got is None and "peak_bytes" in out and "'flops'" in out
         return
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="2 ranks over NCCL.*1 card"):

@@ -226,3 +226,20 @@ def test_mesh_serving_cells_match_one_device(world, setup):
                 assert np.abs(a - b).max() <= 1.0
             else:
                 np.testing.assert_allclose(a, b, rtol=1e-2, atol=1e-6)
+
+
+def test_mesh_steps_without_donation_leave_their_arguments(world):
+    """``jitted_step_for_cell(donate=False)``: the train step returns new
+    parameters and moments and leaves the given ones, with the losses, grad
+    norms and parameters of the in-place (donated) step; a decode step
+    leaves the given caches and emits the donated step's tokens."""
+    for rank in world:
+        mine, donated = rank["f32_not_donated"], rank["f32"]
+        assert mine["given_kept"]
+        assert mine["metrics"] == donated["metrics"]
+        for a, b in zip(mine["params"], donated["params"], strict=True):
+            np.testing.assert_array_equal(a, b)
+        serve = rank["serve"]
+        assert serve["decode_not_donated"]["given_kept"]
+        np.testing.assert_array_equal(serve["decode_not_donated"]["decode"],
+                                      serve["decode"])

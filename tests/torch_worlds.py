@@ -255,6 +255,28 @@ def mesh_train_rank(rank, inp, work):
             "placements": [str(p.placements) for p in tree_leaves(params)],
             "step": int(state.step.to_local())}
 
+    # donate=False: new parameters and moments each step, the given ones
+    # left as they were
+    fn, _ = jitted_step_for_cell(
+        cfg, ShapeConfig("t", S, B, "train"), mesh,
+        opt_cfg=adamw.AdamWConfig(**inp["opt"]), microbatches=1,
+        donate=False)
+    params = tree_map(torch.clone, inp["params"])
+    state = adamw.init(params)
+    metrics, kept = [], True
+    for i in range(tokens.shape[0]):
+        given = [getattr(t, "to_local", lambda t=t: t)() for t in
+                 tree_leaves([params, state.m, state.v])]
+        before = [t.clone() for t in given]
+        params, state, m = fn(params, state, {
+            "tokens": torch.from_numpy(tokens[i]).long(),
+            "labels": torch.from_numpy(labels[i]).long()})
+        kept &= all(torch.equal(a, b) for a, b in zip(given, before))
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    out["f32_not_donated"] = {
+        "metrics": metrics, "given_kept": kept,
+        "params": [_np(t.float()) for t in tree_leaves(gather_full(params))]}
+
     # the serving cells: a prefill, then a decode step, on the same mesh
     from repro_torch.models import model as M
     SP, max_len = inp["serve_tokens"].shape[1], inp["serve_max_len"]
@@ -266,13 +288,31 @@ def mesh_train_rank(rank, inp, work):
                            torch.float32, device="cpu")
     tok, caches = prefill(inp["params"], {"tokens": torch.from_numpy(
         inp["serve_tokens"]).long()}, caches)
+    kept = decode_without_donation(cfg, mesh, inp, tok, caches, SP,
+                                   max_len, B)
     nxt, caches = decode(inp["params"], tok, caches, SP)
     out["serve"] = {"prefill": _np(tok), "decode": _np(nxt),
+                    "decode_not_donated": kept,
                     "caches": [_np(t.float()) for t in tree_leaves(
                         gather_full(caches))],
                     "placements": [str(t.placements)
                                    for t in tree_leaves(caches)]}
     return out
+
+
+def decode_without_donation(cfg, mesh, inp, tok, caches, pos, max_len, B):
+    """A decode step built with ``donate=False`` on ``caches``: its
+    tokens, and whether the given caches came back unchanged."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import jitted_step_for_cell
+    from repro_torch.sharding.rules import tree_leaves
+    decode, _ = jitted_step_for_cell(
+        cfg, ShapeConfig("d", max_len, B, "decode"), mesh, donate=False)
+    before = [t.to_local().clone() for t in tree_leaves(caches)]
+    nxt, new = decode(inp["params"], tok, caches, pos)
+    return {"decode": _np(nxt), "given_kept": all(
+        torch.equal(t.to_local(), b)
+        for t, b in zip(tree_leaves(caches), before))}
 
 
 RANKS = {"shard_map": (shard_map_rank, 8), "distributed":
