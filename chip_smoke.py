@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import atexit
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -67,7 +68,7 @@ REPS = 10     # timed repetitions per kernel case (median)
 #: timed repetitions of a sparse kernel's plain version (10-400x slower than
 #: the kernel, so a median of a few settles it)
 PLAIN_REPS = 3
-ITERS = 20    # launches per timing in the offline and serve phases
+ITERS = 10    # launches per timing in the offline and serve phases
 #: host transforms a ``t_trans`` of the off-line phases is the best of (the
 #: reference's 3): one — their sum moved 3.7 % across the three SpMM tables
 #: of a best-of-three run, whose ``TT`` were all >= 12.6 and ``SP`` <= 2.4:
@@ -184,7 +185,7 @@ FAMILIES = (
      torch.bfloat16),
     ("zamba2-1.2b", None, 8, 2048, (256, 512, 768, 1024), 32, None,
      torch.float32),
-    ("xlstm-1.3b", None, 4, 256, (32, 64, 96, 128), 16, None, None),
+    ("xlstm-1.3b", None, 4, 256, (16, 32, 48, 64), 16, None, None),
 )
 #: the family whose K11 launches the kernels line reports
 LM_ARCH = "qwen3-1.7b"
@@ -213,9 +214,10 @@ TRAIN_HELD = (("qwen3-1.7b", {}, 1e-4, {}), ("gemma3-12b", {}, 5e-2, {}),
 TRAIN_LOSS_RTOL = 1e-4
 #: whole models trained at full width: (arch, batch, seq, steps, whether
 #: the last step's loss must be below the first's: the motif data is
-#: learnable); float32 masters, bf16 compute, remat "full", SyntheticLM
-#: seed 0, no checkpoint
-TRAIN_FULL = (("qwen3-1.7b", 8, 1024, 4, True), ("zamba2-1.2b", 4, 512, 3,
+#: learnable; qwen3's has not fallen by its third step, so it takes four);
+#: float32 masters, bf16 compute, remat "full", SyntheticLM seed 0, no
+#: checkpoint
+TRAIN_FULL = (("qwen3-1.7b", 8, 1024, 4, True), ("zamba2-1.2b", 4, 512, 2,
                                                  False))
 #: H100 SXM data-sheet dense bf16 peak, the MFU's and the step bound's
 PEAK_BF16_FLOPS = 989e12
@@ -230,7 +232,7 @@ HYBRID_SWEEP = (("fixed_256", "fixed", {"block_rows": 256}),
                                              "min_rows": 64}))
 #: launches per timing in the serve_hybrid phase (a product there is up to
 #: thousands of launches)
-HYBRID_ITERS = 2
+HYBRID_ITERS = 1
 #: a call whose host enqueue takes longer than this outruns the longest head
 #: start of ``autotune.time_device``: its device time is not measured
 HYBRID_MAX_ENQUEUE_S = 0.05
@@ -1009,7 +1011,12 @@ def kernels_line(cases, k11_cases, launches):
         "library_ms": None,
         "shape": {k: head[k] for k in ("case", "B", "S", "KV", "G", "Dh",
                                        "window", "dtype", "valid_share")},
-        "cases_checked": len(k11_cases)})
+        "cases_checked": len(k11_cases),
+        # a rank's KV heads of qwen3's decode on a model axis of 2 and 16
+        "tensor_parallel": [
+            {k: c[k] for k in ("case", "KV", "G", "ms", "plain_ms",
+                               "bound_ms", "max_abs_err")}
+            for c in k11_cases if c["case"] in ("tp2", "tp16")]})
     return {"kernels": out}
 
 
@@ -2381,12 +2388,16 @@ def phase_serve_sharded(base, dbs):
 #: ranks of the serve_shard_map world: two, both on the one card, over gloo
 SHARD_MAP_RANKS = 2
 #: products a timing averages over (each a collective of both ranks)
-SHARD_MAP_ITERS = 2
+SHARD_MAP_ITERS = 1
 #: the mesh train: arch (full width), layers kept, batch, sequence, steps
 #: (two: the second step's loss holds the first step's update)
 MESH_TRAIN = ("qwen3-1.7b", 2, 2, 256, 2)
 #: the world's wall limit, seconds
 SHARD_MAP_WALL_S = 240
+#: the 1x2 mesh's serving cells (tensor parallelism over ``model``):
+#: batch, prompt length, cache length; ``MESH_TRAIN``'s model in bf16 with
+#: the int8 KV cache, so K11 runs at 4 KV heads a rank (G 2)
+TP_SERVE = (2, 256, 512)
 
 
 def import_checkpoint_deps():
@@ -2517,8 +2528,131 @@ def shard_map_rank(rank):
                         "staged_bytes": C.stage.bytes - staged,
                         "peak_bytes": torch.cuda.max_memory_allocated()}
     marks["train"] = time.perf_counter()
+
+    # the same world as a 1x2 mesh: tensor parallelism over ``model``
+    tp_mesh = make_mesh((1, SHARD_MAP_RANKS), ("data", "model"))
+    cfg = cfg.resolve_for_tp(SHARD_MAP_RANKS)
+    with tempfile.TemporaryDirectory() as root:
+        tc.ckpt_dir = root
+        tr = Trainer(cfg, data, tc, device=torch.device(
+            "cuda", torch.cuda.current_device()), mesh=tp_mesh)
+        staged = C.stage.bytes
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = tr.init_state()
+        tr.run(state)
+        del state
+        out["train_tp"] = {"losses": [m["loss"] for m in tr.metrics],
+                           "grad_norms": [m["grad_norm"]
+                                          for m in tr.metrics],
+                           "ms_steps": [m["sec_per_step"] * 1e3
+                                        for m in tr.metrics],
+                           "seconds": time.perf_counter() - t0,
+                           "staged_bytes": C.stage.bytes - staged,
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del tr
+    torch.cuda.empty_cache()
+    marks["train_tp"] = time.perf_counter()
+    out["serve_tp"] = tp_serving(tp_mesh, cfg)
+    marks["serve_tp"] = time.perf_counter()
     names = list(marks)
     out["seconds"] = {b: marks[b] - marks[a] for a, b in zip(names, names[1:])}
+    return out
+
+
+def tp_serving(mesh, cfg):
+    """A prefill and an int8-KV decode step of ``cfg`` (bf16) on the 1x2
+    ``mesh`` (every rank of it calls this): through
+    ``jitted_step_for_cell``'s steps, timed, their K11 launches counted
+    and the bytes staged; then the same two steps' logits under the mesh
+    (the rank's ``model`` shards of the parameters and caches, the
+    logits gathered over ``model``) against one rank's whole model on the
+    same inputs, within ``LM_STEP_REL_TOL`` of the largest logit.  The
+    timed steps are held to both: their tokens are the argmax of those
+    logits, and the caches they wrote back (every leaf, gathered) are
+    one rank's within ``LM_STEP_REL_TOL`` of the leaf's largest value."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import tree_leaves, tree_map, use_mesh
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = cfg.replace(dtype="bfloat16", kv_quant=True)
+    B, SP, max_len = TP_SERVE
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(
+        FAMILY_SEED), device=dev)
+    prompt = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, SP), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(FAMILY_SEED + 1))}
+    prefill, _ = S.jitted_step_for_cell(
+        cfg, ShapeConfig("p", SP, B, "prefill"), mesh)
+    decode, _ = S.jitted_step_for_cell(
+        cfg, ShapeConfig("d", max_len, B, "decode"), mesh)
+    placed = S.distribute(params, S.params_sharding(cfg, mesh))
+    out = {"batch": B, "prompt": SP, "max_len": max_len}
+    caches = M.init_caches(cfg, B, max_len, torch.bfloat16, device=dev)
+    staged = C.stage.bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, caches = prefill(placed, prompt, caches)
+    torch.cuda.synchronize()
+    out["ms_prefill"] = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    nxt, caches = decode(placed, tok, caches, SP)
+    torch.cuda.synchronize()
+    out["ms_decode_step"] = (time.perf_counter() - t0) * 1e3
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    out["staged_bytes"] = C.stage.bytes - staged
+    out["launched"] = launched
+    out["kv_heads_a_rank"] = caches["layers"][0]["attn"]["k"].to_local(
+        ).shape[2]
+    if launched != {"decode_attention_int8": cfg.n_layers} or \
+            out["kv_heads_a_rank"] != cfg.eff_kv_heads // mesh.size(1):
+        raise AssertionError(f"serve_shard_map 1x2 decode: launched "
+                             f"{launched}, {out['kv_heads_a_rank']} KV heads "
+                             f"a rank")
+
+    # the logits: the mesh's (the rank's shards) against one rank's
+    shape = ShapeConfig("d", max_len, B, "decode")
+    local = S.gather_fsdp(placed)
+    mine = tree_map(lambda t: t.to_local(), S.distribute(
+        M.init_caches(cfg, B, max_len, torch.bfloat16, device=dev),
+        S.cache_sharding(cfg, shape, mesh)))
+    whole = M.init_caches(cfg, B, max_len, torch.bfloat16, device=dev)
+    with torch.no_grad():
+        with use_mesh(S.rank_context(mesh, None)):
+            got = [M.full_vocab(M.prefill(local, prompt, mine, cfg)[0][
+                :, -1:], cfg).float()]
+            got.append(M.full_vocab(M.decode_step(local, tok, mine, SP,
+                                                  cfg)[0], cfg).float())
+        want = [M.prefill(params, prompt, whole, cfg)[0][:, -1:].float()]
+        want.append(M.decode_step(params, tok, whole, SP, cfg)[0].float())
+    for name, a, b in zip(("prefill", "decode"), got, want):
+        rel = float((a - b).abs().max() / b.abs().max())
+        out[f"{name}_max_rel_err"] = rel
+        if rel > LM_STEP_REL_TOL:
+            raise AssertionError(f"serve_shard_map 1x2 {name}: logits "
+                                 f"{rel:.3g} of max |logits| from one "
+                                 f"rank's (> {LM_STEP_REL_TOL})")
+    # the timed steps: their tokens, and the caches they wrote back
+    for name, t, logits in (("prefill", tok, got[0]), ("decode", nxt,
+                                                       got[1])):
+        if not torch.equal(t, torch.argmax(logits[:, -1:], dim=-1)):
+            raise AssertionError(f"serve_shard_map 1x2 {name}: the timed "
+                                 f"step's tokens are not its logits' argmax")
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30))
+              for a, b in zip(tree_leaves(S.gather_full(caches)),
+                              tree_leaves(whole), strict=True))
+    out["caches_max_rel_err"] = rel
+    if rel > LM_STEP_REL_TOL:
+        raise AssertionError(f"serve_shard_map 1x2: the timed steps' caches "
+                             f"{rel:.3g} of a leaf's max from one rank's "
+                             f"(> {LM_STEP_REL_TOL})")
+    out["tokens_equal_one_rank"] = bool(torch.equal(
+        nxt, torch.argmax(want[1][:, -1:], dim=-1)))
     return out
 
 
@@ -2548,12 +2682,14 @@ def phase_serve_shard_map():
     del tr, state
     torch.cuda.empty_cache()
     for r in ranks:
-        got = r["train"]["losses"]
-        if len(got) != len(one) or any(
-                abs(a - b) > TRAIN_LOSS_RTOL * abs(b)
-                for a, b in zip(got, one)):
-            raise AssertionError(f"serve_shard_map: rank {r['rank']}'s "
-                                 f"mesh losses {got}, one rank's {one}")
+        for key, mesh_name in (("train", "2x1"), ("train_tp", "1x2")):
+            got = r[key]["losses"]
+            if len(got) != len(one) or any(
+                    abs(a - b) > TRAIN_LOSS_RTOL * abs(b)
+                    for a, b in zip(got, one)):
+                raise AssertionError(
+                    f"serve_shard_map: rank {r['rank']}'s {mesh_name} mesh "
+                    f"losses {got}, one rank's {one}")
     arch, layers, batch, seq, steps = MESH_TRAIN
     out = {"ranks": SHARD_MAP_RANKS, "cards": torch.cuda.device_count(),
            "backend": "gloo", "matrix": matrix_label(*STREAM_MATRIX),
@@ -2586,11 +2722,32 @@ def phase_serve_shard_map():
                      "staged_bytes": [r["train"]["staged_bytes"]
                                       for r in ranks],
                      "peak_bytes": [r["train"]["peak_bytes"]
-                                    for r in ranks]}}
-    emit("serve_shard_map", **out)
-    return {k: sum(r["axes"][a][op]["launched"].get(k, 0) for r in ranks
+                                    for r in ranks]},
+           "train_tp": {"mesh": f"1x{SHARD_MAP_RANKS}",
+                        "losses_mesh": ranks[0]["train_tp"]["losses"],
+                        "grad_norms": ranks[0]["train_tp"]["grad_norms"],
+                        "ms_steps_mesh": ranks[0]["train_tp"]["ms_steps"],
+                        "seconds_mesh": ranks[0]["train_tp"]["seconds"],
+                        "staged_bytes": [r["train_tp"]["staged_bytes"]
+                                         for r in ranks],
+                        "peak_bytes": [r["train_tp"]["peak_bytes"]
+                                       for r in ranks]},
+           "serve_tp": {**ranks[0]["serve_tp"],
+                        "mesh": f"1x{SHARD_MAP_RANKS}",
+                        "staged_bytes": [r["serve_tp"]["staged_bytes"]
+                                         for r in ranks],
+                        "max_rel_err": max(
+                            max(r["serve_tp"]["prefill_max_rel_err"],
+                                r["serve_tp"]["decode_max_rel_err"])
+                            for r in ranks),
+                        "tolerance": LM_STEP_REL_TOL}}
+    emit("serve_shard_map", card=nvidia_smi_line(), **out)
+    path = {k: sum(r["axes"][a][op]["launched"].get(k, 0) for r in ranks
                    for a in ("row", "col") for op in ("spmv", "spmm"))
             for k in ("csr_spmv", "csr_spmm")}
+    path["decode_attention_int8"] = sum(
+        r["serve_tp"]["launched"]["decode_attention_int8"] for r in ranks)
+    return path
 
 
 # ---------------------------------------------------------------------------
@@ -2635,6 +2792,10 @@ K11_CASES = (
     ("ring_window", 8, 4096, 8, 2, 128, 1024, torch.bfloat16, 0.0, "ring"),
     ("masked_row", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0,
      "masked_row"),
+    # qwen3's decode tensor-parallel: a rank's KV heads at a model axis of
+    # 2 (4 of 8) and of 16 (1 of 16, resolve_for_tp replicating each twice)
+    ("tp2", 8, 8192, 4, 2, 128, None, torch.bfloat16, 0.0, "prefix"),
+    ("tp16", 8, 8192, 1, 1, 128, None, torch.bfloat16, 0.0, "prefix"),
 )
 #: the family whose sequence lengths (mid-decode) each served case takes
 SERVED_K11 = {"served": "qwen3-1.7b", "served_f32": "qwen3-1.7b",
@@ -3478,6 +3639,9 @@ DRYRUN_PEAK_RTOL = 0.02
 #: seconds the phase waits for the worker after the train phase (it starts
 #: once the sparse kernels are built and runs beside the other phases)
 DRYRUN_WAIT_S = 300
+#: the 16x16 train cell's traced FLOPs over the closed form's (which
+#: counts the reference's tensor-parallel design), at most
+DRYRUN_SPLIT_MAX = 1.3
 
 
 def dryrun_worker(out_path):
@@ -3608,6 +3772,14 @@ def phase_dryrun(worker, train_peaks, smi):
         emit("dryrun", part=key, card=smi, **line)
         if rec["status"] != "ok":
             raise AssertionError(f"dryrun {key}: {rec.get('error')}")
+        if key == "mesh_cell" and not (
+                line.get("traced_over_analytic_flops", math.inf)
+                <= DRYRUN_SPLIT_MAX):
+            raise AssertionError(
+                f"dryrun: the 16x16 train cell traces "
+                f"{line.get('traced_over_analytic_flops')} x its closed "
+                f"form's FLOPs (> {DRYRUN_SPLIT_MAX}: the model axis does "
+                f"not split the work)")
     if res["launched"]:
         raise AssertionError(f"dryrun: a trace launched {res['launched']}")
     if res["decode_cell"]["k11_calls"] != res["attention_layers"]:

@@ -1,7 +1,8 @@
 """Summarize the port's dry-run records (``python -m
 repro_torch.launch.dryrun``, then ``--analysis``) as the tables of
 ``PERF.md``: every cell's status, and for each ok cell of one mesh its
-per-device FLOPs traced and in closed form, traced bytes, collective bytes,
+per-device FLOPs traced and in closed form, traced bytes, collective bytes
+(in all, and on the ``model`` axis and the batch axes ``data``/``pod``),
 peak memory, whether it fits one H100's 80 GB, the bottleneck and the
 useful ratio.
 
@@ -27,19 +28,26 @@ def load(directory: str) -> list:
 
 def table(recs: list, mesh: str) -> str:
     rows = ["| arch | shape | FLOPs/dev traced | closed form | traced / "
-            "closed | traced bytes/dev | collective bytes/dev | peak GB | "
-            "fits_80gb | bottleneck | useful_ratio | trace s |",
-            "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+            "closed | traced bytes/dev | collective bytes/dev | on model | "
+            "on data, pod | peak GB | fits_80gb | bottleneck | useful_ratio "
+            "| trace s |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in recs:
         if r["mesh"] != mesh or r["status"] != "ok":
             continue
         rl, mem = r["roofline"], r["memory"]
         closed = r.get("analytic", {}).get("flops_dev")
+        by_axis = {}
+        for per_op in rl.get("collectives_by_axis", {}).values():
+            for axis, n in per_op.items():
+                by_axis[axis] = by_axis.get(axis, 0) + n
+        batch = by_axis.get("data", 0) + by_axis.get("pod", 0)
         rows.append(
             f"| {r['arch']} | {r['shape']} | {rl['traced_flops']:.3e} | "
             f"{f'{closed:.3e}' if closed else '—'} | "
             f"{f'{rl['traced_flops'] / closed:.2f}' if closed else '—'} | "
             f"{rl['traced_bytes']:.3e} | {rl['collective_bytes']:.3e} | "
+            f"{by_axis.get('model', 0):.3e} | {batch:.3e} | "
             f"{mem['peak_bytes'] / 1e9:.1f} | {mem['fits_80gb']} | "
             f"{rl['bottleneck']} | {rl['useful_ratio']:.3f} | "
             f"{r['timings']['trace_s']:.0f} |")

@@ -16,16 +16,29 @@ ops and a ctypes-bound kernel that DTensor's op propagation does not
 cover):
 
   * parameters and moments are DTensors placed by :func:`params_sharding`
-    and :func:`opt_sharding`; a step all-gathers each parameter for the
-    compute (GSPMD's FSDP all-gather);
-  * each rank runs the one-device step on its shard of the batch
-    (:func:`batch_sharding`), sums the gradients over the batch axes, and
-    updates its own shards with AdamW (the grad norm is the whole tree's);
+    and :func:`opt_sharding`; a step all-gathers each parameter over the
+    FSDP axes only (``data``, and ``pod`` under ``RULES_2POD``:
+    :func:`gather_fsdp`), keeping its ``model`` shard;
+  * the blocks compute tensor-parallel on those shards (column- and
+    row-parallel heads and ``d_ff``, expert parallelism, the SSM/xLSTM
+    ``inner`` dim, vocabulary-parallel logits and cross-entropy), reading
+    the ``model`` group from the ``sharding/rules.py:MeshContext`` the
+    step enters; with a ``model`` axis of 1 every one of their
+    collectives is the identity;
+  * each rank runs its shard of the batch (:func:`batch_sharding`); a
+    microbatch of fewer rows than the batch shards is padded with rows
+    whose labels are all ``-1``, left out of the loss and of the MoE
+    router's statistics, so the step is the reference's function of the
+    real rows;
+  * the gradients come back ``model``-shard-sized, are summed over the
+    batch axes, and each rank updates its own shards with AdamW (the grad
+    norm counts each element once: the sharded leaves' squares summed
+    over ``model``);
   * the loss is the reference's, the mean over every label token of the
     global batch: the shards' summed NLL and token counts are reduced, not
-    a mean of per-rank means (masked labels differ across shards).  The
-    MoE auxiliary loss is the mean of the shards' (the reference takes it
-    over the global batch; its capacity also counts the shard's tokens).
+    a mean of per-rank means (masked labels differ across shards); the MoE
+    auxiliary loss is taken over the global microbatch (``models/moe.py``:
+    its two batch means summed over the batch axes).
 """
 from __future__ import annotations
 
@@ -39,9 +52,10 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..models import model as M
 from ..optim import adamw
 from ..sharding import collectives as C
-from ..sharding.rules import (RULES_1POD, RULES_ZERO1, NamedSharding,
-                              ShardingRules, logical_to_sharding,
-                              rules_for_mesh, tree_leaves, tree_map)
+from ..sharding.rules import (RULES_1POD, RULES_ZERO1, MeshContext,
+                              NamedSharding, ShardingRules,
+                              logical_to_sharding, rules_for_mesh,
+                              tree_leaves, tree_map, use_mesh)
 from .mesh import data_axis_size, mesh_shape, model_axis_size
 
 
@@ -147,7 +161,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
     def prefill_step(params, batch, caches):
         logits, caches = M.prefill(params, batch, caches, cfg)
         # serving prefill emits the first generated token
-        next_tok = torch.argmax(logits[:, -1:, :], dim=-1)
+        next_tok = torch.argmax(M.full_vocab(logits[:, -1:, :], cfg), dim=-1)
         return next_tok, caches
     return prefill_step
 
@@ -157,7 +171,7 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
     def serve_step(params, tokens, caches, cache_len):
         logits, caches = M.decode_step(params, tokens, caches, cache_len,
                                        cfg)
-        next_tok = torch.argmax(logits[:, -1:, :], dim=-1)
+        next_tok = torch.argmax(M.full_vocab(logits[:, -1:, :], cfg), dim=-1)
         return next_tok, caches
     return serve_step
 
@@ -232,11 +246,18 @@ def _map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
 
 
 def cache_sharding(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Any:
-    """The reference's per-leaf placement of the decode caches:
+    """The per-leaf placement of the decode caches, as the blocks compute
+    on a mesh (``models/*.py``):
       * batch dim -> (pod, data) when divisible;
       * attn K/V: kv_heads -> model; if batch unshardable, sequence -> (pod,
         data) (context parallelism);
-      * SSM/xLSTM states: heads (or the widest inner dim) -> model.
+      * Mamba-2 ``h``: heads -> model; its conv cache replicated (every
+        channel: a rank's conv reads all of B and C);
+      * mLSTM ``C``/``n``/``m``: heads -> model where they divide it, else
+        replicated (the recurrence runs whole on each rank); its conv
+        cache's channels -> model;
+      * sLSTM ``c``/``n``/``h``/``m``: each head's units -> model where
+        ``R`` is sharded over its gate columns, else replicated.
     The port keeps one cache a layer (the reference stacks the pattern's
     repetitions under ``scan``), so no leaf has a leading layers dim."""
     B = shape.global_batch
@@ -244,32 +265,31 @@ def cache_sharding(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Any:
     tp = model_axis_size(mesh)
     dp = data_axis_size(mesh)
     seq_ax = tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+    slstm_units = (cfg.xlstm_shard_recurrent and
+                   (4 * cfg.d_model // cfg.n_heads) % tp == 0)
 
     def leaf(path, s):
         shp = s.shape
-        name = [p for p in path if isinstance(p, str)][-1]
+        block, name = [p for p in path if isinstance(p, str)][-2:]
         ent: list = [None] * len(shp)
         ent[0] = bax
-        if name in ("k", "v", "k_s", "v_s"):      # (B, S, KV[, hd])
+        if block == "attn":                       # (B, S, KV[, hd])
             if shp[2] % tp == 0:
                 ent[2] = "model"
             if bax is None and seq_ax and shp[1] % dp == 0:
                 ent[1] = seq_ax                   # context parallelism
-        elif name == "h" and len(shp) == 4:       # mamba (B, H, N, hd)
+        elif block == "mamba" and name == "h":    # (B, H, N, hd)
             if shp[1] % tp == 0:
                 ent[1] = "model"
-        elif name == "conv":                      # (B, K, C)
+        elif block == "mlstm" and name == "conv":  # (B, 3, d_in)
             if shp[2] % tp == 0:
                 ent[2] = "model"
-        elif name == "C" and len(shp) == 4:       # mlstm (B, H, dk, dv)
+        elif block == "mlstm" and name in ("C", "n", "m"):  # (B, H, ...)
             if shp[1] % tp == 0:
                 ent[1] = "model"
-            elif shp[3] % tp == 0:
-                ent[3] = "model"
-        elif len(shp) >= 3 and shp[-1] % tp == 0 and name in ("c", "n",
-                                                              "m", "h"):
-            if shp[1] % tp == 0:
-                ent[1] = "model"
+        elif block == "slstm":                    # (B, H, dh)
+            if slstm_units and shp[2] % tp == 0:
+                ent[2] = "model"
         return NamedSharding(mesh, tuple(ent))
 
     return _map_with_path(leaf, cache_specs(cfg, shape))
@@ -300,7 +320,7 @@ def distribute(tree: Any, shardings: Any) -> Any:
 
 
 def gather_full(tree: Any) -> Any:
-    """The whole tensors of a tree of DTensors (a collective: the FSDP
+    """The whole tensors of a tree of DTensors (a collective: the
     all-gather of each sharded leaf; plain tensors pass through)."""
     from torch.distributed.tensor import DTensor
 
@@ -309,6 +329,41 @@ def gather_full(tree: Any) -> Any:
             return t
         return C.full_tensor(t.to_local(), t.device_mesh, t.placements)
     return tree_map(full, tree)
+
+
+def fsdp_dims(mesh) -> list:
+    """The mesh dims a step gathers parameters over: all but ``model``."""
+    return [i for i, n in enumerate(mesh.mesh_dim_names) if n != "model"]
+
+
+def gather_fsdp(tree: Any) -> Any:
+    """Each DTensor leaf of a tree gathered over the FSDP axes only (every
+    mesh dim but ``model``: GSPMD's FSDP all-gather), leaving the rank's
+    ``model`` shard; plain tensors pass through.  A collective."""
+    from torch.distributed.tensor import DTensor
+
+    def part(t):
+        if not isinstance(t, DTensor):
+            return t
+        mesh = t.device_mesh
+        return C.full_tensor(t.to_local(), mesh, t.placements,
+                             fsdp_dims(mesh))
+    return tree_map(part, tree)
+
+
+def rank_context(mesh, bax, real_rows: Optional[torch.Tensor] = None,
+                 rules: Optional[ShardingRules] = None) -> MeshContext:
+    """The :class:`~repro_torch.sharding.rules.MeshContext` of this rank of
+    ``mesh`` with the batch over ``bax`` and the parameters placed by
+    ``rules`` (default :func:`rules_for_mesh`)."""
+    names = list(mesh.mesh_dim_names)
+    tp = mesh.size(names.index("model")) if "model" in names else 1
+    return MeshContext(
+        model_group=mesh.get_group("model") if tp > 1 else None, tp=tp,
+        tp_rank=mesh.get_local_rank("model") if tp > 1 else 0,
+        batch_groups=tuple(mesh.get_group(a) for a in (bax or ())
+                           if mesh.size(names.index(a)) > 1),
+        real_rows=real_rows, mesh=mesh, rules=rules or rules_for_mesh(mesh))
 
 
 def _rewrap(like: Any, local: torch.Tensor) -> Any:
@@ -349,37 +404,87 @@ def _batch_ops(mesh, bax):
     return rows, reduce_, math.prod(mesh.size(i) for i in dims)
 
 
+def _padded(batch: Dict[str, torch.Tensor], shards: int):
+    """``(batch, real rows or None)``: rows past the last real one added
+    until the batch splits over ``shards`` (tokens 0, labels all ``-1``,
+    zero frontend embeddings), and a mask of the real rows; the batch as
+    it is (``None``) when it splits already."""
+    R = next(iter(batch.values())).shape[0]
+    pad = -R % shards
+    if not pad:
+        return batch, None
+
+    def fill(k, v):
+        extra = v.new_full((pad,) + v.shape[1:], -1 if k == "labels" else 0)
+        return torch.cat([v, extra])
+    real = torch.arange(R + pad, device=next(iter(batch.values())).device) < R
+    return {k: fill(k, v) for k, v in batch.items()}, real
+
+
+def _grad_norm(grads: list, params: list, mesh) -> torch.Tensor:
+    """The global norm of ``model``-shard gradients: each element counted
+    once (the squares of a leaf sharded over ``model`` summed over it, a
+    replicated leaf's taken once)."""
+    names = list(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    dev = grads[0].device
+    sq = [torch.zeros((), dtype=torch.float32, device=dev) for _ in "rs"]
+    for g, p in zip(grads, params, strict=True):
+        sharded = mi is not None and p.placements[mi].is_shard()
+        sq[sharded] = sq[sharded] + g.float().square().sum()
+    if mi is not None and mesh.size(mi) > 1:
+        C.all_reduce_(sq[1], group=mesh.get_group(mi))
+    return (sq[0] + sq[1]).sqrt()
+
+
+#: dtypes of parameters held in low precision (mixed precision's working
+#: copy)
+LOW = (torch.bfloat16, torch.float16)
+
+
 def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
                          batch_axes: Optional[Tuple[str, ...]],
                          microbatches: int = 1,
                          mixed_precision: bool = False,
                          aux_weight: float = 0.01,
-                         inplace: bool = True) -> Callable:
+                         inplace: bool = True,
+                         rules: Optional[ShardingRules] = None) -> Callable:
     """The train step on a mesh (see the module docstring): ``(params,
     opt_state, batch) -> (params, opt_state, {"loss", "grad_norm"})`` with
     DTensor parameters and moments, updated in place (new ones with
     ``inplace=False``), and the global batch (the same tensors on every
     rank; microbatch ``m`` is its ``m``-th slice of rows, as in the
-    reference's scan, and a rank takes its shard of each).  A collective:
-    every rank of ``mesh`` calls it."""
+    reference's scan, padded to split over the batch shards, and a rank
+    takes its shard of each).  ``rules``: the ones that placed the
+    parameters (default :func:`rules_for_mesh`).  A collective: every rank
+    of ``mesh`` calls it."""
     rows, reduce_, n_shards = _batch_ops(mesh, batch_axes)
+    fsdp = fsdp_dims(mesh)
 
     def train_step(params, opt_state, batch):
-        full = tree_leaves(gather_full(params))
+        local = tree_leaves(gather_fsdp(params))
         loss, grads = None, None
         for mb in range(microbatches):
-            part = {k: rows(v.chunk(microbatches, dim=0)[mb])
-                    for k, v in batch.items()}
-            leaves = [p.detach().requires_grad_() for p in full]
+            part, real = _padded({k: v.chunk(microbatches, dim=0)[mb]
+                                  for k, v in batch.items()}, n_shards)
+            part = {k: rows(v) for k, v in part.items()}
+            # a low-precision leaf differentiated through a float32 copy:
+            # the batch shards' gradients are summed in float32 and
+            # rounded once, as one device's gradient is
+            leaves = [(p.detach().float() if p.dtype in LOW else
+                       p.detach()).requires_grad_() for p in local]
             it = iter(leaves)
-            with torch.enable_grad():
+            ctx = rank_context(mesh, batch_axes,
+                               None if real is None else rows(real), rules)
+            with torch.enable_grad(), use_mesh(ctx):
                 nll, cnt, aux = M.loss_terms(
                     tree_map(lambda _: next(it), params), part, cfg)
                 n_tok = reduce_(cnt.detach().clone()).clamp_min(1.0)
-                g = torch.autograd.grad(
-                    nll / n_tok + aux_weight * aux / n_shards, leaves)
-            terms = reduce_(torch.stack([nll.detach(), aux.detach()]))
-            l = terms[0] / n_tok + aux_weight * terms[1] / n_shards
+                g = torch.autograd.grad(nll / n_tok + aux_weight * aux,
+                                        leaves)
+            # the auxiliary loss is the global batch's on every rank
+            l = reduce_(nll.detach().clone()) / n_tok + \
+                aux_weight * aux.detach()
             g = [x.float() for x in g]
             if grads is None:
                 loss, grads = l, g
@@ -387,8 +492,9 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
             loss = loss + l
             for acc, x in zip(grads, g, strict=True):
                 acc.add_(x)
-        del full, leaves, g
-        # one all-reduce of every gradient over the batch axes
+        del local, leaves, g
+        # one all-reduce of every gradient (the rank's model shards) over
+        # the batch axes
         sizes = [x.numel() for x in grads]
         shapes = [x.shape for x in grads]
         flat = torch.cat([x.reshape(-1) for x in grads])
@@ -402,8 +508,8 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
                  else x.view(shape).to(p.dtype)   # the reference's grads
                  for x, shape, p in zip(flat.split(sizes), shapes, p_leaves,
                                         strict=True)]
-        gnorm = adamw.global_norm(grads)
-        g_local = [C.local_shard(x, p.device_mesh, p.placements)
+        gnorm = _grad_norm(grads, p_leaves, mesh)
+        g_local = [C.local_shard(x, p.device_mesh, p.placements, fsdp)
                    for x, p in zip(grads, p_leaves, strict=True)]
 
         def local_tree(t):
@@ -426,18 +532,19 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
 
 
 def _cache_ops(mesh, bax, donate: bool):
-    """(a cache tree's rank-local view: the rank's batch rows, every other
-    dim whole; the inverse: those back to the tree's placements).  With
-    ``donate`` the step writes the given caches' shards in place and
-    returns them (the reference's donated cache); without, the given
-    caches are left as they are and new ones returned."""
+    """(a cache tree's rank-local view: the rank's batch rows and ``model``
+    shards, every other dim whole; the inverse: those back to the tree's
+    placements).  With ``donate`` the step writes the given caches' shards
+    in place and returns them (the reference's donated cache); without,
+    the given caches are left as they are and new ones returned."""
     from torch.distributed.tensor import Shard
     names = list(mesh.mesh_dim_names)
-    bdims = {names.index(a) for a in (bax or ())}
+    keep = {names.index(a) for a in (bax or ())}
 
     def other(t):
         return [i for i, p in enumerate(t.placements)
-                if not (i in bdims and p == Shard(0))]
+                if not ((i in keep and p == Shard(0))
+                        or names[i] == "model")]
 
     def view(t):
         local = t.to_local()
@@ -474,31 +581,36 @@ def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
 def mesh_forward(params: Any, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig, mesh) -> torch.Tensor:
     """``models.forward``'s logits for the global batch on a mesh: each
-    rank gathers the parameters, runs its shard of the batch, and the
-    logits are gathered over the batch axes (every rank returns them
-    all).  A collective."""
+    rank gathers the parameters over the FSDP axes, runs its shard of the
+    batch tensor-parallel over ``model``, and the logits are gathered over
+    ``model`` and the batch axes (every rank returns them all).  A
+    collective."""
     bax = batch_axes_for(next(iter(batch.values())).shape[0], mesh)
     rows, _, _ = _batch_ops(mesh, bax)
-    with torch.no_grad():
-        logits, _ = M.forward(gather_full(params),
+    with torch.no_grad(), use_mesh(rank_context(mesh, bax)):
+        logits, _ = M.forward(gather_fsdp(params),
                               {k: rows(v) for k, v in batch.items()}, cfg)
+        logits = M.full_vocab(logits, cfg)
     sh = NamedSharding(mesh, (bax,) + (None,) * (logits.ndim - 1))
     return C.full_tensor(logits, mesh, sh.placements)
 
 
-def _mesh_serving(fn: Callable, mesh, bax, donate: bool = True
-                  ) -> Callable:
-    """A prefill or serve step on a mesh: parameters gathered, the batch
-    rows and cache rows of this rank, the new tokens gathered over the
-    batch axes, the caches placed back as they came (written in place
-    with ``donate``)."""
+def _mesh_serving(fn: Callable, mesh, bax, donate: bool = True,
+                  rules: Optional[ShardingRules] = None) -> Callable:
+    """A prefill or serve step on a mesh: parameters gathered over the
+    FSDP axes, the batch rows and the cache rows and ``model`` shards of
+    this rank, the step tensor-parallel over ``model``, the new tokens
+    gathered over the batch axes, the caches placed back as they came
+    (written in place with ``donate``)."""
     rows, _, _ = _batch_ops(mesh, bax)
     to_local, back = _cache_ops(mesh, bax, donate)
 
     def step(params, inputs, caches, *rest):
         inputs = ({k: rows(v) for k, v in inputs.items()}
                   if isinstance(inputs, dict) else rows(inputs))
-        tok, new = fn(gather_full(params), inputs, to_local(caches), *rest)
+        with use_mesh(rank_context(mesh, bax, rules=rules)):
+            tok, new = fn(gather_fsdp(params), inputs, to_local(caches),
+                          *rest)
         sh = NamedSharding(mesh, (bax, None))
         return C.full_tensor(tok, mesh, sh.placements), back(caches, new)
     return step
@@ -518,10 +630,12 @@ def _placing(fn: Callable, *shardings: Any) -> Callable:
 #: why the port's serving cells do not keep weights stationary (the
 #: reference's default decode cell does)
 WEIGHT_STATIONARY_NOTE = (
-    "the port's mesh steps gather every parameter whole on every rank "
-    "(FSDP): a weight-stationary serve step needs the reference's "
-    "RULES_SERVE activation shardings, i.e. tensor parallelism over the "
-    "model axis, which the port does not have yet (ROADMAP.md item A16d)")
+    "the port's mesh steps gather each parameter over the FSDP axes and "
+    "compute tensor-parallel over the model axis: a weight-stationary "
+    "serve step needs the reference's RULES_SERVE activation shardings "
+    "(the activations' d split over the data axis, contracted against "
+    "the weights' data shards with no weight gather), which the port "
+    "does not have yet (ROADMAP.md item A16e)")
 
 
 def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -557,20 +671,20 @@ def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     rules = rules or rules_for_mesh(mesh)
     bax = batch_axes_for(shape.global_batch, mesh)
     binp = input_specs(cfg, shape)
-    ps = params_sharding(cfg, mesh, RULES_ZERO1 if zero1 else rules)
+    prules = RULES_ZERO1 if zero1 else rules
+    ps = params_sharding(cfg, mesh, prules)
     if shape.kind == "train":
         opt_cfg = opt_cfg or adamw.AdamWConfig()
         mb = (microbatches if microbatches is not None
               else default_microbatches(cfg, shape))
-        shards = math.prod(mesh_shape(mesh)[a] for a in (bax or ()))
-        if (shape.global_batch // mb) % shards:
-            raise ValueError(
-                f"a microbatch of {shape.global_batch // mb} rows "
-                f"({shape.global_batch} over {mb} microbatches) does not "
-                f"split over the {shards} batch shards of mesh axes {bax}")
-        fn = make_mesh_train_step(cfg, opt_cfg, mesh, bax, microbatches=mb,
+        # every microbatch over every batch axis: one that does not split
+        # is padded (make_mesh_train_step), whatever the global batch
+        train_bax = tuple(a for a in ("pod", "data")
+                          if a in mesh_shape(mesh)) or None
+        fn = make_mesh_train_step(cfg, opt_cfg, mesh, train_bax,
+                                  microbatches=mb,
                                   mixed_precision=mixed_precision,
-                                  inplace=donate)
+                                  inplace=donate, rules=prules)
         base = params_sharding(cfg, mesh, rules)
         rep = NamedSharding(mesh, ())
         p32 = param_specs(cfg, torch.float32)
@@ -594,10 +708,10 @@ def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     params = param_specs(cfg, torch.bfloat16)
     if shape.kind == "prefill":
         return (_placing(_mesh_serving(make_prefill_step(cfg), mesh, bax,
-                                       donate), ps, None, csh),
+                                       donate, prules), ps, None, csh),
                 (params, binp, cargs))
-    return (_placing(_mesh_serving(make_serve_step(cfg), mesh, bax, donate),
-                     ps, None, csh, None),
+    return (_placing(_mesh_serving(make_serve_step(cfg), mesh, bax, donate,
+                                   prules), ps, None, csh, None),
             (params, binp["tokens"], cargs, TensorSpec((), torch.int32)))
 
 
@@ -605,6 +719,7 @@ __all__ = ["TensorSpec", "input_specs", "cache_specs", "param_specs",
            "value_and_grad", "make_train_step", "make_prefill_step",
            "make_serve_step", "default_microbatches", "batch_axes_for",
            "params_sharding", "opt_sharding", "batch_sharding",
-           "cache_sharding", "distribute", "gather_full",
+           "cache_sharding", "distribute", "gather_full", "fsdp_dims",
+           "gather_fsdp", "rank_context",
            "make_mesh_train_step", "mesh_forward", "WEIGHT_STATIONARY_NOTE",
            "jitted_step_for_cell"]

@@ -13,6 +13,14 @@ where the reference dequantizes the whole cache to float32 and runs
 :func:`decode_attention`; the non-quantized decode branch keeps the plain
 :func:`decode_attention`, as the reference does.
 
+On a mesh (``sharding/rules.py:mesh_context``) ``wq``/``wk``/``wv`` are
+the rank's ``model`` shards over heads and KV heads (column-parallel),
+``wo`` over heads (row-parallel, a sum over ``model``), and a cache holds
+the rank's KV heads: every path runs on the local heads, K11 among them.
+KV heads that do not divide the axis (a config not resolved for it:
+``ModelConfig.resolve_for_tp``) stay replicated: each rank computes and
+caches all of them and its query heads read their groups' ones.
+
 Windowed ("local") layers use a *ring-buffer* KV cache of exactly
 ``window`` slots.  Caches are plain dicts of tensors, **updated in place**
 (indexed stores) where the reference returns updated copies;
@@ -26,7 +34,8 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..kernels.decode_attention import decode_attention_int8
-from ..sharding.rules import ParamSpec
+from ..sharding import collectives as C
+from ..sharding.rules import ParamSpec, mesh_context
 from .layers import NEG_INF, apply_rope, rms_norm
 
 
@@ -212,6 +221,13 @@ def _prefill_attention(qg, k, v, cfg: ModelConfig, window: Optional[int]):
                            kv_chunk=cfg.flash_kv_chunk)
 
 
+def _heads(kv: slice, held: int, *ts: torch.Tensor):
+    """Each of ``ts`` (..., held KV heads, Dh) at the KV heads ``kv``."""
+    if kv.stop - kv.start == held:
+        return ts
+    return tuple(t[:, :, kv] for t in ts)
+
+
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     window: Optional[int] = None,
                     rope_theta: Optional[float] = None,
@@ -228,24 +244,55 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     ct = cfg.compute_dtype
     B, S, d = x.shape
-    KV, G, Dh = cfg.eff_kv_heads, cfg.q_per_kv, cfg.head_dim
-    H = cfg.eff_heads
+    Dh = cfg.head_dim
+    mc = mesh_context()
+    # the rank's query heads and the KV heads it holds (all of them off a
+    # mesh); ``kv`` the held KV heads its query heads read, in groups of G
+    spec = attention_spec(cfg)
+    h0, h1 = mc.shard(spec["wq"], 1)
+    k0, k1 = mc.shard(spec["wk"], 1)
+    H, KVh = h1 - h0, k1 - k0
+    split, kv_split = H != cfg.eff_heads, KVh != cfg.eff_kv_heads
+    if split and not kv_split:                # KV heads replicated
+        kv = slice(h0 // cfg.q_per_kv, (h1 - 1) // cfg.q_per_kv + 1)
+    else:
+        kv = slice(0, KVh)
+    KV = kv.stop - kv.start
+    G = H // KV
+    if H != KV * G or (split and G != min(cfg.q_per_kv, H)):
+        raise ValueError(
+            f"query heads {h0}-{h1 - 1} of {cfg.eff_heads} on a rank of a "
+            f"model axis of {mc.tp} do not read whole groups of the "
+            f"{cfg.eff_kv_heads} KV heads: resolve the config for the "
+            f"axis (ModelConfig.resolve_for_tp)")
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     dev = x.device
+    xq = C.tp_copy(x, mc) if split else x
+    # KV heads sharded like the query heads: column-parallel too; KV heads
+    # replicated: every one computed (and cached) on each rank, whose
+    # query heads read some of them
+    xk = xq if kv_split else x
 
-    q = (x @ params["wq"].to(ct).reshape(d, H * Dh)).view(B, S, H, Dh)
-    k = (x @ params["wk"].to(ct).reshape(d, KV * Dh)).view(B, S, KV, Dh)
-    v = (x @ params["wv"].to(ct).reshape(d, KV * Dh)).view(B, S, KV, Dh)
+    q = (xq @ params["wq"].to(ct).reshape(d, H * Dh)).view(B, S, H, Dh)
+    k = (xk @ params["wk"].to(ct).reshape(d, KVh * Dh)).view(B, S, KVh, Dh)
+    v = (xk @ params["wv"].to(ct).reshape(d, KVh * Dh)).view(B, S, KVh, Dh)
     if cfg.qk_norm:
-        q = rms_norm({"scale": params["q_norm"]}, q, cfg.norm_eps)
-        k = rms_norm({"scale": params["k_norm"]}, k, cfg.norm_eps)
+        # the scales are replicated and read by the rank's heads only
+        qn, kn = params["q_norm"], params["k_norm"]
+        if split:
+            qn = C.tp_copy(qn, mc)
+            kn = C.tp_copy(kn, mc) if xk is xq else kn
+        q = rms_norm({"scale": qn}, q, cfg.norm_eps)
+        k = rms_norm({"scale": kn}, k, cfg.norm_eps)
+    if split and xk is x:
+        k, v = C.tp_copy(k, mc), C.tp_copy(v, mc)
 
     if cache is None:
         positions = torch.arange(S, device=dev)
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
-        out = _prefill_attention(q.reshape(B, S, KV, G, Dh), k, v, cfg,
-                                 window)
+        out = _prefill_attention(q.reshape(B, S, KV, G, Dh), *_heads(
+            kv, KVh, k, v), cfg, window)
     elif S == 1:
         quant = "k_s" in cache
         pos_b = torch.as_tensor(cache_len, dtype=torch.int32,
@@ -266,14 +313,16 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         # absolute position held by each slot after the write
         idx = torch.arange(slots, device=dev, dtype=torch.int32)
         key_pos = pos_b[:, None] - ((pos_b[:, None] - idx[None, :]) % slots)
+        read = cache if KV == KVh else {
+            n: c[:, :, kv].contiguous() for n, c in cache.items()}
         if quant:
             out = decode_attention_int8(
-                q.reshape(B, KV, G, Dh), cache["k"], cache["k_s"],
-                cache["v"], cache["v_s"], key_pos, pos_b, window=window,
+                q.reshape(B, KV, G, Dh), read["k"], read["k_s"],
+                read["v"], read["v_s"], key_pos, pos_b, window=window,
                 softcap=cfg.attn_logit_softcap)
         else:
-            out = decode_attention(q.reshape(B, 1, KV, G, Dh), cache["k"],
-                                   cache["v"], key_pos, pos_b, window=window,
+            out = decode_attention(q.reshape(B, 1, KV, G, Dh), read["k"],
+                                   read["v"], key_pos, pos_b, window=window,
                                    softcap=cfg.attn_logit_softcap)
     else:
         # prefill a fresh sequence AND fill the cache with the last `slots`
@@ -281,8 +330,8 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(S, device=dev)
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
-        out = _prefill_attention(q.reshape(B, S, KV, G, Dh), k, v, cfg,
-                                 window)
+        out = _prefill_attention(q.reshape(B, S, KV, G, Dh), *_heads(
+            kv, KVh, k, v), cfg, window)
         slots = cache["k"].shape[1]
         if quant:
             k_w, k_sw = _quantize_kv(k)       # (B,S,KV,hd), (B,S,KV)
@@ -300,7 +349,7 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
 
     out = out.reshape(B, S, H * Dh)
     y = (out @ params["wo"].to(ct).reshape(H * Dh, d))
-    return y, cache
+    return (C.tp_reduce(y, mc) if split else y), cache
 
 
 __all__ = ["attention_spec", "attention_apply", "flash_attention",

@@ -24,7 +24,13 @@ Public API:
   prefill(params, batch, caches, cfg) -> (logits, caches) [fill caches]
 
 Caches are written in place (``decode_step`` and ``prefill`` return the tree
-they were given); the cacheless training path writes none.  Training
+they were given); the cacheless training path writes none.
+
+Under a mesh step (``sharding/rules.py:mesh_context``) the parameters and
+caches are the rank's ``model`` shards and the logits its slice of the
+vocabulary: :func:`loss_terms` takes a vocabulary-parallel cross-entropy
+(the ``(B, S, V)`` logits are never gathered) and :func:`full_vocab`
+gathers the few logits a serving step reads.  Training
 differentiates :func:`loss_fn` with autograd; ``cfg.remat`` picks what each
 repetition of the layer pattern keeps for the backward
 (:func:`_maybe_remat`).
@@ -40,11 +46,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike
-from ..sharding.rules import ParamSpec, init_params, param_count, tree_map
+from ..sharding import collectives as C
+from ..sharding.rules import (ParamSpec, init_params, mesh_context,
+                              param_count, tree_map)
 from .blocks import (MOE_KINDS, block_apply, block_spec, init_block_cache,
                      shared_block_spec)
 from .layers import (embed_scale, embed_spec, embed_tokens, lm_head_apply,
-                     lm_head_spec, rms_norm, rms_norm_spec)
+                     lm_head_spec, padded_vocab, rms_norm, rms_norm_spec,
+                     vocab_span)
 from .moe import moe_spec
 
 
@@ -231,9 +240,13 @@ def loss_terms(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     def chunk_nll(x_c, y_c):
         logits = lm_head_apply(params.get("head"), params["embed"], x_c,
                                cfg).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y_c.clamp_min(0)[..., None])[..., 0]
         mask = (y_c >= 0).float()
+        if vocab_span(cfg) == (0, padded_vocab(cfg)):
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                y_c.clamp_min(0)[..., None])[..., 0]
+        else:
+            logz, gold = _vocab_parallel_terms(logits, y_c, cfg)
         return ((logz - gold) * mask).sum(), mask.sum()
 
     nll = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -243,6 +256,31 @@ def loss_terms(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                           labels[:, c:c + chunk], use_reentrant=False)
         nll, cnt = nll + n, cnt + k
     return nll, cnt, aux
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor,
+                          cfg: ModelConfig):
+    """``(logsumexp, gold logit)`` of each position from this rank's slice
+    of the vocabulary: the maximum and the sum of exponentials over
+    ``model``, and the gold logit from the rank that holds its column."""
+    mc = mesh_context()
+    lo, hi = vocab_span(cfg)
+    m = C.tp_max(logits.amax(dim=-1), mc)
+    sumexp = C.tp_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), mc)
+    logz = m + torch.log(sumexp)
+    mine = (labels >= lo) & (labels < hi)
+    gold = torch.gather(logits, -1, (labels - lo).clamp(0, hi - lo - 1)
+                        [..., None])[..., 0]
+    gold = C.tp_reduce(torch.where(mine, gold, torch.zeros_like(gold)), mc)
+    return logz, gold
+
+
+def full_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits over the whole padded vocabulary: this rank's slice gathered
+    over ``model`` where the vocabulary is split (the identity else)."""
+    if vocab_span(cfg) == (0, padded_vocab(cfg)):
+        return logits
+    return C.tp_gather(logits, -1, mesh_context())
 
 
 # ---------------------------------------------------------------------------
@@ -284,4 +322,5 @@ def prefill(params, batch: Dict[str, torch.Tensor], caches, cfg: ModelConfig):
 
 __all__ = ["layer_kinds", "model_spec", "storage_dtype",
            "init", "n_params", "n_active_params", "backbone", "forward",
-           "loss_fn", "loss_terms", "init_caches", "decode_step", "prefill"]
+           "loss_fn", "loss_terms", "init_caches", "decode_step", "prefill",
+           "full_vocab"]

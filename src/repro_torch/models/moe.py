@@ -23,6 +23,18 @@ from the device, once per MoE layer and call: ``"auto"`` reads ``D_mat`` to
 run one branch only (never both), and :func:`moe_csr` reads the group sizes
 to slice each expert's rows.  :func:`moe_ell` reads nothing back.
 
+**On a mesh** (``sharding/rules.py:mesh_context``) the rules shard the
+experts over ``model`` where their count divides it (expert parallelism:
+a rank runs its own experts on every token of its batch shard, in both
+layouts) and each expert's ``ffn`` dim where it does not (each SwiGLU
+column- then row-parallel); either way the rank's output is a partial sum
+added over ``model``, and no all-to-all is needed, the tokens being
+replicated over ``model``.  The router's logits are gathered over
+``model`` (its ``experts`` dim may be sharded), so every rank of a group
+routes bitwise alike.  The router's statistics (the auxiliary loss's two
+batch means, ``"auto"``'s counts) are the global batch's: summed over the
+batch axes, over the real rows only where a microbatch was padded.
+
 Every function is plain PyTorch: the reference computes these products with
 einsums and ``ragged_dot`` outside any Pallas kernel.
 """
@@ -34,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..sharding.rules import ParamSpec
+from ..sharding import collectives as C
+from ..sharding.rules import ParamSpec, mesh_context
 
 # Default D* for the dispatch rule; overridable per call (learned off-line by
 # :func:`learn_d_star` from the reference's benchmarks/moe_dispatch.py).
@@ -54,33 +67,58 @@ def moe_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 # ---------------------------------------------------------------------------
 # router
 # ---------------------------------------------------------------------------
-def route(params, x_flat: torch.Tensor, cfg: ModelConfig):
+def route(params, x_flat: torch.Tensor, cfg: ModelConfig,
+          real: Optional[torch.Tensor] = None):
     """x_flat: (T, d) -> (expert_ids (T, k) int64, gate_w (T, k), aux_loss).
 
     The router runs in float32 (its weight is stored in float32: its
     spec says ``float32``).  ``torch.topk`` does not promise the
     reference's tie order (lower index first); ties of float32 softmax
-    probabilities do not occur on seeded inputs."""
-    logits = x_flat.float() @ params["router"].float()           # (T, E)
+    probabilities do not occur on seeded inputs.
+
+    On a mesh (see the module docstring) the logits of a router sharded
+    over ``experts`` are gathered over ``model``, and the auxiliary loss's
+    means run over the global batch (the batch axes' groups), over the
+    tokens ``real`` (T,) marks when given."""
+    mc = mesh_context()
+    router = params["router"].float()
+    if mc.splits(moe_spec(cfg)["router"], 1):   # experts over ``model``
+        logits = C.tp_gather(C.tp_copy(x_flat.float(), mc) @ router, -1,
+                             mc)
+    else:
+        logits = x_flat.float() @ router                         # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, expert_ids = torch.topk(probs, cfg.top_k, dim=-1)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance aux loss
     T, E = logits.shape
-    me = probs.mean(dim=0)                                       # (E,)
-    flat = expert_ids.reshape(-1)
-    ce = torch.zeros(E, dtype=torch.float32, device=x_flat.device).index_add_(
-        0, flat, torch.full(flat.shape, 1.0 / (T * cfg.top_k),
-                            dtype=torch.float32, device=x_flat.device))
+    w = (torch.ones(T, device=x_flat.device) if real is None
+         else real.float())
+    n = C.batch_sum(w.sum(), mc)                       # the global tokens
+    me = C.batch_sum((probs * w[:, None]).sum(dim=0), mc) / n    # (E,)
+    ce = C.batch_sum(torch.zeros(E, dtype=torch.float32,
+                                 device=x_flat.device).index_add_(
+        0, expert_ids.reshape(-1), w.repeat_interleave(cfg.top_k)),
+        mc) / (n * cfg.top_k)
     aux = E * torch.sum(me * ce)
     return expert_ids, gate_w.to(x_flat.dtype), aux
 
 
-def dispatch_d_mat(expert_ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+def dispatch_d_mat(expert_ids: torch.Tensor, n_experts: int,
+                   real: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The paper's D_mat = σ/μ over tokens per expert (eq. 4); σ is the
-    population deviation (``jnp.std``), hence ``correction=0``."""
-    counts = torch.bincount(expert_ids.reshape(-1),
-                            minlength=n_experts).float()
+    population deviation (``jnp.std``), hence ``correction=0``.
+
+    On a mesh the counts are the global batch's (summed over the batch
+    axes; the tokens ``real`` (T,) marks when given): whole numbers, so
+    every rank reads the same ``D_mat`` bit for bit and every rank of a
+    ``model`` group takes the same branch."""
+    flat = expert_ids.reshape(-1)
+    w = (torch.ones(flat.shape, device=flat.device) if real is None
+         else real.float().repeat_interleave(flat.numel() // real.numel()))
+    counts = C.batch_sum(torch.zeros(n_experts, dtype=torch.float32,
+                                     device=flat.device).index_add_(
+        0, flat, w), mesh_context())
     return counts.std(correction=0) / counts.mean().clamp_min(1e-9)
 
 
@@ -123,30 +161,36 @@ def moe_ell(params, x: torch.Tensor, expert_ids: torch.Tensor,
     (token, choice) pairs routed there, in the flattened ``(S·k)`` order, so
     the same pairs are dropped as in the reference.  Pairs past capacity
     (the reference's scatter ``mode="drop"``) write to one extra slot that is
-    cut off, and read zero back."""
+    cut off, and read zero back.  With the experts sharded over ``model``
+    the buffers hold the rank's experts only (the others' pairs go to the
+    extra slot too) and the output is the rank's part of the sum."""
     ct = x.dtype
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    C = capacity_of(cfg, S, capacity)
+    cap = capacity_of(cfg, S, capacity)
     dev = x.device
+    e0, e1 = mesh_context().shard(moe_spec(cfg)["w_gate"], 0)
 
     flat_e = expert_ids.reshape(B, S * k)                       # (B, S*k)
     oh = F.one_hot(flat_e, E)                                   # (B, S*k, E)
     pos = torch.cumsum(oh, dim=1) - oh
     pos_in_e = torch.gather(pos, 2, flat_e[..., None])[..., 0]  # (B, S*k)
-    in_cap = pos_in_e < C
-    slot = torch.where(in_cap, pos_in_e, torch.full_like(pos_in_e, C))
+    in_cap = pos_in_e < cap
+    if (e0, e1) != (0, E):
+        in_cap &= (flat_e >= e0) & (flat_e < e1)
+        flat_e = (flat_e - e0).clamp(0, e1 - e0 - 1)
+    slot = torch.where(in_cap, pos_in_e, torch.full_like(pos_in_e, cap))
     x_rep = torch.repeat_interleave(x, k, dim=1)                # (B, S*k, d)
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S * k)
-    buf = torch.zeros((B, E, C + 1, d), dtype=ct, device=dev)
+    buf = torch.zeros((B, e1 - e0, cap + 1, d), dtype=ct, device=dev)
     buf.index_put_((bidx, flat_e, slot), x_rep)
-    buf = buf[:, :, :C]
+    buf = buf[:, :, :cap]
 
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"].to(ct)))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"].to(ct))
     out_buf = torch.einsum("becf,efd->becd", h, params["w_down"].to(ct))
 
-    g = out_buf[bidx, flat_e, slot.clamp_max(C - 1)]            # (B, S*k, d)
+    g = out_buf[bidx, flat_e, slot.clamp_max(cap - 1)]           # (B, S*k, d)
     g = torch.where(in_cap[..., None], g, torch.zeros((), dtype=ct,
                                                       device=dev))
     w = gate_w.reshape(B, S * k, 1).to(ct)
@@ -166,18 +210,23 @@ def moe_csr(params, x_flat: torch.Tensor, expert_ids: torch.Tensor,
     ct = x_flat.dtype
     T, d = x_flat.shape
     E, k = cfg.n_experts, cfg.top_k
+    e0, e1 = mesh_context().shard(moe_spec(cfg)["w_gate"], 0)
     flat_e = expert_ids.reshape(-1)
     order = torch.argsort(flat_e, stable=True)                  # CSR ordering
     xs = torch.repeat_interleave(x_flat, k, dim=0)[order]       # (T*k, d)
     sizes = torch.bincount(flat_e, minlength=E).tolist()
 
+    # the rank's experts (all of them off a mesh); another rank's rows
+    # read zero here and are added by that rank
     outs, start = [], 0
     for e, n in enumerate(sizes):
-        if n:
+        if n and e0 <= e < e1:
             outs.append(_swiglu(xs[start:start + n],
-                                params["w_gate"][e].to(ct),
-                                params["w_up"][e].to(ct),
-                                params["w_down"][e].to(ct)))
+                                params["w_gate"][e - e0].to(ct),
+                                params["w_up"][e - e0].to(ct),
+                                params["w_down"][e - e0].to(ct)))
+        elif n:
+            outs.append(xs.new_zeros((n, d)))
         start += n
     out = torch.empty_like(xs)
     out[order] = torch.cat(outs)                                # undo sort
@@ -197,8 +246,18 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
     per chunk (GShard group semantics) and the dispatch buffers stay bounded
     by the chunk.  ``"auto"`` reads D_mat to the host and runs one branch."""
     B, S, d = x.shape
+    mc = mesh_context()
+    real = (None if mc.real_rows is None
+            else mc.real_rows.repeat_interleave(S))
     x_flat = x.reshape(B * S, d)
-    expert_ids_f, gate_w_f, aux = route(params, x_flat, cfg)
+    expert_ids_f, gate_w_f, aux = route(params, x_flat, cfg, real)
+    # sharded experts or ffn: the rank's output is a partial sum, so the
+    # gradients of its input and gate weights are partial too
+    spec = moe_spec(cfg)["w_gate"]
+    split = mc.splits(spec, 0) or mc.splits(spec, 2)
+    if split:
+        x, gate_w_f = C.tp_copy(x, mc), C.tp_copy(gate_w_f, mc)
+        x_flat = x.reshape(B * S, d)
     expert_ids = expert_ids_f.reshape(B, S, cfg.top_k)
     gate_w = gate_w_f.reshape(B, S, cfg.top_k)
 
@@ -216,7 +275,7 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
     elif cfg.moe_dispatch == "auto":
         # the paper's on-line phase, per call: D_mat < D* -> ELL (one read
         # back; only the chosen branch runs)
-        d_mat = dispatch_d_mat(expert_ids_f, cfg.n_experts)
+        d_mat = dispatch_d_mat(expert_ids_f, cfg.n_experts, real)
         if bool(d_mat < d_star):
             y = moe_ell(params, x, expert_ids, gate_w, cfg)
         else:
@@ -224,7 +283,7 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
                         ).reshape(B, S, d)
     else:
         raise ValueError(cfg.moe_dispatch)
-    return y, aux
+    return (C.tp_reduce(y, mc) if split else y), aux
 
 
 __all__ = ["moe_spec", "moe_apply", "moe_ell", "moe_csr", "route",

@@ -14,6 +14,20 @@ recurrence with a (state x head_dim) cache per head plus a (conv_w-1)-deep
 conv cache.  The ``h`` cache, ``dt``, ``A`` and every state stay float32; the
 conv cache is in the cache dtype.  A given cache is written in place.
 
+**On a mesh** (``sharding/rules.py:mesh_context``) a rank runs its
+``H / tp`` heads where ``tp`` divides the heads (else all of them).  The
+packed ``in_proj`` (``z | x | B | C | dt`` on one ``inner`` dim) and the
+conv's ``x | B | C`` channels do not shard by head: a contiguous slice of
+them straddles the segments.  So these two weights (and the conv's bias)
+are gathered over ``model`` when the rules shard them, and each rank reads
+the columns it needs: its heads' ``z``, ``x`` and ``dt``, and all of ``B``
+and ``C`` (computed on every rank); their gradients are summed over
+``model`` and sliced back (:func:`~repro_torch.sharding.collectives.tp_gather`
+with ``grad_sum``).  The gated RMSNorm over ``d_in`` sums its squares over
+``model``; ``out_proj`` is row-parallel.  The ``h`` cache holds the rank's
+heads; the conv cache is replicated (every channel's last ``K - 1``
+inputs, the new ``x`` channels gathered over ``model`` to write it).
+
 Plain PyTorch throughout: the reference computes these with einsums and a
 ``lax.scan`` outside any Pallas kernel.
 """
@@ -26,7 +40,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from ..sharding.rules import ParamSpec
+from ..sharding import collectives as C
+from ..sharding.rules import ParamSpec, mesh_context
 from .layers import rms_norm
 
 
@@ -84,47 +99,95 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
     }
 
 
+def _packed(w: torch.Tensor, spec: ParamSpec, mc,
+            grad_sum: bool) -> torch.Tensor:
+    """A packed weight whole along its last dim: gathered over ``model``
+    when the rules shard it (``grad_sum``: the ranks read different
+    columns, so its gradient is summed over ``model``, then sliced back
+    where the leaf is sharded)."""
+    if mc.splits(spec, len(spec.shape) - 1):
+        return C.tp_gather(w, -1, mc, grad_sum)
+    return C.tp_copy(w, mc) if grad_sum else w
+
+
+def _columns(w: torch.Tensor, spans) -> torch.Tensor:
+    """The columns of ``w`` in the ``(start, stop)`` spans, in order."""
+    return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+
+
 def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache: Optional[Dict[str, Any]] = None,
                 chunk: int = 256) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: (B, S, d).  Train/prefill when cache is None (chunked SSD);
     prefill-and-fill when a cache is given and S > 1; one decode step when a
     cache is given and S == 1.  A given cache is written in place and
-    returned."""
+    returned.  On a mesh the rank's heads (module docstring)."""
     ct = cfg.compute_dtype
     B, S, d = x.shape
     d_in, H, hd, N = _dims(cfg)
-    proj = x @ params["in_proj"].to(ct)
-    z, xin, Bm, Cm, dt_raw = torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
+    mc = mesh_context()
+    h0, h1 = mc.split(H)
+    Hl, dl = h1 - h0, (h1 - h0) * hd
+    split = Hl != H
+    if split:
+        x = C.tp_copy(x, mc)
+    x_cols = (h0 * hd, h1 * hd)
+    bc_cols = (d_in, d_in + 2 * N)
+    spec = mamba_spec(cfg)
+    w_in = _packed(params["in_proj"], spec["in_proj"], mc, split)
+    conv_w = _packed(params["conv_w"], spec["conv_w"], mc, split)
+    conv_b = _packed(params["conv_b"], spec["conv_b"], mc, split)
+    if split:           # the rank's columns: z, x, B, C, dt
+        w_in = _columns(w_in, [
+            x_cols, (d_in + x_cols[0], d_in + x_cols[1]),
+            (2 * d_in, 2 * d_in + 2 * N),
+            (2 * d_in + 2 * N + h0, 2 * d_in + 2 * N + h1)])
+        conv_w = _columns(conv_w, [x_cols, bc_cols])
+        conv_b = _columns(conv_b, [x_cols, bc_cols])
+    conv_w, conv_b = conv_w.to(ct), conv_b.to(ct)
+    proj = x @ w_in.to(ct)
+    z, xin, Bm, Cm, dt_raw = torch.split(proj, [dl, dl, N, N, Hl], dim=-1)
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
 
-    A = -torch.exp(params["A_log"].float())                     # (H,) < 0
-    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())  # (B,S,H)
-    D = params["D"].float()
+    def heads(p):       # a replicated (H,) leaf at the rank's heads
+        return (C.tp_copy(p, mc)[h0:h1] if split else p).float()
+    A = -torch.exp(heads(params["A_log"]))                      # (H,) < 0
+    dt = F.softplus(dt_raw.float() + heads(params["dt_bias"]))  # (B,S,H)
+    D = heads(params["D"])
+
+    def conv_cache(new):
+        """The conv cache's new inputs, every channel (the x channels of
+        the other ranks' heads gathered)."""
+        if not split:
+            return new
+        return torch.cat([C.tp_gather(new[..., :dl], -1, mc), new[..., dl:]],
+                         dim=-1).to(cache["conv"].dtype)
 
     if cache is None or S > 1:
-        conv_out = causal_conv(conv_in, params["conv_w"].to(ct),
-                               params["conv_b"].to(ct))
-        xc, Bc, Cc = torch.split(conv_out, [d_in, N, N], dim=-1)
-        xh = xc.reshape(B, S, H, hd).float()
+        conv_out = causal_conv(conv_in, conv_w, conv_b)
+        xc, Bc, Cc = torch.split(conv_out, [dl, N, N], dim=-1)
+        xh = xc.reshape(B, S, Hl, hd).float()
         y, h_fin = _ssd_chunked(xh, Bc.float(), Cc.float(), dt, A,
                                 chunk=chunk,
                                 h0=None if cache is None else cache["h"])
         y = y + D[None, None, :, None] * xh
         if cache is not None:  # prefill: final SSM state + last (K-1) inputs
             K = cfg.ssm_conv
-            tail = torch.cat([cache["conv"], conv_in.to(cache["conv"].dtype)],
-                             dim=1)[:, -(K - 1):, :]
+            tail = torch.cat([cache["conv"], conv_cache(
+                conv_in[:, -(K - 1):]).to(cache["conv"].dtype)],
+                dim=1)[:, -(K - 1):, :]
             cache["h"].copy_(h_fin)
             cache["conv"].copy_(tail)
     else:
         # decode: conv over [cache | current], one recurrence step
-        conv_win = torch.cat([cache["conv"], conv_in.to(cache["conv"].dtype)],
+        past = cache["conv"]
+        if split:
+            past = _columns(past, [x_cols, bc_cols])
+        conv_win = torch.cat([past, conv_in.to(past.dtype)],
                              dim=1)                              # (B, K, C)
-        co = conv_step(conv_win, params["conv_w"].to(ct),
-                       params["conv_b"].to(ct))                  # (B, C)
-        xc, Bc, Cc = torch.split(co, [d_in, N, N], dim=-1)
-        xh = xc.reshape(B, H, hd).float()
+        co = conv_step(conv_win, conv_w, conv_b)                 # (B, C)
+        xc, Bc, Cc = torch.split(co, [dl, N, N], dim=-1)
+        xh = xc.reshape(B, Hl, hd).float()
         Bt, Ct = Bc.float(), Cc.float()                          # (B, N)
         dt1 = dt[:, 0]                                           # (B, H)
         a = torch.exp(dt1 * A[None, :])
@@ -134,12 +197,21 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         y = torch.einsum("bn,bhnd->bhd", Ct, h_new)
         y = (y + D[None, :, None] * xh)[:, None]                 # (B,1,H,hd)
         cache["h"].copy_(h_new)
-        cache["conv"].copy_(conv_win[:, 1:])
+        cache["conv"].copy_(torch.cat(
+            [cache["conv"], conv_cache(conv_in).to(cache["conv"].dtype)],
+            dim=1)[:, 1:] if split else conv_win[:, 1:])
 
-    y = y.reshape(B, S, d_in).to(ct)
-    y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps)
+    y = y.reshape(B, S, dl).to(ct)
+    y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps, cols=x_cols)
     y = y * F.silu(z)
-    return y @ params["out_proj"].to(ct), cache
+    w_out = params["out_proj"].to(ct)
+    if split or not mc.splits(spec["out_proj"], 0):
+        y = y @ w_out
+        return (C.tp_reduce(y, mc) if split else y), cache
+    # heads replicated, out_proj sharded over ``inner``: row-parallel on
+    # the rank's rows of it
+    lo, hi = mc.shard(spec["out_proj"], 0)
+    return C.tp_reduce(C.tp_copy(y, mc)[..., lo:hi] @ w_out, mc), cache
 
 
 def _ssd_chunked(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,

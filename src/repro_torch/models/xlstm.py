@@ -19,6 +19,18 @@ is float32, sLSTM's ``R`` included (stored in
 float32: its spec says ``float32``); the conv cache is in the cache dtype.  A
 given cache is written in place.
 
+**On a mesh** (``sharding/rules.py:mesh_context``) the projections onto
+the ``inner`` dim are the rank's ``model`` shards (column-parallel).  mLSTM
+runs its ``H / tp`` heads where ``tp`` divides the heads (its caches hold
+them; the norm over ``d_in`` sums its squares over ``model``; ``out_proj``
+row-parallel); where it does not (xlstm-1.3b's 4 heads on 16), q, k and
+the conv's output are gathered over ``model`` and the recurrence runs
+whole on every rank of the group (its caches replicated), ``out_proj``
+still row-parallel on the rank's rows.  sLSTM with ``R`` sharded over its
+gate columns (``xlstm_shard_recurrent``) runs the rank's slice of every
+head's units: the input projection is gathered over ``model`` once, the
+hidden state once a step (``R`` needs all of it), the output once.
+
 Plain PyTorch throughout: the reference computes these outside any Pallas
 kernel.
 """
@@ -32,7 +44,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from ..sharding.rules import ParamSpec
+from ..sharding import collectives as C
+from ..sharding.rules import ParamSpec, mesh_context
 from .layers import rms_norm
 from .ssm import causal_conv, conv_step
 
@@ -106,25 +119,45 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     ct = cfg.compute_dtype
     B, S, d = x.shape
     d_in, H, dk, dv = _mlstm_dims(cfg)
-    z = x @ params["w_z"].to(ct)
-    q = x @ params["w_q"].to(ct)
-    k = x @ params["w_k"].to(ct)
-    v = x @ params["w_v"].to(ct)
+    mc = mesh_context()
+    # sharded: the rank's columns of the inner dim; by_head: they are whole
+    # heads (else the recurrence runs on every head, from gathered inputs)
+    spec = mlstm_spec(cfg)
+    sharded = mc.splits(spec["w_v"], 1)
+    if sharded != mc.splits(spec["w_q"], 1):
+        raise ValueError("mLSTM's w_q/w_k and w_v/w_z sharded unlike "
+                         f"over a model axis of {mc.tp}")
+    h0, h1 = mc.split(H) if sharded else (0, H)
+    Hl = h1 - h0
+    by_head = Hl != H
+    xp = C.tp_copy(x, mc) if sharded else x
+    z = xp @ params["w_z"].to(ct)
+    q = xp @ params["w_q"].to(ct)
+    k = xp @ params["w_k"].to(ct)
+    v = xp @ params["w_v"].to(ct)
     i_raw, f_raw = torch.chunk(x @ params["w_if"].to(ct), 2, dim=-1)
+    if by_head:         # the gates are replicated: the rank's heads of them
+        i_raw = C.tp_copy(i_raw, mc)[..., h0:h1]
+        f_raw = C.tp_copy(f_raw, mc)[..., h0:h1]
+    gathered = sharded and not by_head
+
+    def full(t):        # the recurrence's inputs, every head
+        return C.tp_gather(t, -1, mc) if gathered else t
     sqrt_dk = math.sqrt(float(dk))
 
     if cache is None or S > 1:
-        vc = causal_conv(v, params["conv_w"].to(ct), params["conv_b"].to(ct))
-        qs = q.reshape(B, S, H, dk).float()
-        ks = k.reshape(B, S, H, dk).float() / sqrt_dk
-        vs = vc.reshape(B, S, H, dv).float()
-        gi = i_raw.reshape(B, S, H).float()
-        gf = f_raw.reshape(B, S, H).float()
+        vc = full(causal_conv(v, params["conv_w"].to(ct),
+                              params["conv_b"].to(ct)))
+        qs = full(q).reshape(B, S, Hl, dk).float()
+        ks = full(k).reshape(B, S, Hl, dk).float() / sqrt_dk
+        vs = vc.reshape(B, S, Hl, dv).float()
+        gi = i_raw.reshape(B, S, Hl).float()
+        gf = f_raw.reshape(B, S, Hl).float()
         if cache is None:
             dev = x.device
-            carry = (torch.zeros((B, H, dk, dv), device=dev),
-                     torch.zeros((B, H, dk), device=dev),
-                     torch.full((B, H), STATE_INIT, device=dev))
+            carry = (torch.zeros((B, Hl, dk, dv), device=dev),
+                     torch.zeros((B, Hl, dk), device=dev),
+                     torch.full((B, Hl), STATE_INIT, device=dev))
         else:
             carry = (cache["C"], cache["n"], cache["m"])
         ys = []
@@ -141,22 +174,26 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         conv_win = torch.cat([cache["conv"], v.to(cache["conv"].dtype)],
                              dim=1)
-        vc = conv_step(conv_win, params["conv_w"].to(ct),
-                       params["conv_b"].to(ct))
-        qs = q[:, 0].reshape(B, H, dk).float()
-        ks = k[:, 0].reshape(B, H, dk).float() / sqrt_dk
-        vs = vc.reshape(B, H, dv).float()
-        gi = i_raw[:, 0].reshape(B, H).float()
-        gf = f_raw[:, 0].reshape(B, H).float()
-        (C, n, m), y1 = _mlstm_step((cache["C"], cache["n"], cache["m"]),
-                                    (qs, ks, vs, gi, gf))
+        vc = full(conv_step(conv_win, params["conv_w"].to(ct),
+                            params["conv_b"].to(ct)))
+        qs = full(q[:, 0]).reshape(B, Hl, dk).float()
+        ks = full(k[:, 0]).reshape(B, Hl, dk).float() / sqrt_dk
+        vs = vc.reshape(B, Hl, dv).float()
+        gi = i_raw[:, 0].reshape(B, Hl).float()
+        gf = f_raw[:, 0].reshape(B, Hl).float()
+        (mem, n, m), y1 = _mlstm_step((cache["C"], cache["n"], cache["m"]),
+                                      (qs, ks, vs, gi, gf))
         y = y1[:, None]                                      # (B,1,H,dv)
-        _write(cache, {"C": C, "n": n, "m": m, "conv": conv_win[:, 1:]})
+        _write(cache, {"C": mem, "n": n, "m": m, "conv": conv_win[:, 1:]})
 
-    y = y.reshape(B, S, d_in).to(ct)
-    y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps)
-    y = y * F.silu(z)
-    return y @ params["out_proj"].to(ct), cache
+    y = y.reshape(B, S, Hl * dv).to(ct)
+    y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps,
+                 cols=(h0 * dv, h1 * dv))
+    if gathered:        # the rank's rows of out_proj: its slice of y
+        lo, hi = mc.shard(spec["out_proj"], 0)
+        y = C.tp_copy(y, mc)[..., lo:hi]
+    y = (y * F.silu(z)) @ params["out_proj"].to(ct)
+    return (C.tp_reduce(y, mc) if sharded else y), cache
 
 
 # ---------------------------------------------------------------------------
@@ -191,11 +228,13 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype,
             "m": torch.full((batch, H, dh), STATE_INIT, **f32)}
 
 
-def _slstm_step(R, carry, wx):
+def _slstm_step(R, carry, wx, h_all=None):
     """wx: (B, H, dh, 4) pre-activations from the input projection, gates
-    interleaved on the last axis (z, i, f, o)."""
+    interleaved on the last axis (z, i, f, o).  ``h_all``: the hidden
+    state of every unit, where ``R`` and the carry hold the rank's units
+    of each head."""
     c, n, h, m = carry
-    rec = torch.einsum("bhd,hde->bhe", h, R)                 # (B,H,4*dh)
+    rec = torch.einsum("bhd,hde->bhe", h if h_all is None else h_all, R)
     B, H, dh4 = rec.shape
     pre = wx + rec.reshape(B, H, dh4 // 4, 4)
     z_t = torch.tanh(pre[..., 0])
@@ -218,22 +257,45 @@ def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     ct = cfg.compute_dtype
     B, S, d = x.shape
     H, dh = _slstm_dims(cfg)
-    wx = (x @ params["in_proj"].to(ct)).float().reshape(B, S, H, dh, 4)
+    mc = mesh_context()
+    spec = slstm_spec(cfg)
     R = params["R"].float()
+    r0, r1 = mc.shard(spec["R"], 2)      # the rank's units of each head
+    if r0 % 4 or r1 % 4:
+        raise ValueError(f"sLSTM's R sharded over a model axis of {mc.tp} "
+                         f"cuts a unit's four gates ({r1 - r0} of "
+                         f"{4 * dh} columns)")
+    u0, u1 = r0 // 4, r1 // 4
+    units, mine = u1 - u0, u1 - u0 != dh
+    w_in = params["in_proj"]
+    if mc.splits(spec["in_proj"], 1):    # the rank's columns: gathered
+        wx = C.tp_gather(C.tp_copy(x, mc) @ w_in.to(ct), -1, mc, mine)
+    else:
+        wx = x @ w_in.to(ct)
+        if mine:                         # read at the rank's units only
+            wx = C.tp_copy(wx, mc)
+    wx = wx.float().reshape(B, S, H, dh, 4)
+    if mine:
+        wx = wx[:, :, :, u0:u1]
 
     if cache is None:
-        z0 = torch.zeros((B, H, dh), device=x.device)
-        carry = (z0, z0, z0, torch.full((B, H, dh), STATE_INIT,
+        z0 = torch.zeros((B, H, units), device=x.device)
+        carry = (z0, z0, z0, torch.full((B, H, units), STATE_INIT,
                                         device=x.device))
     else:
         carry = (cache["c"], cache["n"], cache["h"], cache["m"])
+
+    def every_unit(h):                   # R reads every unit of a head
+        return C.tp_gather(h, -1, mc, True) if mine else None
     ys = []
     for t in range(S):
-        carry, h_t = _slstm_step(R, carry, wx[:, t])
+        carry, h_t = _slstm_step(R, carry, wx[:, t], every_unit(carry[2]))
         ys.append(h_t)
     y = torch.stack(ys, dim=1)                               # (B,S,H,dh)
     if cache is not None:
         _write(cache, dict(zip(("c", "n", "h", "m"), carry)))
+    if mine:
+        y = C.tp_gather(y, -1, mc)
 
     y = y.reshape(B, S, d).to(ct)
     y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps)

@@ -24,6 +24,15 @@ pinned memory against 7 GB/s into pageable memory on the H100's host:
 
 Each function is a collective over ``group`` (default: the world): every
 rank of the group calls it in the same order.
+
+The tensor-parallel collectives (:func:`tp_copy`, :func:`tp_reduce`,
+:func:`tp_sum`, :func:`tp_gather`, :func:`tp_max`, :func:`batch_sum`) are
+autograd functions over the groups of a step's
+:class:`~repro_torch.sharding.rules.MeshContext`, built on the ones
+above, so every one of them is counted in ``moved`` as well.  A group of
+one rank (``tp == 1``, no batch axis) makes each of them the identity:
+nothing is called and nothing counted.  Low-precision tensors are reduced
+in float32 and rounded once.
 """
 from __future__ import annotations
 
@@ -171,5 +180,131 @@ def local_shard(full: torch.Tensor, mesh, placements,
     return out.clone(memory_format=torch.contiguous_format)
 
 
+# ---------------------------------------------------------------------------
+# autograd-aware collectives of tensor parallelism
+# ---------------------------------------------------------------------------
+def _sum_over(t: torch.Tensor, groups) -> torch.Tensor:
+    """A new tensor: ``t`` summed over each group in turn (float32 for a
+    low-precision ``t``, rounded back once)."""
+    out = t.float() if t.dtype in (torch.bfloat16, torch.float16) else \
+        t.clone()
+    out = out.contiguous()
+    for g in groups:
+        all_reduce_(out, group=g)
+    return out.to(t.dtype)
+
+
+class _Reduce(torch.autograd.Function):
+    """Forward: the sum over ``groups``.  Backward: the same sum of the
+    gradient (``grad_sum``) or the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, groups, grad_sum):
+        ctx.groups, ctx.grad_sum = groups, grad_sum
+        return _sum_over(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_sum_over(g, ctx.groups) if ctx.grad_sum else g), None, None
+
+
+class _Copy(torch.autograd.Function):
+    """Forward: the identity.  Backward: the gradient summed over
+    ``groups``."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.groups), None
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: every rank's ``x`` concatenated along ``dim`` in group-rank
+    order.  Backward: this rank's slice of the gradient (``grad_sum``:
+    of the gradient summed over the group first)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, grad_sum):
+        ctx.dim, ctx.group, ctx.rank, ctx.grad_sum = dim, group, rank, \
+            grad_sum
+        ctx.n = x.shape[dim]
+        return torch.cat(all_gather(x.contiguous(), group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = _sum_over(g, (ctx.group,))
+        g = g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous()
+        return g, None, None, None, None
+
+
+def _model_groups(mc) -> tuple:
+    return (mc.model_group,) if mc.tp > 1 else ()
+
+
+def tp_copy(x: torch.Tensor, mc) -> torch.Tensor:
+    """The input of a column-parallel product (or of any computation whose
+    gradient is partial on each rank of the ``model`` group): the
+    identity forward, the gradient summed over the group backward."""
+    groups = _model_groups(mc)
+    return _Copy.apply(x, groups) if groups else x
+
+
+def tp_reduce(x: torch.Tensor, mc) -> torch.Tensor:
+    """The output of a row-parallel product: the partial sums added over
+    the ``model`` group forward, the gradient as it is backward (what
+    follows is the same on every rank)."""
+    groups = _model_groups(mc)
+    return _Reduce.apply(x, groups, False) if groups else x
+
+
+def tp_sum(x: torch.Tensor, mc) -> torch.Tensor:
+    """A sum over the ``model`` group whose result each rank uses on its
+    own shard (a norm's sum of squares over a sharded dim): summed
+    forward and backward."""
+    groups = _model_groups(mc)
+    return _Reduce.apply(x, groups, True) if groups else x
+
+
+def tp_gather(x: torch.Tensor, dim: int, mc,
+              grad_sum: bool = False) -> torch.Tensor:
+    """Every ``model`` rank's ``x`` along ``dim``; the gradient of this
+    rank's slice backward (``grad_sum``: of the gradient summed over the
+    group, where the gathered tensor feeds a computation each rank does
+    on its own shard)."""
+    if mc.tp == 1:
+        return x
+    return _Gather.apply(x, dim % x.dim(), mc.model_group, mc.tp_rank,
+                         grad_sum)
+
+
+def tp_max(x: torch.Tensor, mc) -> torch.Tensor:
+    """The elementwise maximum over the ``model`` group, outside autograd
+    (a softmax's stabilizer)."""
+    if mc.tp == 1:
+        return x
+    return all_reduce_(x.detach().clone().contiguous(),
+                       op=dist.ReduceOp.MAX, group=mc.model_group)
+
+
+def batch_sum(x: torch.Tensor, mc) -> torch.Tensor:
+    """``x`` summed over the batch axes' groups, the gradient as it is
+    backward: each rank's share of a statistic of the global batch (the
+    MoE router's means) keeps its own rows' gradient, which the step then
+    sums over the batch axes with every other gradient."""
+    groups = tuple(mc.batch_groups)
+    if not groups:
+        return x
+    if not x.requires_grad:
+        return _sum_over(x, groups)
+    return _Reduce.apply(x, groups, False)
+
+
 __all__ = ["stage", "group_name", "moved", "all_gather", "all_reduce_",
-           "broadcast_", "ring_shift", "full_tensor", "local_shard"]
+           "broadcast_", "ring_shift", "full_tensor", "local_shard",
+           "tp_copy", "tp_reduce", "tp_sum", "tp_gather", "tp_max",
+           "batch_sum"]

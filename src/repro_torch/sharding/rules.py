@@ -310,9 +310,91 @@ def with_logical_constraint(x: torch.Tensor, axes: Axes, mesh: Any = None,
     return x.redistribute(mesh, sh.placements)
 
 
+# ---------------------------------------------------------------------------
+# the mesh a step runs on, as its blocks see it
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class MeshContext:
+    """What a block needs to know of the mesh its step runs on.
+
+    ``model_group`` is the process group of this rank's ``model`` axis
+    (``tp`` ranks, this one ``tp_rank`` among them; ``tp == 1``: no tensor
+    parallelism, the default outside a mesh step).  Each parameter a block
+    reads is its ``model`` shard as ``rules`` place it on ``mesh``; a block
+    asks :meth:`shard` which slice that is, so the rules stay the one
+    owner of the decision.  ``batch_groups`` are the groups of the batch
+    axes of size above one (the MoE router's statistics are the global
+    batch's); ``real_rows`` (B_local,) marks the rank's real rows where a
+    microbatch was padded to split over the batch shards (``None``: every
+    row is real)."""
+    model_group: Any = None
+    tp: int = 1
+    tp_rank: int = 0
+    batch_groups: Tuple[Any, ...] = ()
+    real_rows: Optional[torch.Tensor] = None
+    mesh: Any = None
+    rules: Optional[ShardingRules] = None
+
+    def shard(self, spec: ParamSpec, dim: int) -> Tuple[int, int]:
+        """``(start, stop)`` of this rank's slice of dim ``dim`` of a
+        parameter declared by ``spec``: the ``tp_rank``-th of ``tp`` equal
+        slices where the rules split that dim over ``model``, else the
+        whole dim."""
+        n = spec.shape[dim]
+        if self.tp == 1:
+            return 0, n
+        m = self.rules.spec_for(spec.axes, self.mesh, spec.shape)[dim]
+        if m != "model" and not (isinstance(m, tuple) and "model" in m):
+            return 0, n
+        k = n // self.tp
+        return self.tp_rank * k, (self.tp_rank + 1) * k
+
+    def splits(self, spec: ParamSpec, dim: int) -> bool:
+        """Whether the rules split dim ``dim`` of ``spec`` over ``model``."""
+        lo, hi = self.shard(spec, dim)
+        return hi - lo != spec.shape[dim]
+
+    def split(self, n: int) -> Tuple[int, int]:
+        """``(start, stop)`` of this rank's share of ``n`` items (heads)
+        a block splits over ``model``: its ``n / tp`` when ``tp`` divides
+        ``n``, else all of them (the computation is replicated)."""
+        if n % self.tp:
+            return 0, n
+        k = n // self.tp
+        return self.tp_rank * k, (self.tp_rank + 1) * k
+
+
+_NO_MESH = MeshContext()
+_ACTIVE_MESH: list = []
+
+
+class use_mesh:
+    """Context manager: the :class:`MeshContext` the blocks read inside
+    (:func:`mesh_context`); the mesh steps of ``launch/steps.py`` enter
+    it around the model's code."""
+
+    def __init__(self, context: MeshContext):
+        self.context = context
+
+    def __enter__(self):
+        _ACTIVE_MESH.append(self.context)
+        return self.context
+
+    def __exit__(self, *exc):
+        _ACTIVE_MESH.pop()
+        return False
+
+
+def mesh_context() -> MeshContext:
+    """The active :class:`MeshContext`; outside a mesh step one that
+    reads as ``tp = 1``, no batch groups, every row real."""
+    return _ACTIVE_MESH[-1] if _ACTIVE_MESH else _NO_MESH
+
+
 __all__ = ["ParamSpec", "stack_spec", "init_params", "param_count",
            "tree_map", "tree_leaves", "tree_paths", "paired_leaves",
            "axes_tree", "Spec", "NamedSharding",
            "ShardingRules", "RULES_1POD", "RULES_2POD", "RULES_SERVE",
            "RULES_ZERO1", "rules_for_mesh", "logical_to_sharding",
-           "use_rules", "active_rules", "with_logical_constraint"]
+           "use_rules", "active_rules", "with_logical_constraint",
+           "MeshContext", "use_mesh", "mesh_context"]

@@ -8,9 +8,13 @@ that runs every case of ``<world>``, and writes each rank's results, in
 rank order, to ``<workdir>/results.pt``.  Worlds: ``shard_map`` (8 ranks,
 ``tests/test_torch_shard_map.py``), ``distributed`` (8 ranks, then a world
 of one; ``tests/test_torch_distributed.py``), ``mesh_train`` (4 ranks,
-``tests/test_torch_mesh_train.py``).  The tests run it as a subprocess
-with a wall limit of their own and compare the results with the JAX
-package in their own process; this file imports neither ``jax`` nor
+``tests/test_torch_mesh_train.py``), ``tensor_parallel`` and
+``tensor_parallel_serve`` (4 ranks: 1x4, 2x2 and 4x1 meshes;
+``tests/test_torch_tensor_parallel.py``,
+``tests/test_torch_tensor_parallel_families.py``,
+``tests/test_torch_tensor_parallel_serve.py``).  The tests run it as a
+subprocess with a wall limit of their own and compare the results with
+the JAX package in their own process; this file imports neither ``jax`` nor
 ``repro``.
 """
 import datetime
@@ -315,8 +319,250 @@ def decode_without_donation(cfg, mesh, inp, tok, caches, pos, max_len, B):
         for t, b in zip(tree_leaves(caches), before))}
 
 
+# ---------------------------------------------------------------------------
+# tensor_parallel / tensor_parallel_serve: every architecture on 1x4 and
+# 2x2 meshes of one world of 4 (and 4x1 for the MoE and padding cases)
+# ---------------------------------------------------------------------------
+TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2), "4x1": (4, 1)}
+
+
+def tp_config(case):
+    """The port's config of a case (``test_torch_tensor_parallel.py``
+    makes the reference's from the same recipe)."""
+    from repro_torch.configs import get_config, smoke_config
+    return smoke_config(get_config(case["arch"])).replace(
+        **case["kw"]).resolve_for_tp(case["tp"])
+
+
+def _meshes():
+    from repro_torch.launch.mesh import make_mesh
+    return {name: make_mesh(dims, ("data", "model"), device="cpu")
+            for name, dims in TP_MESHES.items()}
+
+
+def _local_shapes_are_model_shards(params):
+    """Whether each leaf a step computes with (``gather_fsdp``) is the
+    ``model`` shard of the whole leaf: whole on every mesh dim but
+    ``model``, split on it as the rules place it."""
+    from repro_torch.launch.steps import gather_fsdp
+    from repro_torch.sharding.rules import tree_leaves
+    for t, used in zip(tree_leaves(params), tree_leaves(gather_fsdp(params)),
+                       strict=True):
+        want = list(t.shape)
+        names = t.device_mesh.mesh_dim_names
+        for name, p in zip(names, t.placements):
+            if name == "model" and p.is_shard():
+                want[p.dim] //= t.device_mesh.size(names.index(name))
+        if list(used.shape) != want:
+            return False
+    return True
+
+
+def _replicas(mesh, params, moment):
+    """This rank's coordinates on the mesh dims but ``model`` (``peers``:
+    the ranks that share them form its ``model`` group) and, by leaf
+    index, its local parameter and first moment of every leaf replicated
+    over ``model`` (``replicated``)."""
+    from repro_torch.sharding.rules import tree_leaves
+    mi = list(mesh.mesh_dim_names).index("model")
+    coord = mesh.get_coordinate()
+    return {"peers": tuple(c for i, c in enumerate(coord) if i != mi),
+            "replicated": {
+                i: (_np(p.to_local().float()), _np(m.to_local()))
+                for i, (p, m) in enumerate(zip(tree_leaves(params),
+                                               tree_leaves(moment),
+                                               strict=True))
+                if p.placements[mi].is_replicate()}}
+
+
+def vocab_case(mc):
+    """The LM head and vocabulary-parallel cross-entropy of a vocabulary
+    of 200 padded to 256 under the mesh context ``mc`` (``None``: one
+    rank, the whole vocabulary): the summed NLL and count, the hidden
+    state's gradient and the rank's columns of the head's gradient, and
+    the all-gathers it made."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import lm_head_apply, lm_head_spec
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import MeshContext, use_mesh
+    cfg = smoke_config(get_config("qwen3-1.7b")).replace(vocab_size=200)
+    g = torch.Generator().manual_seed(0)
+    head = torch.randn(cfg.d_model, 256, generator=g) * 0.3
+    x = torch.randn(2, 8, cfg.d_model, generator=g)
+    labels = torch.randint(0, 200, (2, 8), generator=g)
+    labels[0, :3] = -1
+    labels[1, :4] = torch.tensor([199, 192, 0, 63])
+    mc = mc or MeshContext()
+    lo, hi = mc.shard(lm_head_spec(cfg)["w"], 1)
+    w = head[:, lo:hi].clone().requires_grad_()
+    x = x.requires_grad_()
+    before = sum(n for (op, _), n in C.moved.calls.items()
+                 if op == "all_gather")
+    with use_mesh(mc):
+        logits = lm_head_apply({"w": w}, {}, x, cfg).float()
+        if logits.shape[-1] == 256:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None]
+                                )[..., 0]
+        else:
+            logz, gold = M._vocab_parallel_terms(logits, labels, cfg)
+        mask = (labels >= 0).float()
+        nll = ((logz - gold) * mask).sum()
+        d_x, d_w = torch.autograd.grad(nll, [x, w])
+    gathers = sum(n for (op, _), n in C.moved.calls.items()
+                  if op == "all_gather") - before
+    return {"nll": float(nll.detach()), "count": float(mask.sum()),
+            "d_x": _np(d_x), "d_head": _np(d_w), "lo": lo, "hi": hi,
+            "gathers": gathers}
+
+
+def collective_input(rank):
+    return torch.arange(6.0).reshape(2, 3) * (rank + 1) - rank
+
+
+def collective_weight(rank, shape):
+    """The weights rank ``rank``'s loss puts on a collective's output."""
+    n = int(np.prod(shape))
+    return (torch.arange(float(n)).reshape(shape) * 0.25 - 1.0) * (rank + 2)
+
+
+#: name -> (the op on a rank's tensor under a mesh context, whether each
+#: rank weights the result its own way (else all alike, the loss counted
+#: once), whether every rank's input is the same, the computation on
+#: every rank's inputs in one process)
+COLLECTIVES = {
+    "tp_copy": (lambda x, mc: _c().tp_copy(x, mc), True, True,
+                lambda ls, r: ls[0] * 1.0),
+    "tp_reduce": (lambda x, mc: _c().tp_reduce(x, mc), False, False,
+                  lambda ls, r: sum(ls)),
+    "tp_sum": (lambda x, mc: _c().tp_sum(x, mc), True, False,
+               lambda ls, r: sum(ls)),
+    "tp_gather": (lambda x, mc: _c().tp_gather(x, 0, mc), False, False,
+                  lambda ls, r: torch.cat(ls)),
+    "tp_gather_sum": (lambda x, mc: _c().tp_gather(x, 0, mc, True), True,
+                      False, lambda ls, r: torch.cat(ls)),
+    "batch_sum": (lambda x, mc: _c().batch_sum(x, mc), False, False,
+                  lambda ls, r: sum(ls)),
+}
+
+
+def _c():
+    from repro_torch.sharding import collectives
+    return collectives
+
+
+def collectives_case(rank, mc):
+    """Each of ``COLLECTIVES`` on this rank: its output and the gradient
+    of its input under this rank's loss."""
+    out = {}
+    for name, (op, own, shared, _) in COLLECTIVES.items():
+        x = collective_input(0 if shared else rank).requires_grad_()
+        y = op(x, mc)
+        w = collective_weight(rank if own else 0, y.shape)
+        (g,) = torch.autograd.grad((y * w).sum(), [x])
+        out[name] = (_np(y), _np(g))
+    return out
+
+
+def tensor_parallel_rank(rank, inp, work):
+    """One train step, float32 and mixed precision, of every case on its
+    meshes (``jitted_step_for_cell``, one microbatch unless the case
+    says), and the steps' whole parameters after it on rank 0."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import gather_full, jitted_step_for_cell
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import tree_leaves, tree_map
+    from repro_torch.launch.steps import rank_context
+    torch.set_num_threads(1)
+    meshes = _meshes()
+    mc = rank_context(meshes["1x4"], None)
+    out = {"vocab": vocab_case(mc), "collectives": collectives_case(
+        rank, type(mc)(model_group=mc.model_group, tp=mc.tp,
+                       tp_rank=mc.tp_rank, batch_groups=(mc.model_group,)))}
+    for key, case in inp["cases"].items():
+        cfg = tp_config(case)
+        batch = {k: torch.from_numpy(v).long() if v.dtype == np.int32
+                 else torch.from_numpy(v) for k, v in case["batch"].items()}
+        B, S = case["batch"]["tokens"].shape
+        F = cfg.frontend_len if cfg.frontend else 0
+        for mesh_name in case["meshes"]:
+            for mixed in case["precisions"]:
+                fn, _ = jitted_step_for_cell(
+                    cfg, ShapeConfig("t", S + F, B, "train"),
+                    meshes[mesh_name], opt_cfg=adamw.AdamWConfig(
+                        **inp["opt"]), microbatches=case["microbatches"],
+                    mixed_precision=mixed)
+                params = tree_map(torch.clone, case["params"])
+                state = (adamw.init_mixed(params) if mixed
+                         else adamw.init(params))
+                if mixed:
+                    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+                params, state, m = fn(params, state, batch)
+                kept = state.master if mixed else params
+                res = {"loss": float(m["loss"]),
+                       "grad_norm": float(m["grad_norm"]),
+                       "model_shards": _local_shapes_are_model_shards(
+                           params),
+                       **_replicas(meshes[mesh_name], kept, state.m)}
+                full = [_np(t.float()) for t in tree_leaves(gather_full(
+                    kept))]
+                # the first moment after one step: (1 - b1) times the
+                # clipped gradient
+                moment = [_np(t) for t in tree_leaves(gather_full(state.m))]
+                if rank == 0:
+                    res["params"], res["moment"] = full, moment
+                out[key, mesh_name, "mixed" if mixed else "f32"] = res
+    return out
+
+
+def tensor_parallel_serve_rank(rank, inp, work):
+    """A prefill, then a decode step, of every case on its meshes
+    (``jitted_step_for_cell``, int8 KV caches placed by
+    ``cache_sharding``): the tokens, and on rank 0 the whole caches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import gather_full, jitted_step_for_cell
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import tree_leaves
+    torch.set_num_threads(1)
+    meshes = _meshes()
+    out = {}
+    for key, case in inp["cases"].items():
+        cfg = tp_config(case).replace(kv_quant=True)
+        prompt = {k: torch.from_numpy(v).long() if v.dtype == np.int32
+                  else torch.from_numpy(v) for k, v in case["prompt"].items()}
+        B, SP = case["prompt"]["tokens"].shape
+        F = cfg.frontend_len if cfg.frontend else 0
+        max_len = SP + F + case["steps"]
+        for mesh_name in case["meshes"]:
+            mesh = meshes[mesh_name]
+            prefill, _ = jitted_step_for_cell(
+                cfg, ShapeConfig("p", SP + F, B, "prefill"), mesh)
+            decode, _ = jitted_step_for_cell(
+                cfg, ShapeConfig("d", max_len, B, "decode"), mesh)
+            caches = M.init_caches(cfg, B, max_len, torch.float32,
+                                   device="cpu")
+            tok, caches = prefill(case["params"], prompt, caches)
+            toks = [_np(tok)]
+            for i in range(case["steps"]):
+                tok, caches = decode(case["params"], tok, caches,
+                                     SP + F + i)
+                toks.append(_np(tok))
+            res = {"tokens": toks, "model_shards": [
+                str(t.placements) for t in tree_leaves(caches)]}
+            full = [_np(t.float()) for t in tree_leaves(gather_full(caches))]
+            if rank == 0:
+                res["caches"] = full
+            out[key, mesh_name] = res
+    return out
+
+
 RANKS = {"shard_map": (shard_map_rank, 8), "distributed":
-         (distributed_rank, 8), "mesh_train": (mesh_train_rank, 4)}
+         (distributed_rank, 8), "mesh_train": (mesh_train_rank, 4),
+         "tensor_parallel": (tensor_parallel_rank, 4),
+         "tensor_parallel_serve": (tensor_parallel_serve_rank, 4)}
+#: a world's wall limit past ``WORLD_WALL_S``, in seconds
+WORLD_WALLS = {"tensor_parallel": 150.0, "tensor_parallel_serve": 150.0}
 
 
 def inputs(work):
@@ -332,7 +578,8 @@ def run_rank(rank, world, work):
 def main(world, work):
     from repro_torch.launch.mesh import spawn
     results = spawn(run_rank, RANKS[world][1], (world, work), device="cpu",
-                    wall_s=WORLD_WALL_S, workdir=work)
+                    wall_s=WORLD_WALLS.get(world, WORLD_WALL_S),
+                    workdir=work)
     extra = (world_of_one(inputs(work), work) if world == "distributed"
              else None)
     torch.save({"ranks": results, "one": extra},
