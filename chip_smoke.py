@@ -18,7 +18,9 @@ independent float64 oracle, runs the launch-geometry tuner
 ``apply_delta``) and the sharded tier (``plan_sharded``, shard by shard,
 then ``shard_map`` in a world of two ranks on the one card over ``gloo``,
 which also trains qwen3-1.7b at full width on a 2x1 mesh against one
-rank); then serves one model of each LM family at full width (qwen3-1.7b,
+rank, serves its decode steps there weight-stationary and
+context-parallel, and trains and serves it sequence- and
+tensor-parallel on a 1x2 mesh); then serves one model of each LM family at full width (qwen3-1.7b,
 zamba2-1.2b and xlstm-1.3b whole, dbrx-132b cut to 2 layers with the
 paper's dispatch rule on) and holds one decode step of each against the
 same step with the plain attention in the kernel's place; then trains
@@ -2398,6 +2400,10 @@ SHARD_MAP_WALL_S = 240
 #: batch, prompt length, cache length; ``MESH_TRAIN``'s model in bf16 with
 #: the int8 KV cache, so K11 runs at 4 KV heads a rank (G 2)
 TP_SERVE = (2, 256, 512)
+#: the 2x1 mesh's context-parallel decode step (B = 1): its prompt, past
+#: the half of ``TP_SERVE``'s cache the first rank holds, so both ranks'
+#: slot ranges hold a large share of the valid slots the merge weighs
+CP_PROMPT = 384
 
 
 def import_checkpoint_deps():
@@ -2528,6 +2534,10 @@ def shard_map_rank(rank):
                         "staged_bytes": C.stage.bytes - staged,
                         "peak_bytes": torch.cuda.max_memory_allocated()}
     marks["train"] = time.perf_counter()
+    # the 2x1 mesh's decode steps: weight-stationary, context-parallel
+    out["serve_ws"] = ws_serving(mesh, cfg)
+    torch.cuda.empty_cache()
+    marks["serve_ws"] = time.perf_counter()
 
     # the same world as a 1x2 mesh: tensor parallelism over ``model``
     tp_mesh = make_mesh((1, SHARD_MAP_RANKS), ("data", "model"))
@@ -2540,9 +2550,16 @@ def shard_map_rank(rank):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state = tr.init_state()
+        moved = dict(C.moved.bytes)
         tr.run(state)
         del state
+        model = C.group_name(tp_mesh.get_group("model"))
         out["train_tp"] = {"losses": [m["loss"] for m in tr.metrics],
+                           "seq_parallel": cfg.use_seq_sp,
+                           "model_bytes_by_op": {
+                               op: n - moved.get((op, g), 0)
+                               for (op, g), n in C.moved.bytes.items()
+                               if g == model and n != moved.get((op, g), 0)},
                            "grad_norms": [m["grad_norm"]
                                           for m in tr.metrics],
                            "ms_steps": [m["sec_per_step"] * 1e3
@@ -2557,6 +2574,138 @@ def shard_map_rank(rank):
     marks["serve_tp"] = time.perf_counter()
     names = list(marks)
     out["seconds"] = {b: marks[b] - marks[a] for a, b in zip(names, names[1:])}
+    return out
+
+
+def ws_decode_logits(cfg):
+    """A serve step whose output is the next position's logits over the
+    whole vocabulary (float32) in place of the token."""
+    from repro_torch.models import model as M
+
+    @torch.no_grad()
+    def step(params, tokens, caches, cache_len):
+        logits, caches = M.decode_step(params, tokens, caches, cache_len,
+                                       cfg)
+        return M.full_vocab(logits, cfg)[:, -1:].float(), caches
+    return step
+
+
+def ws_serving(mesh, cfg):
+    """The 2x1 ``mesh``'s decode steps (every rank of it calls this), with
+    ``cfg`` in bf16 and the int8 KV cache: at B = ``TP_SERVE[0]`` a prefill,
+    then the decode step gathered (``serve_weight_stationary=False``,
+    nothing donated) beside the weight-stationary one (the default: each
+    rank its ``data`` shard of every weight, the batch's rows of the
+    cache), each timed with its K11 launches a rank and the bytes it
+    staged; at B = 1 a prefill and a context-parallel decode step (the
+    cache's sequence split over the ranks, K11 with its log-sum-exp on
+    each half, the halves merged).  Each weight-stationary step is held
+    against one rank's whole model on the same inputs: the mesh's logits
+    (the same step wiring, nothing donated) within ``LM_STEP_REL_TOL`` of
+    the largest, the timed step's tokens their argmax, the caches it wrote
+    back (gathered) within ``LM_STEP_REL_TOL`` of each leaf's largest."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import tree_leaves
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = cfg.replace(dtype="bfloat16", kv_quant=True)
+    B, SP, max_len = TP_SERVE
+    params = M.init(cfg, torch.Generator(device=dev).manual_seed(
+        FAMILY_SEED), device=dev)
+    placed = S.distribute(params, S.params_sharding(cfg, mesh))
+    tokens = torch.randint(
+        0, cfg.vocab_size, (B, max(SP, CP_PROMPT)), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(FAMILY_SEED + 1))
+    out = {"mesh": "x".join(map(str, mesh.shape)), "max_len": max_len}
+
+    def timed(fn, *args):
+        kernels.reset_launch_counts()
+        staged = C.stage.bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, {"ms": (time.perf_counter() - t0) * 1e3,
+                     "launched": {k: n for k, n in
+                                  kernels.launch_counts().items() if n},
+                     "staged_bytes": C.stage.bytes - staged}
+
+    for name, b, SP in (("batch", B, SP), ("context_parallel", 1,
+                                            CP_PROMPT)):
+        dshape = ShapeConfig("d", max_len, b, "decode")
+        prompt = {"tokens": tokens[:b, :SP]}
+        # the prefill's cell at the caches' length: they are placed as the
+        # decode cell places them
+        prefill, _ = S.jitted_step_for_cell(
+            cfg, ShapeConfig("p", max_len, b, "prefill"), mesh)
+        caches = M.init_caches(cfg, b, max_len, torch.bfloat16, device=dev)
+        tok, caches = prefill(placed, prompt, caches)
+        row = {"batch": b, "prompt": SP, "cache_placement": str(
+            caches["layers"][0]["attn"]["k"].placements)}
+        if name == "context_parallel":
+            # the valid slots (the prompt and the new token) in each
+            # rank's half of the cache
+            half = max_len // mesh.size(0)
+            row["valid_slots_by_rank"] = [
+                min(max(SP + 1 - r * half, 0), half)
+                for r in range(mesh.size(0))]
+            if min(row["valid_slots_by_rank"]) < half // 4:
+                raise AssertionError(
+                    f"serve_shard_map 2x1: a context-parallel half holds "
+                    f"{row['valid_slots_by_rank']} valid slots")
+        logits, _ = S._placing(S._mesh_serving(
+            ws_decode_logits(cfg), mesh, S.batch_axes_for(b, mesh),
+            donate=False, ws=True), S.params_sharding(cfg, mesh), None,
+            S.cache_sharding(cfg, dshape, mesh), None)(placed, tok, caches,
+                                                       SP)
+        if name == "batch":
+            gathered, _ = S.jitted_step_for_cell(
+                cfg, dshape, mesh, serve_weight_stationary=False,
+                donate=False)
+            (g_tok, _), row["gathered"] = timed(gathered, placed, tok,
+                                                caches, SP)
+        decode, _ = S.jitted_step_for_cell(cfg, dshape, mesh)
+        (nxt, caches), row["weight_stationary"] = timed(decode, placed, tok,
+                                                        caches, SP)
+        if row["weight_stationary"]["launched"] != {
+                "decode_attention_int8": cfg.n_layers}:
+            raise AssertionError(f"serve_shard_map 2x1 {name}: launched "
+                                 f"{row['weight_stationary']['launched']}")
+        # one rank's whole model on the same prompt and token
+        whole = M.init_caches(cfg, b, max_len, torch.bfloat16, device=dev)
+        with torch.no_grad():
+            M.prefill(params, prompt, whole, cfg)
+            want = M.decode_step(params, tok, whole, SP, cfg)[0][
+                :, -1:].float()
+        rel = float((logits - want).abs().max() / want.abs().max())
+        row["logits_max_rel_err"] = rel
+        if rel > LM_STEP_REL_TOL:
+            raise AssertionError(f"serve_shard_map 2x1 {name}: logits "
+                                 f"{rel:.3g} of max |logits| from one "
+                                 f"rank's (> {LM_STEP_REL_TOL})")
+        if not torch.equal(nxt, torch.argmax(logits, dim=-1)):
+            raise AssertionError(f"serve_shard_map 2x1 {name}: the timed "
+                                 f"step's tokens are not its logits' argmax")
+        if name == "batch" and not torch.equal(g_tok, nxt):
+            raise AssertionError(f"serve_shard_map 2x1: the gathered "
+                                 f"step's tokens {g_tok.tolist()}, the "
+                                 f"weight-stationary one's {nxt.tolist()}")
+        rel = max(float((a.float() - w.float()).abs().max()
+                        / w.float().abs().max().clamp_min(1e-30))
+                  for a, w in zip(tree_leaves(S.gather_full(caches)),
+                                  tree_leaves(whole), strict=True))
+        row["caches_max_rel_err"] = rel
+        if rel > LM_STEP_REL_TOL:
+            raise AssertionError(f"serve_shard_map 2x1 {name}: the caches "
+                                 f"{rel:.3g} of a leaf's max from one "
+                                 f"rank's (> {LM_STEP_REL_TOL})")
+        row["tokens_equal_one_rank"] = bool(torch.equal(
+            nxt, torch.argmax(want, dim=-1)))
+        out[name] = row
+        del caches, whole, logits
     return out
 
 
@@ -2724,6 +2873,9 @@ def phase_serve_shard_map():
                      "peak_bytes": [r["train"]["peak_bytes"]
                                     for r in ranks]},
            "train_tp": {"mesh": f"1x{SHARD_MAP_RANKS}",
+                        "seq_parallel": ranks[0]["train_tp"]["seq_parallel"],
+                        "model_bytes_by_op": ranks[0]["train_tp"][
+                            "model_bytes_by_op"],
                         "losses_mesh": ranks[0]["train_tp"]["losses"],
                         "grad_norms": ranks[0]["train_tp"]["grad_norms"],
                         "ms_steps_mesh": ranks[0]["train_tp"]["ms_steps"],
@@ -2732,6 +2884,23 @@ def phase_serve_shard_map():
                                          for r in ranks],
                         "peak_bytes": [r["train_tp"]["peak_bytes"]
                                        for r in ranks]},
+           "serve_ws": {**ranks[0]["serve_ws"],
+                        "k11_launches_a_rank": {
+                            f"{case}/{kind}": [r["serve_ws"][case][kind][
+                                "launched"].get("decode_attention_int8", 0)
+                                for r in ranks]
+                            for case, kind in (
+                                ("batch", "gathered"),
+                                ("batch", "weight_stationary"),
+                                ("context_parallel", "weight_stationary"))},
+                        "staged_bytes_a_rank": {
+                            f"{case}/{kind}": [r["serve_ws"][case][kind][
+                                "staged_bytes"] for r in ranks]
+                            for case, kind in (
+                                ("batch", "gathered"),
+                                ("batch", "weight_stationary"),
+                                ("context_parallel", "weight_stationary"))},
+                        "tolerance": LM_STEP_REL_TOL},
            "serve_tp": {**ranks[0]["serve_tp"],
                         "mesh": f"1x{SHARD_MAP_RANKS}",
                         "staged_bytes": [r["serve_tp"]["staged_bytes"]
@@ -2746,7 +2915,11 @@ def phase_serve_shard_map():
                    for a in ("row", "col") for op in ("spmv", "spmm"))
             for k in ("csr_spmv", "csr_spmm")}
     path["decode_attention_int8"] = sum(
-        r["serve_tp"]["launched"]["decode_attention_int8"] for r in ranks)
+        r["serve_tp"]["launched"]["decode_attention_int8"] +
+        sum(r["serve_ws"][case]["weight_stationary"]["launched"][
+            "decode_attention_int8"] for case in ("batch",
+                                                  "context_parallel"))
+        for r in ranks)
     return path
 
 
@@ -2773,7 +2946,7 @@ def family_prompt_lengths(arch):
 #: ``ring`` (a full ring: every slot written, at positions S + lens[b] - S
 #: .. S + lens[b] - 1, key_pos from models/attention.py's formula),
 #: ``masked_row`` (prefix, but sequence 1 holds no valid slot: its output is
-#: the mean of V)
+#: the mean of V), ``empty`` (no sequence holds a valid slot)
 K11_CASES = (
     ("served", 8, 8192, 8, 2, 128, None, torch.bfloat16, 0.0, "prefix"),
     ("served_f32", 8, 8192, 8, 2, 128, None, torch.float32, 0.0, "prefix"),
@@ -2796,6 +2969,10 @@ K11_CASES = (
     # 2 (4 of 8) and of 16 (1 of 16, resolve_for_tp replicating each twice)
     ("tp2", 8, 8192, 4, 2, 128, None, torch.bfloat16, 0.0, "prefix"),
     ("tp16", 8, 8192, 1, 1, 128, None, torch.bfloat16, 0.0, "prefix"),
+    # a context-parallel rank's half of a cache of 8192 slots that holds
+    # no valid slot yet: every row's output the mean of V, its LSE -1e30
+    ("cp_empty_shard", 8, 4096, 8, 2, 128, None, torch.bfloat16, 0.0,
+     "empty"),
 )
 #: the family whose sequence lengths (mid-decode) each served case takes
 SERVED_K11 = {"served": "qwen3-1.7b", "served_f32": "qwen3-1.7b",
@@ -2842,6 +3019,8 @@ def k11_case_inputs(i):
         args[6] = pos
     elif cache == "masked_row":
         args[5][1] = -1
+    elif cache == "empty":
+        args[5][:] = -1
     return args, {"window": window, "softcap": cap}
 
 
@@ -2881,6 +3060,12 @@ def k11_valid_share(args, window):
 K11_BF16_ATOL = 1e-6
 
 
+#: K11's log-sum-exp against the plain version's: both are float32 sums
+#: over the same scores in other orders (the kernel's in log2 units), and
+#: a row with no valid slot reads -1e30 on both
+K11_LSE_ATOL, K11_LSE_RTOL = 1e-4, 1e-5
+
+
 def k11_close(got, want, q_dtype):
     """``(max_abs_err, ok)``: float32 q within 2e-4 + 2e-4 |want| (the
     reference's tolerance); bfloat16 q within one bfloat16 ulp of the larger
@@ -2909,8 +3094,9 @@ def phase_decode_attention(reps: int):
     for i, (label, B, S, KV, G, Dh, window, q_dtype, cap, cache) in \
             enumerate(K11_CASES):
         args, kw = k11_case_inputs(i)
-        got = K11.decode_attention_int8(*args, **kw)
-        want = K11.decode_attention_int8_plain(*args, **kw)
+        got, lse = K11.decode_attention_int8(*args, return_lse=True, **kw)
+        want, want_lse = K11.decode_attention_int8_plain(
+            *args, return_lse=True, **kw)
         torch.cuda.synchronize()
         if got.shape != want.shape or got.dtype != q_dtype or \
                 not bool(torch.isfinite(got).all()):
@@ -2921,6 +3107,14 @@ def phase_decode_attention(reps: int):
             raise AssertionError(f"decode_attention_int8 {label}: kernel "
                                  f"disagrees with its plain version "
                                  f"(max abs err {err})")
+        lse_gap = (lse - want_lse).abs()
+        lse_err = float(lse_gap.max())
+        if lse.shape != want_lse.shape or lse.dtype != torch.float32 or \
+                not bool((lse_gap <= K11_LSE_ATOL + K11_LSE_RTOL *
+                          want_lse.abs()).all()):
+            raise AssertionError(f"decode_attention_int8 {label}: its "
+                                 f"log-sum-exp disagrees with the plain "
+                                 f"version's (max abs err {lse_err})")
         needed, flops, full = k11_bytes_flops(args, window)
         b_ms, b_by = bound(needed, flops)
         results.append({
@@ -2929,7 +3123,7 @@ def phase_decode_attention(reps: int):
             "dtype": str(q_dtype).replace("torch.", ""), "cache": cache,
             "q_pos": args[6].tolist(),
             "valid_share": k11_valid_share(args, window),
-            "max_abs_err": err,
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
             "tolerance": "2e-4" if q_dtype == torch.float32
             else f"1 bf16 ulp + {K11_BF16_ATOL}",
             "ms": time_ms(lambda: K11.decode_attention_int8(*args, **kw),
@@ -3169,10 +3363,11 @@ def hold_family_step(params, cfg, snapshot, served, spy, arch, step_dtype):
     pos = torch.from_numpy(lengths).to(dev)
     calls = []
 
-    def checked(*a, **kw):
-        got = K11.decode_attention_int8(*a, **kw)
+    def checked(*a, return_lse=False, **kw):
+        got = K11.decode_attention_int8(*a, return_lse=return_lse, **kw)
+        out = got[0] if return_lse else got
         calls.append(k11_against_oracle(
-            got, K11.decode_attention_int8_plain(*a, **kw), a, **kw))
+            out, K11.decode_attention_int8_plain(*a, **kw), a, **kw))
         return got
 
     def step(fn, p, c):

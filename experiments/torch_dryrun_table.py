@@ -3,7 +3,8 @@ repro_torch.launch.dryrun``, then ``--analysis``) as the tables of
 ``PERF.md``: every cell's status, and for each ok cell of one mesh its
 per-device FLOPs traced and in closed form, traced bytes, collective bytes
 (in all, and on the ``model`` axis and the batch axes ``data``/``pod``),
-peak memory, whether it fits one H100's 80 GB, the bottleneck and the
+the ``model`` axis's by op (all-gather, all-reduce, reduce-scatter), peak
+memory, whether it fits one H100's 80 GB, the bottleneck and the
 useful ratio.
 
     python3 experiments/torch_dryrun_table.py [--dir experiments/dryrun_torch]
@@ -29,9 +30,9 @@ def load(directory: str) -> list:
 def table(recs: list, mesh: str) -> str:
     rows = ["| arch | shape | FLOPs/dev traced | closed form | traced / "
             "closed | traced bytes/dev | collective bytes/dev | on model | "
-            "on data, pod | peak GB | fits_80gb | bottleneck | useful_ratio "
-            "| trace s |",
-            "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
+            "model AG / AR / RS | on data, pod | peak GB | fits_80gb | "
+            "bottleneck | useful_ratio | trace s |",
+            "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in recs:
         if r["mesh"] != mesh or r["status"] != "ok":
             continue
@@ -42,12 +43,16 @@ def table(recs: list, mesh: str) -> str:
             for axis, n in per_op.items():
                 by_axis[axis] = by_axis.get(axis, 0) + n
         batch = by_axis.get("data", 0) + by_axis.get("pod", 0)
+        ops = rl.get("collectives_by_axis", {})
+        model_ops = " / ".join(f"{ops.get(op, {}).get('model', 0):.2e}"
+                               for op in ("all_gather", "all_reduce",
+                                          "reduce_scatter"))
         rows.append(
             f"| {r['arch']} | {r['shape']} | {rl['traced_flops']:.3e} | "
             f"{f'{closed:.3e}' if closed else '—'} | "
             f"{f'{rl['traced_flops'] / closed:.2f}' if closed else '—'} | "
             f"{rl['traced_bytes']:.3e} | {rl['collective_bytes']:.3e} | "
-            f"{by_axis.get('model', 0):.3e} | {batch:.3e} | "
+            f"{by_axis.get('model', 0):.3e} | {model_ops} | {batch:.3e} | "
             f"{mem['peak_bytes'] / 1e9:.1f} | {mem['fits_80gb']} | "
             f"{rl['bottleneck']} | {rl['useful_ratio']:.3f} | "
             f"{r['timings']['trace_s']:.0f} |")

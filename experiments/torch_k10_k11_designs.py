@@ -225,11 +225,12 @@ def k11_caller(so: Path):
         part_l = torch.empty_like(part_m)
         part_acc = torch.empty((B, KV, G, splits, Dh), device=q.device)
         out = torch.empty_like(q)
+        lse = torch.empty((B, KV, G), device=q.device)
         window = kw.get("window")
         code = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
                   v_q.data_ptr(), v_s.data_ptr(), key_pos.data_ptr(),
                   q_pos.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-                  part_acc.data_ptr(), out.data_ptr(),
+                  part_acc.data_ptr(), out.data_ptr(), lse.data_ptr(),
                   counters.data_ptr(), B, S, KV, G, Dh,
                   lanes, threads, g_tile, per_split, splits,
                   0 if window is None else int(window),

@@ -68,9 +68,10 @@ SIGNATURES: Dict[str, Sequence] = {
     # data_bf16, x_bf16, stream
     "bcsr_spmm": (_P,) * 5 + (_I,) * 14 + (_P,),
     # q, k_q, k_s, v_q, v_s, key_pos, q_pos, part_m, part_l, part_acc, out,
-    # counters, B, S, KV, G, Dh, lanes, threads, g_tile, keys_per_split,
-    # splits, window, has_window, scale, softcap, q_bf16, stream
-    "decode_attention_int8": (_P,) * 12 + (_I,) * 12 + (_F, _F, _I, _P),
+    # lse, counters, B, S, KV, G, Dh, lanes, threads, g_tile,
+    # keys_per_split, splits, window, has_window, scale, softcap, q_bf16,
+    # stream
+    "decode_attention_int8": (_P,) * 13 + (_I,) * 12 + (_F, _F, _I, _P),
 }
 
 _lock = threading.Lock()

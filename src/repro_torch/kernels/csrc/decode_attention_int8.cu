@@ -8,7 +8,10 @@
 //            (and key_pos[b,t] > q_pos[b] - window when a window is given)
 //   out    = sum_t softmax(s)[t] * (v_q[b, t, h, :] * v_s[b, t, h])
 //
-// in float32, the output cast to q's type.  Masked slots take -1e30, not
+// in float32, the output cast to q's type, and beside it each row's
+// natural-log log-sum-exp lse = log sum_t exp(s[t]) in float32 (-1e30 for a
+// row with no valid slot), with which partial results over disjoint slot
+// ranges merge (context parallelism).  Masked slots take -1e30, not
 // -inf: a row with no valid slot gets weight 1 on every slot, i.e. the mean
 // of V over all S slots — what the reference gives, and never NaN.
 //
@@ -124,7 +127,8 @@ template <typename TQ, int GT>
 __device__ __forceinline__ void merge_splits(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     const float* __restrict__ part_acc, TQ* __restrict__ out,
-    long long row0, int rows, int Dh, int splits, float* w) {
+    float* __restrict__ lse, long long row0, int rows, int Dh, int splits,
+    float* w) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int nwarps = blockDim.x / 32;
   w += warp * DA_COMBINE_CHUNK;
@@ -149,6 +153,13 @@ __device__ __forceinline__ void merge_splits(
       m = hi;
     }
     const float inv = 1.f / l;
+    // the row's natural-log log-sum-exp, m + log l in log2 units times
+    // ln 2; a row with no valid slot (m = -1e30) gives -1e30 itself
+    if (lane == 0) {
+      lse[row0 + g] = m == DA_NEG_INF
+                          ? DA_NEG_INF
+                          : (m + log2f(l)) * 0.6931471805599453f;
+    }
     float a[DA_MAX_HEAD_DIM / 32];
 #pragma unroll
     for (int k = 0; k < DA_MAX_HEAD_DIM / 32; ++k) a[k] = 0.f;
@@ -190,8 +201,8 @@ __device__ __forceinline__ void merge_splits(
 template <typename TQ, int GT>
 __device__ __forceinline__ void finish_split(
     const float* part_m, const float* part_l, const float* part_acc,
-    TQ* out, int* counters, long long tile, long long row0, int rows, int Dh,
-    int splits, float* w, int* s_last) {
+    TQ* out, float* lse, int* counters, long long tile, long long row0,
+    int rows, int Dh, int splits, float* w, int* s_last) {
   __threadfence();  // this block's partials, before its count
   __syncthreads();
   if (threadIdx.x == 0) {
@@ -200,8 +211,8 @@ __device__ __forceinline__ void finish_split(
   __syncthreads();
   if (!*s_last) return;
   __threadfence();  // every other split's partials, after its count
-  merge_splits<TQ, GT>(part_m, part_l, part_acc, out, row0, rows, Dh, splits,
-                       w);
+  merge_splits<TQ, GT>(part_m, part_l, part_acc, out, lse, row0, rows, Dh,
+                       splits, w);
   if (threadIdx.x == 0) counters[tile] = 0;
 }
 
@@ -216,8 +227,8 @@ decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
                   const int* __restrict__ key_pos,
                   const int* __restrict__ q_pos, float* __restrict__ part_m,
                   float* __restrict__ part_l, float* __restrict__ part_acc,
-                  TQ* __restrict__ out, int* __restrict__ counters,
-                  int S, int KV, int G, int Dh, int lanes, int g_tiles,
+                  TQ* __restrict__ out, float* __restrict__ lse,
+                  int* __restrict__ counters, int S, int KV, int G, int Dh, int lanes, int g_tiles,
                   int keys_per_split, int splits, int window, int has_window,
                   float scale, float softcap) {
   // dynamic: each warp's ring (DA_STAGES tiles of K codes and of V codes),
@@ -319,7 +330,7 @@ decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
         part_m[p] = DA_NEG_INF;
         part_l[p] = 0.f;
       }
-      finish_split<TQ, GT>(part_m, part_l, part_acc, out, counters, tile,
+      finish_split<TQ, GT>(part_m, part_l, part_acc, out, lse, counters, tile,
                            row0, rows, Dh, splits,
                            reinterpret_cast<float*>(da_smem), &s_last);
       return;
@@ -537,7 +548,7 @@ decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
     }
     __syncthreads();
   }
-  finish_split<TQ, GT>(part_m, part_l, part_acc, out, counters, tile, row0,
+  finish_split<TQ, GT>(part_m, part_l, part_acc, out, lse, counters, tile, row0,
                        rows, Dh, splits, reinterpret_cast<float*>(da_smem),
                        &s_last);
 }
@@ -545,7 +556,8 @@ decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
 // q (B, KV, G, Dh) float32 or bfloat16; k_q, v_q (B, S, KV, Dh) int8, 16-byte
 // aligned; k_s, v_s (B, S, KV) bfloat16; key_pos (B, S), q_pos (B,) int32;
 // part_m, part_l (B, KV, G, splits) and part_acc (B, KV, G, splits, Dh)
-// float32 scratch; out like q; counters: B * KV * ceil(G / g_tile) int32, 0
+// float32 scratch; out like q; lse (B, KV, G) float32: each query row's
+// natural-log log-sum-exp of its masked, capped scores; counters: B * KV * ceil(G / g_tile) int32, 0
 // on entry and left 0 (one launch on them at a time).  lanes: threads per
 // key, a power of two <= 32 with lanes * 16 >= Dh (Dh <= 512); threads:
 // whole warps, 128 to 256; g_tile: query rows a block keeps in registers
@@ -556,7 +568,8 @@ decode_int8_split(const TQ* __restrict__ q, const int8_t* __restrict__ k_q,
 extern "C" int decode_attention_int8_launch(
     const void* q, const void* k_q, const void* k_s, const void* v_q,
     const void* v_s, const void* key_pos, const void* q_pos, void* part_m,
-    void* part_l, void* part_acc, void* out, void* counters, int B, int S,
+    void* part_l, void* part_acc, void* out, void* lse, void* counters,
+    int B, int S,
     int KV, int G,
     int Dh, int lanes, int threads, int g_tile, int keys_per_split,
     int splits, int window, int has_window, float scale, float softcap,
@@ -589,7 +602,7 @@ extern "C" int decode_attention_int8_launch(
       (const TQ*)q, (const int8_t*)k_q, (const __nv_bfloat16*)k_s,          \
       (const int8_t*)v_q, (const __nv_bfloat16*)v_s, (const int*)key_pos,   \
       (const int*)q_pos, (float*)part_m, (float*)part_l, (float*)part_acc,  \
-      (TQ*)out, (int*)counters, S, KV, G, Dh, lanes, g_tiles,               \
+      (TQ*)out, (float*)lse, (int*)counters, S, KV, G, Dh, lanes, g_tiles, \
       keys_per_split, splits, window, has_window, scale, softcap)
 #define SPLIT(TQ, GT)              \
   if (softcap > 0.f) {             \

@@ -19,7 +19,9 @@ chunks.  Hopper blocks share no state, so the kernel splits the sequence
 codes through a ring in shared memory (``cp.async``), rescales once a tile
 and writes a partial ``(m, l, acc)`` to float32 scratch allocated here; the
 last split of each head to finish merges them (a row with no valid slot
-gets the mean of V).  ``S`` need not be a multiple of anything
+gets the mean of V) and writes each row's log-sum-exp beside its output,
+so that the results over disjoint slot ranges (a cache whose sequence is
+sharded over ranks) merge exactly: :func:`merge_partials`.  ``S`` need not be a multiple of anything
 (the reference wrapper padded to its chunk); the launch shape, the number of
 splits included, is chosen in :func:`~repro_torch.kernels._common.
 decode_attention_launch`.  Bound on an H100: bytes (the codes and scales of
@@ -27,7 +29,7 @@ the valid slots, read once); see the source's header.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -89,11 +91,13 @@ def decode_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor,
                                 v_s: torch.Tensor, key_pos: torch.Tensor,
                                 q_pos: torch.Tensor,
                                 window: Optional[int] = None,
-                                softcap: float = 0.0) -> torch.Tensor:
+                                softcap: float = 0.0,
+                                return_lse: bool = False):
     """Plain PyTorch version: dequantize the whole cache to float32, then the
     masked max/exp/sum attention — ``ref.py:decode_attention_int8_ref``, with
     the scores capped at ``softcap * tanh(s / softcap)`` before the mask
-    when ``softcap > 0`` (``models/attention.py:decode_attention``)."""
+    when ``softcap > 0`` (``models/attention.py:decode_attention``).  With
+    ``return_lse``: ``(out, lse)``, as :func:`decode_attention_int8`."""
     kf = k_q.float() * k_s.float()[..., None]
     vf = v_q.float() * v_s.float()[..., None]
     scale = 1.0 / torch.sqrt(torch.tensor(q.shape[-1], dtype=torch.float32,
@@ -109,7 +113,31 @@ def decode_attention_int8_plain(q: torch.Tensor, k_q: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p / l.clamp_min(1e-30), vf)
-    return out.to(q.dtype)
+    if not return_lse:
+        return out.to(q.dtype)
+    return out.to(q.dtype), row_lse(m[..., 0], l[..., 0])
+
+
+def row_lse(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """A row's natural-log log-sum-exp ``m + log l`` from its largest score
+    ``m`` and its sum ``l`` of ``exp(s - m)``; ``NEG_INF`` itself for a row
+    with no valid slot (``m == NEG_INF``), the same on every rank."""
+    return torch.where(m <= NEG_INF, torch.full_like(m, NEG_INF),
+                       m + torch.log(l))
+
+
+def merge_partials(outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor]
+                   ) -> torch.Tensor:
+    """The attention over the union of disjoint slot ranges from each
+    range's ``(out, lse)``: weights ``exp(lse - max lse)``, the outputs'
+    weighted sum over the weights' sum, in float32, cast once to the
+    outputs' dtype.  A range with no valid slot (``lse = NEG_INF``) weighs
+    0 beside one that has one; where no range has one, every range weighs
+    1 (each range's mean of V: the mean over equal ranges)."""
+    lse = torch.stack([t.float() for t in lses])
+    w = torch.exp(lse - lse.amax(dim=0))
+    num = (torch.stack([o.float() for o in outs]) * w[..., None]).sum(dim=0)
+    return (num / w.sum(dim=0)[..., None]).to(outs[0].dtype)
 
 
 def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
@@ -117,8 +145,15 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
                           v_s: torch.Tensor, key_pos: torch.Tensor,
                           q_pos: torch.Tensor, *,
                           window: Optional[int] = None,
-                          softcap: float = 0.0) -> torch.Tensor:
-    """q ``(B, KV, G, Dh)`` -> out ``(B, KV, G, Dh)`` in q's dtype.
+                          softcap: float = 0.0, return_lse: bool = False
+                          ) -> Union[torch.Tensor,
+                                     Tuple[torch.Tensor, torch.Tensor]]:
+    """q ``(B, KV, G, Dh)`` -> out ``(B, KV, G, Dh)`` in q's dtype; with
+    ``return_lse``, ``(out, lse)``: ``lse`` ``(B, KV, G)`` float32, each
+    row's natural-log log-sum-exp of its masked, capped scores (``-1e30``
+    for a row with no valid slot), so that results over disjoint slot
+    ranges merge (:func:`merge_partials`).  The kernel writes both either
+    way.
 
     ``k_q``/``v_q`` ``(B, S, KV, Dh)`` int8; ``k_s``/``v_s`` ``(B, S, KV)``
     scales; ``key_pos`` ``(B, S)`` int32 absolute positions (-1 empty);
@@ -137,14 +172,16 @@ def decode_attention_int8(q: torch.Tensor, k_q: torch.Tensor,
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"decode_attention_int8 takes CPU or CUDA tensors; "
                          f"got {q.device}")
-    return _op(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap)
+    out, lse = _op(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap)
+    return (out, lse) if return_lse else out
 
 
 def _launch(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
             v_q: torch.Tensor, v_s: torch.Tensor, key_pos: torch.Tensor,
             q_pos: torch.Tensor, window: Optional[int],
-            softcap: float) -> torch.Tensor:
-    """Launch the kernel on checked CUDA operands (one launch, counted)."""
+            softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on checked CUDA operands (one launch, counted):
+    ``(out, lse)``."""
     B, S, KV, Dh = k_q.shape
     G = q.shape[2]
     check_current_device(q)
@@ -164,6 +201,7 @@ def _launch(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     part_acc = torch.empty((B, KV, G, splits, Dh), dtype=torch.float32,
                            device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
     counters = _counters(q.device, B * KV * -(-G // g_tile))
     has_window = window is not None
     scale = float(np.float32(1.0) / np.sqrt(np.float32(Dh)))
@@ -171,7 +209,8 @@ def _launch(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), key_pos.data_ptr(), q_pos.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        out.data_ptr(), counters.data_ptr(), B, S, KV, G, Dh, lanes, threads,
+        out.data_ptr(), lse.data_ptr(), counters.data_ptr(), B, S, KV, G, Dh,
+        lanes, threads,
         g_tile,
         keys_per_split, splits,
         min(max(int(window), -INT32_MAX), INT32_MAX) if has_window else 0,
@@ -180,7 +219,7 @@ def _launch(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
         current_stream_ptr())
     _build.check_launch("decode_attention_int8", code)
     decode_attention_int8.launches += 1
-    return out
+    return out, lse
 
 
 @torch.library.custom_op("repro_torch::decode_attention_int8",
@@ -188,19 +227,19 @@ def _launch(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
 def _op(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
         v_q: torch.Tensor, v_s: torch.Tensor, key_pos: torch.Tensor,
         q_pos: torch.Tensor, window: Optional[int],
-        softcap: float) -> torch.Tensor:
+        softcap: float) -> Tuple[torch.Tensor, torch.Tensor]:
     return _launch(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap)
 
 
 @_op.register_kernel("cpu")
 def _op_cpu(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap):
     return decode_attention_int8_plain(q, k_q, k_s, v_q, v_s, key_pos, q_pos,
-                                       window, softcap)
+                                       window, softcap, return_lse=True)
 
 
 @_op.register_fake
 def _op_fake(q, k_q, k_s, v_q, v_s, key_pos, q_pos, window, softcap):
-    return torch.empty_like(q)
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
 
 
 def decode_attention_flops(q_shape, k_q_shape, *args, **kwargs) -> int:
@@ -226,4 +265,4 @@ _register_flops()
 decode_attention_int8.launches = 0
 
 __all__ = ["decode_attention_int8", "decode_attention_int8_plain",
-           "decode_attention_flops"]
+           "decode_attention_flops", "merge_partials", "row_lse"]

@@ -35,8 +35,8 @@ by default; keys renamed or dropped:
     ``traced_bytes``; ``hlo_flops_body``, ``collective_bytes_body`` and
     ``loop_trips`` are dropped (the trace runs every loop iteration);
     ``collectives`` is keyed by the chokepoint's ops (``all_gather``,
-    ``all_reduce``, ``broadcast``, ``ring_shift``) where the reference's
-    is keyed by HLO op; ``collectives_by_axis`` and ``link_bw`` are new;
+    ``all_reduce``, ``reduce_scatter``, ``broadcast``, ``ring_shift``)
+    where the reference's is keyed by HLO op; ``collectives_by_axis`` and ``link_bw`` are new;
   * ``memory.fits_16gb`` (the reference's TPU chip) -> ``fits_80gb`` (an H100);
     ``generated_code_bytes`` is dropped (no compiled program);
   * ``timings.lower_s`` and ``compile_s`` -> ``timings.trace_s``;
@@ -45,8 +45,12 @@ by default; keys renamed or dropped:
     axis), ``comm_counts`` (``CommDebugMode``'s), ``k11_calls``,
     ``microbatches_traced`` (a long microbatch loop traced at 2 and 3 and
     extrapolated: ``trace_cell``), and on a serving cell
-    ``serve_weight_stationary`` (always false: the reference's decode
-    default is true; ``serve_weight_stationary_note`` says why).
+    ``serve_weight_stationary`` (as the step ran it: the reference's
+    default, true for a decode cell and false for a prefill).
+
+A collective inside a region that ``remat`` recomputes runs again in the
+backward; the trace counts it where it runs, so a recomputed one is
+counted twice (the reference's HLO holds the recomputation too).
 """
 from __future__ import annotations
 
@@ -77,10 +81,12 @@ MESHES = {False: ("16x16", (16, 16), ("data", "model")),
 #: K11's custom operator, as a trace names it
 K11_OP = "repro_torch.decode_attention_int8.default"
 #: a chokepoint collective and the process-group op ``CommDebugMode``
-#: counts for it (it does not count the point-to-point ops of
-#: ``ring_shift``)
+#: counts for it on the fake world (it does not count the point-to-point
+#: ops of ``ring_shift``; a ``gloo`` world runs a reduce-scatter as an
+#: all-reduce: ``collectives.reduce_scatter``)
 _COMM_OP_OF = {"all_gather": "c10d.allgather_",
                "all_reduce": "c10d.allreduce_",
+               "reduce_scatter": "c10d._reduce_scatter_base_",
                "broadcast": "c10d.broadcast_"}
 
 
@@ -176,9 +182,7 @@ def cell_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         params = S.param_specs(cfg, torch.bfloat16) if mixed_precision \
             else p32
         return fn, (params, opt, S.input_specs(cfg, shape)), None
-    if kw.get("serve_weight_stationary"):
-        raise NotImplementedError(
-            f"serve_weight_stationary=True: {S.WEIGHT_STATIONARY_NOTE}")
+    # one device: weight-stationary or not, the same step
     kv = kw.get("kv_quant")
     cfg = cfg.replace(kv_quant=True if kv is None else kv)
     params = S.param_specs(cfg, torch.bfloat16)
@@ -340,7 +344,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     <mesh>.json``).  With ``time_limit_s`` the trace runs in a process of
     its own, killed past the limit (its record then says so): a trace
     cannot be interrupted inside the dispatcher."""
-    from .steps import WEIGHT_STATIONARY_NOTE
     mesh_name, dims, axes = MESHES[multi_pod]
     shape = SHAPES[shape_name]
     cfg = get_config(arch).resolve_for_tp(dims[-1])
@@ -358,8 +361,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
 
     rec["device"] = device
     if shape.kind != "train":
-        rec.update(serve_weight_stationary=False,
-                   serve_weight_stationary_note=WEIGHT_STATIONARY_NOTE)
+        rec["serve_weight_stationary"] = shape.kind == "decode"
     t0 = time.time()
     try:
         rl, tr = trace_cell(cfg, shape, dims, axes, arch=arch,

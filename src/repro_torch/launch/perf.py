@@ -16,9 +16,8 @@ per variant:
   * the peak memory of the trace (``MemTracker``).
 
 The variants are the reference's, with its names and config transforms.
-The ``serve_ws*`` variants keep weights stationary, which the port's mesh
-steps cannot do yet: they raise ``NotImplementedError``
-(``launch/steps.py:WEIGHT_STATIONARY_NOTE``) rather than run as ``base``.
+The ``serve_ws*`` variants ask for weight-stationary serving, which a
+decode cell runs by default (``launch/steps.py:jitted_step_for_cell``).
 
     PYTHONPATH=src python -m repro_torch.launch.perf \\
         --cell dbrx-132b:decode_32k --variant base

@@ -38,7 +38,17 @@ cover):
     global batch: the shards' summed NLL and token counts are reduced, not
     a mean of per-rank means (masked labels differ across shards); the MoE
     auxiliary loss is taken over the global microbatch (``models/moe.py``:
-    its two batch means summed over the batch axes).
+    its two batch means summed over the batch axes);
+  * train and prefill steps keep the residual stream sharded over the
+    sequence on ``model`` where the config's ``use_seq_sp`` and the rules
+    allow it (``MeshContext.seq_parallel``): each block all-gathers it and
+    reduce-scatters its row-parallel partial sums;
+  * a decode cell is weight-stationary by default, as in the reference
+    (:func:`_mesh_serving` with ``ws``): no parameter is gathered, every
+    rank holds the global batch and its columns of ``d``, and the caches
+    stay as they are placed — a cache whose batch does not split over
+    ``data`` has its sequence split there, and the attention merges each
+    rank's softmax over its slots (context parallelism).
 """
 from __future__ import annotations
 
@@ -352,18 +362,30 @@ def gather_fsdp(tree: Any) -> Any:
 
 
 def rank_context(mesh, bax, real_rows: Optional[torch.Tensor] = None,
-                 rules: Optional[ShardingRules] = None) -> MeshContext:
+                 rules: Optional[ShardingRules] = None, *, ws: bool = False,
+                 spans: Optional[Dict[int, Optional[tuple]]] = None
+                 ) -> MeshContext:
     """The :class:`~repro_torch.sharding.rules.MeshContext` of this rank of
     ``mesh`` with the batch over ``bax`` and the parameters placed by
-    ``rules`` (default :func:`rules_for_mesh`)."""
+    ``rules`` (default :func:`rules_for_mesh`); ``ws``: weight-stationary
+    serving (the FSDP axes the rules split ``embed`` over are the
+    ``data_groups``); ``spans``: the cache leaves' spans (:func:`_cache_ops`)."""
     names = list(mesh.mesh_dim_names)
     tp = mesh.size(names.index("model")) if "model" in names else 1
+    rules = rules or rules_for_mesh(mesh)
+    data_groups: tuple = ()
+    if ws:
+        m = rules.spec_for(("embed",), mesh)[0]
+        m = () if m is None else (m if isinstance(m, tuple) else (m,))
+        data_groups = tuple(mesh.get_group(a) for a in names
+                            if a in m and mesh.size(names.index(a)) > 1)
     return MeshContext(
         model_group=mesh.get_group("model") if tp > 1 else None, tp=tp,
         tp_rank=mesh.get_local_rank("model") if tp > 1 else 0,
         batch_groups=tuple(mesh.get_group(a) for a in (bax or ())
                            if mesh.size(names.index(a)) > 1),
-        real_rows=real_rows, mesh=mesh, rules=rules or rules_for_mesh(mesh))
+        real_rows=real_rows, mesh=mesh, rules=rules, ws=ws,
+        data_groups=data_groups, spans=spans)
 
 
 def _rewrap(like: Any, local: torch.Tensor) -> Any:
@@ -531,28 +553,52 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh,
     return train_step
 
 
-def _cache_ops(mesh, bax, donate: bool):
-    """(a cache tree's rank-local view: the rank's batch rows and ``model``
-    shards, every other dim whole; the inverse: those back to the tree's
-    placements).  With ``donate`` the step writes the given caches' shards
-    in place and returns them (the reference's donated cache); without,
-    the given caches are left as they are and new ones returned."""
+def _cache_ops(mesh, donate: bool, ws: bool):
+    """(a cache tree's rank-local view and the spans of its leaves; the
+    inverse: the view's leaves back into the tree).  The rank keeps every
+    leaf's local shard as it is placed — its batch rows, its slot range
+    where the sequence is sharded (context parallelism), its ``model``
+    shards — and nothing is gathered; ``spans`` (``MeshContext.spans``)
+    names the slot ranges and, under ``ws`` (where the step holds the
+    global batch), the batch rows.  With ``donate`` the step writes the
+    given caches' shards in place and returns them (the reference's
+    donated cache); without, the given caches are left as they are and new
+    ones returned."""
     from torch.distributed.tensor import Shard
     names = list(mesh.mesh_dim_names)
-    keep = {names.index(a) for a in (bax or ())}
+    coord = mesh.get_coordinate()
 
-    def other(t):
-        return [i for i, p in enumerate(t.placements)
-                if not ((i in keep and p == Shard(0))
-                        or names[i] == "model")]
-
-    def view(t):
-        local = t.to_local()
-        out = C.full_tensor(local, t.device_mesh, t.placements, other(t))
-        return out.clone() if not donate and _same(out, local) else out
+    def span(t, local):
+        dims = {}
+        for i, p in enumerate(t.placements):
+            if isinstance(p, Shard) and names[i] != "model" and \
+                    mesh.size(i) > 1:
+                dims.setdefault(p.dim, []).append(i)
+        if len(dims) > 1 or not set(dims) <= {0, 1}:
+            raise ValueError(
+                f"a cache leaf placed {t.placements} on {names}: the blocks "
+                "read a split of its batch rows or of its slots, not both "
+                "and no other dim")
+        for d, axes in dims.items():
+            if d == 1 or ws:
+                idx, parts = 0, 1
+                for i in axes:
+                    idx, parts = idx * mesh.size(i) + coord[i], \
+                        parts * mesh.size(i)
+                n = local.shape[d]
+                return (d, idx * n, (idx + 1) * n, parts * n,
+                        tuple(mesh.get_group(i) for i in axes))
+        return None
 
     def to_local(caches):
-        return tree_map(view, caches)
+        spans = {}
+
+        def view(t):
+            local = t.to_local()
+            out = local if donate else local.clone()
+            spans[id(out)] = span(t, out)
+            return out
+        return tree_map(view, caches), spans
 
     def back(like, new):
         out = iter(tree_leaves(new))
@@ -560,11 +606,9 @@ def _cache_ops(mesh, bax, donate: bool):
         def leaf(t):
             got, local = next(out), t.to_local()
             if not donate:
-                return _rewrap(t, C.local_shard(got, t.device_mesh,
-                                                t.placements, other(t)))
+                return _rewrap(t, got)
             if not _same(got, local):
-                local.copy_(C.local_shard(got, t.device_mesh, t.placements,
-                                          other(t)))
+                local.copy_(got)
             return t
         return tree_map(leaf, like)
     return to_local, back
@@ -582,9 +626,9 @@ def mesh_forward(params: Any, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig, mesh) -> torch.Tensor:
     """``models.forward``'s logits for the global batch on a mesh: each
     rank gathers the parameters over the FSDP axes, runs its shard of the
-    batch tensor-parallel over ``model``, and the logits are gathered over
-    ``model`` and the batch axes (every rank returns them all).  A
-    collective."""
+    batch tensor-parallel over ``model`` (sequence-parallel where the
+    config asks), and the logits are gathered over ``model`` and the batch
+    axes (every rank returns them all).  A collective."""
     bax = batch_axes_for(next(iter(batch.values())).shape[0], mesh)
     rows, _, _ = _batch_ops(mesh, bax)
     with torch.no_grad(), use_mesh(rank_context(mesh, bax)):
@@ -596,21 +640,36 @@ def mesh_forward(params: Any, batch: Dict[str, torch.Tensor],
 
 
 def _mesh_serving(fn: Callable, mesh, bax, donate: bool = True,
-                  rules: Optional[ShardingRules] = None) -> Callable:
-    """A prefill or serve step on a mesh: parameters gathered over the
-    FSDP axes, the batch rows and the cache rows and ``model`` shards of
-    this rank, the step tensor-parallel over ``model``, the new tokens
-    gathered over the batch axes, the caches placed back as they came
-    (written in place with ``donate``)."""
+                  rules: Optional[ShardingRules] = None,
+                  ws: bool = False) -> Callable:
+    """A prefill or serve step on a mesh, the caches' local shards kept
+    as they are placed (:func:`_cache_ops`) and written back in place with
+    ``donate``, tensor-parallel over ``model``:
+
+      * by default parameters are gathered over the FSDP axes, the rank
+        runs its batch rows and the new tokens are gathered over the batch
+        axes;
+      * ``ws`` (weight-stationary, the reference's ``RULES_SERVE``):
+        nothing is gathered — each rank reads its FSDP x ``model`` shard of
+        every parameter, holds the global batch (the tokens every rank
+        returns are the global ones) and its columns of the residual
+        stream's ``d``, and a block's caches are its batch rows or slot
+        range (``MeshContext.spans``)."""
     rows, _, _ = _batch_ops(mesh, bax)
-    to_local, back = _cache_ops(mesh, bax, donate)
+    to_local, back = _cache_ops(mesh, donate, ws)
 
     def step(params, inputs, caches, *rest):
-        inputs = ({k: rows(v) for k, v in inputs.items()}
-                  if isinstance(inputs, dict) else rows(inputs))
-        with use_mesh(rank_context(mesh, bax, rules=rules)):
-            tok, new = fn(gather_fsdp(params), inputs, to_local(caches),
-                          *rest)
+        if not ws:
+            inputs = ({k: rows(v) for k, v in inputs.items()}
+                      if isinstance(inputs, dict) else rows(inputs))
+        local, spans = to_local(caches)
+        ctx = rank_context(mesh, None if ws else bax, rules=rules, ws=ws,
+                           spans=spans)
+        with use_mesh(ctx):
+            tok, new = fn(tree_map(_local, params) if ws
+                          else gather_fsdp(params), inputs, local, *rest)
+        if ws:
+            return tok, back(caches, new)
         sh = NamedSharding(mesh, (bax, None))
         return C.full_tensor(tok, mesh, sh.placements), back(caches, new)
     return step
@@ -625,17 +684,6 @@ def _placing(fn: Callable, *shardings: Any) -> Callable:
                     for a, sh in zip(args, shardings, strict=True)))
     placed.shardings = shardings
     return placed
-
-
-#: why the port's serving cells do not keep weights stationary (the
-#: reference's default decode cell does)
-WEIGHT_STATIONARY_NOTE = (
-    "the port's mesh steps gather each parameter over the FSDP axes and "
-    "compute tensor-parallel over the model axis: a weight-stationary "
-    "serve step needs the reference's RULES_SERVE activation shardings "
-    "(the activations' d split over the data axis, contracted against "
-    "the weights' data shards with no weight gather), which the port "
-    "does not have yet (ROADMAP.md item A16e)")
 
 
 def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -665,9 +713,12 @@ def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     and moments in place, a serving step writes the caches in place;
     without it both return new tensors and leave the given ones.  Serving
     cells run with the int8 KV cache unless ``kv_quant`` says otherwise,
-    and never weight-stationary (``serve_weight_stationary=True`` raises
-    ``NotImplementedError``: :data:`WEIGHT_STATIONARY_NOTE`).  Every step
-    is a collective over ``mesh``."""
+    and weight-stationary where ``serve_weight_stationary`` says, by
+    default (``None``) for a decode cell and not for a prefill, as in the
+    reference (:func:`_mesh_serving`).  Train and prefill steps keep the
+    residual stream sharded over the sequence on ``model`` where the
+    config's ``use_seq_sp`` and the rules allow it.  Every step is a
+    collective over ``mesh``."""
     rules = rules or rules_for_mesh(mesh)
     bax = batch_axes_for(shape.global_batch, mesh)
     binp = input_specs(cfg, shape)
@@ -699,19 +750,26 @@ def jitted_step_for_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
             osh = adamw.AdamWState(step=rep, m=base, v=base)
             args = (p32, adamw.AdamWState(step=step, m=p32, v=p32), binp)
         return _placing(fn, ps, osh, None), args
-    if serve_weight_stationary:
-        raise NotImplementedError(
-            f"serve_weight_stationary=True: {WEIGHT_STATIONARY_NOTE}")
+    ws = (shape.kind == "decode" if serve_weight_stationary is None
+          else bool(serve_weight_stationary))
+    if ws:
+        d_split = prules.spec_for(("embed",), mesh, (cfg.d_model,))[0]
+        if d_split is None and data_axis_size(mesh) > 1:
+            raise ValueError(
+                f"weight-stationary serving splits d_model={cfg.d_model} "
+                f"over the FSDP axes, which the rules do not split it over "
+                f"on this mesh {mesh_shape(mesh)}")
     cfg = cfg.replace(kv_quant=True if kv_quant is None else kv_quant)
     csh = cache_sharding(cfg, shape, mesh)
     cargs = cache_specs(cfg, shape)
     params = param_specs(cfg, torch.bfloat16)
     if shape.kind == "prefill":
         return (_placing(_mesh_serving(make_prefill_step(cfg), mesh, bax,
-                                       donate, prules), ps, None, csh),
+                                       donate, prules, ws),
+                         ps, None, csh),
                 (params, binp, cargs))
     return (_placing(_mesh_serving(make_serve_step(cfg), mesh, bax, donate,
-                                   prules), ps, None, csh, None),
+                                   prules, ws), ps, None, csh, None),
             (params, binp["tokens"], cargs, TensorSpec((), torch.int32)))
 
 
@@ -721,5 +779,4 @@ __all__ = ["TensorSpec", "input_specs", "cache_specs", "param_specs",
            "params_sharding", "opt_sharding", "batch_sharding",
            "cache_sharding", "distribute", "gather_full", "fsdp_dims",
            "gather_fsdp", "rank_context",
-           "make_mesh_train_step", "mesh_forward", "WEIGHT_STATIONARY_NOTE",
-           "jitted_step_for_cell"]
+           "make_mesh_train_step", "mesh_forward", "jitted_step_for_cell"]

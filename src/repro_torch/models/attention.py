@@ -20,6 +20,17 @@ the rank's KV heads: every path runs on the local heads, K11 among them.
 KV heads that do not divide the axis (a config not resolved for it:
 ``ModelConfig.resolve_for_tp``) stay replicated: each rank computes and
 caches all of them and its query heads read their groups' ones.
+Sequence-parallel (``MeshContext.seq_split``) the block's input is the
+rank's shard of the sequence, gathered before the projections, and ``wo``'s
+partial sums are reduce-scattered back over it.  Weight-stationary
+(``MeshContext.ws``) the projections contract the rank's columns of ``d``
+(q/k/v summed over the FSDP axes, so every rank holds them whole) and
+``wo`` gives them; a decode step then reads the cache the rank holds
+(``MeshContext.span``): its batch rows (the rank's rows of q, its output
+gathered over the FSDP axes before ``wo``) or its range of slots (context
+parallelism: the rank writes a new position only into a slot of its
+range, K11 returns each row's log-sum-exp beside its output, and the
+partial softmaxes merge over the ranks: ``collectives.lse_merge``).
 
 Windowed ("local") layers use a *ring-buffer* KV cache of exactly
 ``window`` slots.  Caches are plain dicts of tensors, **updated in place**
@@ -33,10 +44,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
-from ..kernels.decode_attention import decode_attention_int8
+from ..kernels.decode_attention import decode_attention_int8, row_lse
 from ..sharding import collectives as C
 from ..sharding.rules import ParamSpec, mesh_context
-from .layers import NEG_INF, apply_rope, rms_norm
+from .layers import NEG_INF, apply_rope, data_products, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -133,12 +144,14 @@ def flash_attention_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, key_pos: torch.Tensor,
                      q_pos: torch.Tensor, *, window: Optional[int] = None,
-                     softcap: float = 0.0) -> torch.Tensor:
+                     softcap: float = 0.0, return_lse: bool = False):
     """q: (B, 1, KV, G, Dh); caches: (B, Smax, KV, Dh).
 
     ``key_pos`` (B, Smax) gives the absolute position stored in each cache
     slot (-1 = empty) — uniform treatment of linear and ring caches and of
-    per-sequence lengths (continuous batching).  ``q_pos``: (B,)."""
+    per-sequence lengths (continuous batching).  ``q_pos``: (B,).  With
+    ``return_lse``: ``(out, lse)``, ``lse`` (B, 1, KV, G) float32 each
+    row's log-sum-exp (K11's, ``kernels/decode_attention.py``)."""
     Dh = q.shape[-1]
     q32 = q[:, 0].float() * _inv_sqrt(Dh, q.device)       # (B, KV, G, Dh)
     s = torch.einsum("bkgd,bskd->bkgs", q32, k_cache.float())
@@ -153,7 +166,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p / l.clamp_min(1e-30),
                        v_cache.float())
-    return out[:, None].to(q.dtype)                       # (B, 1, KV, G, Dh)
+    out = out[:, None].to(q.dtype)                        # (B, 1, KV, G, Dh)
+    if not return_lse:
+        return out
+    return out, row_lse(m[..., 0], l[..., 0])[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +244,17 @@ def _heads(kv: slice, held: int, *ts: torch.Tensor):
     return tuple(t[:, :, kv] for t in ts)
 
 
+def _local_writes(positions: int, total: int, start: int, stop: int):
+    """``(local slots, positions)`` of a prefill of ``positions`` tokens
+    into the slots ``start:stop`` of a cache of ``total`` slots (a ring
+    when ``total < positions``): slot ``j`` holds the last position ``p``
+    with ``p % total == j``; python lists, no device work."""
+    out = [(j - start, positions - 1 - ((positions - 1 - j) % total))
+           for j in range(start, stop)]
+    out = [(j, p) for j, p in out if p >= 0]
+    return [j for j, _ in out], [p for _, p in out]
+
+
 def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     window: Optional[int] = None,
                     rope_theta: Optional[float] = None,
@@ -240,11 +267,10 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
       (an int, or a (B,) tensor of per-sequence lengths);
     * cache given, S > 1        -> prefill-and-fill-cache (fresh sequence).
     Ring caches (slots == window < needed length) are handled transparently.
-    A given cache is written in place and returned.
+    A given cache is written in place and returned.  On a mesh see the
+    module docstring.
     """
     ct = cfg.compute_dtype
-    B, S, d = x.shape
-    Dh = cfg.head_dim
     mc = mesh_context()
     # the rank's query heads and the KV heads it holds (all of them off a
     # mesh); ``kv`` the held KV heads its query heads read, in groups of G
@@ -267,24 +293,42 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
             f"axis (ModelConfig.resolve_for_tp)")
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     dev = x.device
-    xq = C.tp_copy(x, mc) if split else x
-    # KV heads sharded like the query heads: column-parallel too; KV heads
-    # replicated: every one computed (and cached) on each rank, whose
-    # query heads read some of them
-    xk = xq if kv_split else x
+    if mc.seq_split:
+        # the sequence's shards gathered; KV heads replicated: their
+        # gradient (summed over model below) counted once
+        if not split:
+            raise ValueError("sequence parallelism needs the attention's "
+                             f"heads split over the model axis of {mc.tp}")
+        xq = C.seq_gather(x, mc)
+        xk = xq if kv_split else C.tp_grad_once(xq, mc)
+    else:
+        xq = C.tp_copy(x, mc) if split else x
+        # KV heads sharded like the query heads: column-parallel too; KV
+        # heads replicated: every one computed (and cached) on each rank,
+        # whose query heads read some of them
+        xk = xq if kv_split else x
+    B, S, _ = xq.shape
+    Dh = cfg.head_dim
 
-    q = (xq @ params["wq"].to(ct).reshape(d, H * Dh)).view(B, S, H, Dh)
-    k = (xk @ params["wk"].to(ct).reshape(d, KVh * Dh)).view(B, S, KVh, Dh)
-    v = (xk @ params["wv"].to(ct).reshape(d, KVh * Dh)).view(B, S, KVh, Dh)
+    if xk is xq:
+        q, k, v = data_products(xq, params["wq"].to(ct).reshape(-1, H * Dh),
+                                params["wk"].to(ct).reshape(-1, KVh * Dh),
+                                params["wv"].to(ct).reshape(-1, KVh * Dh))
+    else:
+        q = data_products(xq, params["wq"].to(ct).reshape(-1, H * Dh))[0]
+        k, v = data_products(xk, params["wk"].to(ct).reshape(-1, KVh * Dh),
+                             params["wv"].to(ct).reshape(-1, KVh * Dh))
+    q, k, v = (q.view(B, S, H, Dh), k.view(B, S, KVh, Dh),
+               v.view(B, S, KVh, Dh))
     if cfg.qk_norm:
         # the scales are replicated and read by the rank's heads only
         qn, kn = params["q_norm"], params["k_norm"]
         if split:
             qn = C.tp_copy(qn, mc)
-            kn = C.tp_copy(kn, mc) if xk is xq else kn
+            kn = C.tp_copy(kn, mc) if kv_split else kn
         q = rms_norm({"scale": qn}, q, cfg.norm_eps)
         k = rms_norm({"scale": kn}, k, cfg.norm_eps)
-    if split and xk is x:
+    if split and not kv_split:
         k, v = C.tp_copy(k, mc), C.tp_copy(v, mc)
 
     if cache is None:
@@ -294,36 +338,8 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         out = _prefill_attention(q.reshape(B, S, KV, G, Dh), *_heads(
             kv, KVh, k, v), cfg, window)
     elif S == 1:
-        quant = "k_s" in cache
-        pos_b = torch.as_tensor(cache_len, dtype=torch.int32,
-                                device=dev).broadcast_to((B,)).contiguous()
-        q = apply_rope(q, pos_b[:, None], theta)
-        k = apply_rope(k, pos_b[:, None], theta)
-        slots = cache["k"].shape[1]
-        slot_b = (pos_b % slots).long()                   # ring-aware write
-        bidx = torch.arange(B, device=dev)
-        if quant:
-            kq, ks = _quantize_kv(k[:, 0])
-            vq, vs = _quantize_kv(v[:, 0])
-            writes = {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
-        else:
-            writes = {"k": k[:, 0], "v": v[:, 0]}
-        for name, val in writes.items():
-            cache[name][bidx, slot_b] = val.to(cache[name].dtype)
-        # absolute position held by each slot after the write
-        idx = torch.arange(slots, device=dev, dtype=torch.int32)
-        key_pos = pos_b[:, None] - ((pos_b[:, None] - idx[None, :]) % slots)
-        read = cache if KV == KVh else {
-            n: c[:, :, kv].contiguous() for n, c in cache.items()}
-        if quant:
-            out = decode_attention_int8(
-                q.reshape(B, KV, G, Dh), read["k"], read["k_s"],
-                read["v"], read["v_s"], key_pos, pos_b, window=window,
-                softcap=cfg.attn_logit_softcap)
-        else:
-            out = decode_attention(q.reshape(B, 1, KV, G, Dh), read["k"],
-                                   read["v"], key_pos, pos_b, window=window,
-                                   softcap=cfg.attn_logit_softcap)
+        out = _decode(q, k, v, cache, cache_len, cfg, kv, KVh, KV, G,
+                      window, theta)
     else:
         # prefill a fresh sequence AND fill the cache with the last `slots`
         quant = "k_s" in cache
@@ -332,15 +348,22 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         k = apply_rope(k, positions, theta)
         out = _prefill_attention(q.reshape(B, S, KV, G, Dh), *_heads(
             kv, KVh, k, v), cfg, window)
-        slots = cache["k"].shape[1]
         if quant:
             k_w, k_sw = _quantize_kv(k)       # (B,S,KV,hd), (B,S,KV)
             v_w, v_sw = _quantize_kv(v)
             writes = {"k": k_w, "k_s": k_sw, "v": v_w, "v_s": v_sw}
         else:
             writes = {"k": k, "v": v}
+        span = mc.span(cache["k"])
+        if span is not None and span[0] == 0:     # the rank's batch rows
+            writes = {n: t[span[1]:span[2]] for n, t in writes.items()}
+        slots = cache["k"].shape[1]
         for name, val in writes.items():
-            if slots >= S:
+            if span is not None and span[0] == 1:  # the rank's slots
+                js, ps = _local_writes(S, span[3], span[1], span[2])
+                if js:
+                    cache[name][:, js] = val[:, ps].to(cache[name].dtype)
+            elif slots >= S:
                 cache[name][:, :S] = val.to(cache[name].dtype)
             else:  # ring: keep the last `slots` positions at ring slots
                 ring_slots = positions[S - slots:] % slots
@@ -348,8 +371,77 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                     val[:, S - slots:].to(cache[name].dtype)
 
     out = out.reshape(B, S, H * Dh)
-    y = (out @ params["wo"].to(ct).reshape(H * Dh, d))
+    y = out @ params["wo"].to(ct).reshape(H * Dh, -1)
+    if mc.seq_split:
+        return C.seq_scatter(y, mc), cache
     return (C.tp_reduce(y, mc) if split else y), cache
+
+
+def _decode(q, k, v, cache, cache_len, cfg: ModelConfig, kv: slice,
+            KVh: int, KV: int, G: int, window: Optional[int], theta):
+    """One token's attention against the cache the rank holds (its batch
+    rows or its range of slots: ``MeshContext.span``), the new key and
+    value written first; ``(B, 1, KV, G, Dh)`` for every row of ``q``."""
+    mc = mesh_context()
+    B, Dh = q.shape[0], q.shape[-1]
+    dev = q.device
+    quant = "k_s" in cache
+    pos_b = torch.as_tensor(cache_len, dtype=torch.int32,
+                            device=dev).broadcast_to((B,)).contiguous()
+    q = apply_rope(q, pos_b[:, None], theta)
+    k = apply_rope(k, pos_b[:, None], theta)
+    span = mc.span(cache["k"])
+    rows = span if span is not None and span[0] == 0 else None
+    cp = span if span is not None and span[0] == 1 else None
+    if rows is not None:                     # the rank's batch rows
+        lo, hi = rows[1:3]
+        q, k, v, pos_b = q[lo:hi], k[lo:hi], v[lo:hi], pos_b[lo:hi]
+    Bl = q.shape[0]
+    slots = cache["k"].shape[1]
+    total, first = (cp[3], cp[1]) if cp is not None else (slots, 0)
+    slot_b = (pos_b % total).long()                   # ring-aware write
+    bidx = torch.arange(Bl, device=dev)
+    if quant:
+        kq, ks = _quantize_kv(k[:, 0])
+        vq, vs = _quantize_kv(v[:, 0])
+        writes = {"k": kq, "k_s": ks, "v": vq, "v_s": vs}
+    else:
+        writes = {"k": k[:, 0], "v": v[:, 0]}
+    if cp is None:
+        for name, val in writes.items():
+            cache[name][bidx, slot_b] = val.to(cache[name].dtype)
+    else:
+        # only the rank whose range holds the slot writes it (elsewhere
+        # the slot written is rewritten with what it held)
+        mine = (slot_b >= first) & (slot_b < first + slots)
+        at = (slot_b - first).clamp(0, slots - 1)
+        for name, val in writes.items():
+            keep = mine.view((Bl,) + (1,) * (val.dim() - 1))
+            cache[name][bidx, at] = torch.where(
+                keep, val.to(cache[name].dtype), cache[name][bidx, at])
+    # absolute position held by each slot after the write
+    idx = torch.arange(first, first + slots, device=dev, dtype=torch.int32)
+    key_pos = pos_b[:, None] - ((pos_b[:, None] - idx[None, :]) % total)
+    read = cache if KV == KVh else {
+        n: c[:, :, kv].contiguous() for n, c in cache.items()}
+    # context parallelism: q widened to float32 (the same scores), so the
+    # partial outputs are merged in float32 and rounded once
+    qk = q if cp is None else q.float()
+    if quant:
+        out = decode_attention_int8(
+            qk.reshape(Bl, KV, G, Dh), read["k"], read["k_s"], read["v"],
+            read["v_s"], key_pos, pos_b, window=window,
+            softcap=cfg.attn_logit_softcap, return_lse=cp is not None)
+    else:
+        out = decode_attention(qk.reshape(Bl, 1, KV, G, Dh), read["k"],
+                               read["v"], key_pos, pos_b, window=window,
+                               softcap=cfg.attn_logit_softcap,
+                               return_lse=cp is not None)
+    if cp is not None:
+        out = C.lse_merge(*out, cp[4]).to(q.dtype)
+    if rows is not None:
+        out = C.data_gather(out, 0, rows[4])
+    return out
 
 
 __all__ = ["attention_spec", "attention_apply", "flash_attention",

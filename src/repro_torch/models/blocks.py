@@ -8,7 +8,10 @@ structure:
   mlstm/slstm:      x += xLSTM(LN(x))   (projections live inside the block)
 
 Caches are written in place; :func:`block_apply` returns the dict it was
-given.
+given.  The norms before each sub-block read the residual stream as the
+step holds it (``layers.residual_norm``): its columns of ``d`` under
+weight-stationary serving, its shard of the sequence under sequence
+parallelism (the attention, MLP and MoE kinds only).
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ from ..configs.base import ATTN_KINDS, ModelConfig
 from ..device import DeviceLike
 from .attention import (attention_apply, attention_spec, init_kv_cache,
                         kv_cache_len)
-from .layers import mlp_apply, mlp_spec, rms_norm, rms_norm_spec
+from ..sharding.rules import mesh_context
+from .layers import mlp_apply, mlp_spec, residual_norm, rms_norm_spec
 from .moe import moe_apply, moe_spec
 from .ssm import init_mamba_cache, mamba_apply, mamba_spec
 from .xlstm import (init_mlstm_cache, init_slstm_cache, mlstm_apply,
@@ -81,16 +85,25 @@ def block_apply(kind: str, cfg: ModelConfig, params, x: torch.Tensor, *,
     def sub(name):
         return None if cache is None else cache[name]
 
+    if mesh_context().seq_split and kind not in ("attn", "local") + \
+            MOE_KINDS:
+        raise ValueError(f"a {kind!r} block runs over the whole sequence: "
+                         f"its config must not ask for sequence "
+                         f"parallelism (use_seq_sp=False)")
+
+    def norm(p, x):
+        return residual_norm(p, x, cfg.norm_eps)
+
     if kind in ATTN_KINDS:
         local = kind in ("local", "local_moe")
         theta = (cfg.rope_theta_global
                  if kind == "attn" and cfg.rope_theta_global else None)
         h, _ = attention_apply(
-            params["attn"], rms_norm(params["ln1"], x, cfg.norm_eps), cfg,
+            params["attn"], norm(params["ln1"], x), cfg,
             window=cfg.window if local else None, rope_theta=theta,
             cache=sub("attn"), cache_len=cache_len)
         x = x + h
-        h2_in = rms_norm(params["ln2"], x, cfg.norm_eps)
+        h2_in = norm(params["ln2"], x)
         if kind in MOE_KINDS:
             h2, aux = moe_apply(params["moe"], h2_in, cfg)
         else:
@@ -98,8 +111,7 @@ def block_apply(kind: str, cfg: ModelConfig, params, x: torch.Tensor, *,
         return x + h2, cache, aux
 
     if kind in ("mamba", "mamba_attn"):
-        h, _ = mamba_apply(params["mamba"],
-                           rms_norm(params["ln"], x, cfg.norm_eps), cfg,
+        h, _ = mamba_apply(params["mamba"], norm(params["ln"], x), cfg,
                            cache=sub("mamba"))
         x = x + h
         if kind == "mamba_attn":
@@ -107,19 +119,17 @@ def block_apply(kind: str, cfg: ModelConfig, params, x: torch.Tensor, *,
                 raise ValueError("mamba_attn needs the shared block's "
                                  "params (zamba2's params['shared'])")
             h, _ = attention_apply(
-                shared_params["attn"],
-                rms_norm(shared_params["ln1"], x, cfg.norm_eps), cfg,
+                shared_params["attn"], norm(shared_params["ln1"], x), cfg,
                 cache=sub("attn"), cache_len=cache_len)
             x = x + h
             x = x + mlp_apply(shared_params["mlp"],
-                              rms_norm(shared_params["ln2"], x, cfg.norm_eps),
-                              cfg)
+                              norm(shared_params["ln2"], x), cfg)
         return x, cache, aux
 
     if kind in ("mlstm", "slstm"):
         apply = mlstm_apply if kind == "mlstm" else slstm_apply
-        h, _ = apply(params[kind], rms_norm(params["ln"], x, cfg.norm_eps),
-                     cfg, cache=sub(kind))
+        h, _ = apply(params[kind], norm(params["ln"], x), cfg,
+                     cache=sub(kind))
         return x + h, cache, aux
 
     raise KeyError(kind)

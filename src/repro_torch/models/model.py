@@ -30,13 +30,20 @@ Under a mesh step (``sharding/rules.py:mesh_context``) the parameters and
 caches are the rank's ``model`` shards and the logits its slice of the
 vocabulary: :func:`loss_terms` takes a vocabulary-parallel cross-entropy
 (the ``(B, S, V)`` logits are never gathered) and :func:`full_vocab`
-gathers the few logits a serving step reads.  Training
+gathers the few logits a serving step reads.  Where the step allows
+sequence parallelism and the config asks for it (``use_seq_sp``;
+:func:`seq_parallel`), the residual stream between the embedding and the
+final norm is the rank's shard of the sequence (the layers run under a
+context that says so, ``MeshContext.seq_split``), gathered once before
+the head.  Weight-stationary (``MeshContext.ws``) it is the rank's
+columns of ``d``.  Training
 differentiates :func:`loss_fn` with autograd; ``cfg.remat`` picks what each
 repetition of the layer pattern keeps for the backward
 (:func:`_maybe_remat`).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -48,12 +55,12 @@ from ..configs.base import ModelConfig
 from ..device import DeviceLike
 from ..sharding import collectives as C
 from ..sharding.rules import (ParamSpec, init_params, mesh_context,
-                              param_count, tree_map)
+                              param_count, tree_map, use_mesh)
 from .blocks import (MOE_KINDS, block_apply, block_spec, init_block_cache,
                      shared_block_spec)
-from .layers import (embed_scale, embed_spec, embed_tokens, lm_head_apply,
-                     lm_head_spec, padded_vocab, rms_norm, rms_norm_spec,
-                     vocab_span)
+from .layers import (data_products, embed_scale, embed_spec, embed_tokens,
+                     lm_head_apply, lm_head_spec, padded_vocab,
+                     residual_norm, rms_norm_spec, vocab_span)
 from .moe import moe_spec
 
 
@@ -121,13 +128,30 @@ def n_active_params(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 # forward and loss (train / prefill without cache)
 # ---------------------------------------------------------------------------
-def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    x = embed_tokens(params["embed"], batch["tokens"], cfg)
+def seq_parallel(batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> bool:
+    """Whether this step's sequence (the frontend's positions and the
+    tokens) runs sequence-parallel on the active mesh
+    (``MeshContext.seq_parallel``)."""
+    S = batch["tokens"].shape[1]
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        S += batch["frontend_embeds"].shape[1]
+    return mesh_context().seq_parallel(cfg.use_seq_sp, S)
+
+
+def _embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  seq_split: bool = False):
+    fe = None
     if cfg.frontend is not None and "frontend_embeds" in batch:
         ct = cfg.compute_dtype
-        fe = batch["frontend_embeds"].to(ct) @ \
-            params["embed"]["frontend_proj"].to(ct)
-        x = torch.cat([fe, x], dim=1)
+        fe = batch["frontend_embeds"].to(ct)
+        w = params["embed"]["frontend_proj"].to(ct)
+        mc = mesh_context()
+        if mc.ws:       # w: the rank's rows of d; its columns whole
+            lo, hi = mc.embed_cols(cfg.d_model)
+            fe = data_products(fe[..., lo:hi], w)[0][..., lo:hi]
+        else:
+            fe = fe @ w
+    x = embed_tokens(params["embed"], batch["tokens"], cfg, seq_split, fe)
     return x * embed_scale(cfg.d_model, x.dtype).to(x.device)
 
 
@@ -162,41 +186,55 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 
 def _layers(params, cfg: ModelConfig, x, aux, first: int, stop: int,
-            caches=None, cache_len=None):
-    """Layers ``first`` to ``stop - 1``; returns (x, aux)."""
+            caches=None, cache_len=None, context=None):
+    """Layers ``first`` to ``stop - 1``; returns (x, aux).  ``context``:
+    the mesh context they run under (entered here, so that a recompute
+    under ``remat`` runs under it too)."""
     shared = params.get("shared")
     kinds = layer_kinds(cfg)
-    for i in range(first, stop):
-        x, _, a = block_apply(
-            kinds[i], cfg, params["layers"][i], x, shared_params=shared,
-            cache=None if caches is None else caches["layers"][i],
-            cache_len=cache_len)
-        aux = aux + a
+    with use_mesh(context or mesh_context()):
+        for i in range(first, stop):
+            x, _, a = block_apply(
+                kinds[i], cfg, params["layers"][i], x, shared_params=shared,
+                cache=None if caches is None else caches["layers"][i],
+                cache_len=cache_len)
+            aux = aux + a
     return x, aux
 
 
-def _run_layers(params, x, cfg: ModelConfig, caches=None, cache_len=None):
+def _run_layers(params, x, cfg: ModelConfig, caches=None, cache_len=None,
+                seq_split: bool = False):
     """Every layer, then the final norm.  Returns (x, aux).
 
     Without caches (training) each repetition of the layer pattern
     (``cfg.period`` layers, the reference's scanned ``rep_fn``) runs under
     :func:`_maybe_remat`; the remainder layers run outside it, as the
-    reference's do."""
+    reference's do.  ``seq_split``: ``x`` is the rank's shard of the
+    sequence; the layers and the final norm run on it, and the normed
+    stream is gathered over ``model``."""
+    mc = mesh_context()
+    context = dataclasses.replace(mc, seq_split=True) if seq_split else mc
     run = functools.partial(_layers, params, cfg, caches=caches,
-                            cache_len=cache_len)
+                            cache_len=cache_len, context=context)
     rep = run if caches is not None else _maybe_remat(run, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     period, reps = cfg.period, cfg.scan_reps
     for r in range(reps):
         x, aux = rep(x, aux, r * period, (r + 1) * period)
     x, aux = run(x, aux, reps * period, len(layer_kinds(cfg)))
-    return rms_norm(params["final_norm"], x, cfg.norm_eps), aux
+    with use_mesh(context):
+        x = residual_norm(params["final_norm"], x, cfg.norm_eps)
+    return (C.seq_gather(x, mc) if seq_split else x), aux
 
 
 def backbone(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """embed -> blocks -> final norm.  Returns (hidden (B,S,d), aux)."""
-    return _run_layers(params, _embed_inputs(params, batch, cfg), cfg)
+    """embed -> blocks -> final norm.  Returns (hidden (B,S,d), aux): the
+    whole sequence either way (sequence-parallel, its gradient is partial
+    on each ``model`` rank: see :func:`lm_head_apply`'s ``copy``)."""
+    sp = seq_parallel(batch, cfg)
+    return _run_layers(params, _embed_inputs(params, batch, cfg, sp), cfg,
+                       seq_split=sp)
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -204,7 +242,8 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     """batch: {"tokens": (B,S') [, "frontend_embeds": (B,F,d)]} ->
     (logits (B,S,V_pad), aux)."""
     x, aux = backbone(params, batch, cfg)
-    return lm_head_apply(params.get("head"), params["embed"], x, cfg), aux
+    return lm_head_apply(params.get("head"), params["embed"], x, cfg,
+                         copy=not seq_parallel(batch, cfg)), aux
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -225,6 +264,7 @@ def loss_terms(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     count, auxiliary loss), float32 scalars — a step over a sharded batch
     sums the first two over the shards before it divides."""
     x, aux = backbone(params, batch, cfg)               # (B, S, d)
+    copy = not seq_parallel(batch, cfg)
     labels = batch["labels"].long()
     if cfg.frontend is not None and "frontend_embeds" in batch:
         F = batch["frontend_embeds"].shape[1]
@@ -239,7 +279,7 @@ def loss_terms(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     def chunk_nll(x_c, y_c):
         logits = lm_head_apply(params.get("head"), params["embed"], x_c,
-                               cfg).float()
+                               cfg, copy=copy).float()
         mask = (y_c >= 0).float()
         if vocab_span(cfg) == (0, padded_vocab(cfg)):
             logz = torch.logsumexp(logits, dim=-1)
@@ -315,12 +355,14 @@ def decode_step(params, tokens: torch.Tensor, caches, cache_len,
 
 def prefill(params, batch: Dict[str, torch.Tensor], caches, cfg: ModelConfig):
     """Fill caches from a fresh sequence; returns (logits, caches)."""
-    x = _embed_inputs(params, batch, cfg)
-    x, _ = _run_layers(params, x, cfg, caches, 0)
-    return lm_head_apply(params.get("head"), params["embed"], x, cfg), caches
+    sp = seq_parallel(batch, cfg)
+    x = _embed_inputs(params, batch, cfg, sp)
+    x, _ = _run_layers(params, x, cfg, caches, 0, seq_split=sp)
+    return lm_head_apply(params.get("head"), params["embed"], x, cfg,
+                         copy=not sp), caches
 
 
 __all__ = ["layer_kinds", "model_spec", "storage_dtype",
            "init", "n_params", "n_active_params", "backbone", "forward",
            "loss_fn", "loss_terms", "init_caches", "decode_step", "prefill",
-           "full_vocab"]
+           "full_vocab", "seq_parallel"]

@@ -35,6 +35,16 @@ routes bitwise alike.  The router's statistics (the auxiliary loss's two
 batch means, ``"auto"``'s counts) are the global batch's: summed over the
 batch axes, over the real rows only where a microbatch was padded.
 
+Sequence-parallel (``MeshContext.seq_split``) the block gathers the
+sequence's shards first and reduce-scatters its partial sums back (the
+gather's backward sums the partial input gradients, the router's among
+them).  Weight-stationary
+(``MeshContext.ws``) the tokens are the global batch, the router's logits
+and each expert's gate and up products contract the rank's columns of
+``d`` and are summed over the FSDP axes (every rank routes bitwise alike;
+the counts are not summed over the batch, which is not split), and the
+ELL buffers and the experts' outputs carry the rank's columns of ``d``.
+
 Every function is plain PyTorch: the reference computes these products with
 einsums and ``ragged_dot`` outside any Pallas kernel.
 """
@@ -48,6 +58,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..sharding import collectives as C
 from ..sharding.rules import ParamSpec, mesh_context
+from .layers import data_sums
 
 # Default D* for the dispatch rule; overridable per call (learned off-line by
 # :func:`learn_d_star` from the reference's benchmarks/moe_dispatch.py).
@@ -82,11 +93,17 @@ def route(params, x_flat: torch.Tensor, cfg: ModelConfig,
     tokens ``real`` (T,) marks when given."""
     mc = mesh_context()
     router = params["router"].float()
+    x32 = x_flat.float()
     if mc.splits(moe_spec(cfg)["router"], 1):   # experts over ``model``
-        logits = C.tp_gather(C.tp_copy(x_flat.float(), mc) @ router, -1,
-                             mc)
+        # each rank's columns give a partial input gradient: summed here,
+        # or by the sequence gather's backward where the sequence is split
+        logits = C.tp_gather(C.data_sum(
+            (x32 if mc.seq_split else C.tp_copy(x32, mc)) @ router, mc), -1,
+            mc)
     else:
-        logits = x_flat.float() @ router                         # (T, E)
+        if mc.seq_split:    # replicated: its input gradient counted once
+            x32 = C.tp_grad_once(x32, mc)
+        logits = C.data_sum(x32 @ router, mc)                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, expert_ids = torch.topk(probs, cfg.top_k, dim=-1)
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -136,7 +153,10 @@ def learn_d_star(points, max_drop_frac: float = 0.05) -> float:
 
 def _swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """One expert's SwiGLU over its rows ``x``; its gate and up products
+    summed over the FSDP axes under ``ws`` (:func:`layers.data_sums`)."""
+    g, u = data_sums(x @ w_gate, x @ w_up)
+    return (F.silu(g) * u) @ w_down
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +206,10 @@ def moe_ell(params, x: torch.Tensor, expert_ids: torch.Tensor,
     buf.index_put_((bidx, flat_e, slot), x_rep)
     buf = buf[:, :, :cap]
 
-    h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"].to(ct)))
-    h = h * torch.einsum("becd,edf->becf", buf, params["w_up"].to(ct))
+    g, u = data_sums(
+        torch.einsum("becd,edf->becf", buf, params["w_gate"].to(ct)),
+        torch.einsum("becd,edf->becf", buf, params["w_up"].to(ct)))
+    h = F.silu(g) * u
     out_buf = torch.einsum("becf,efd->becd", h, params["w_down"].to(ct))
 
     g = out_buf[bidx, flat_e, slot.clamp_max(cap - 1)]           # (B, S*k, d)
@@ -245,19 +267,27 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
     Long sequences run the ELL dispatch in ``seq_chunk`` slices: capacity is
     per chunk (GShard group semantics) and the dispatch buffers stay bounded
     by the chunk.  ``"auto"`` reads D_mat to the host and runs one branch."""
-    B, S, d = x.shape
     mc = mesh_context()
+    spec = moe_spec(cfg)["w_gate"]
+    split = mc.splits(spec, 0) or mc.splits(spec, 2)
+    if mc.seq_split:
+        if not split:
+            raise ValueError("sequence parallelism needs the experts or "
+                             f"their ffn split over the model axis of "
+                             f"{mc.tp}")
+        x = C.seq_gather(x, mc)
+    B, S, d = x.shape
     real = (None if mc.real_rows is None
             else mc.real_rows.repeat_interleave(S))
     x_flat = x.reshape(B * S, d)
     expert_ids_f, gate_w_f, aux = route(params, x_flat, cfg, real)
     # sharded experts or ffn: the rank's output is a partial sum, so the
     # gradients of its input and gate weights are partial too
-    spec = moe_spec(cfg)["w_gate"]
-    split = mc.splits(spec, 0) or mc.splits(spec, 2)
     if split:
-        x, gate_w_f = C.tp_copy(x, mc), C.tp_copy(gate_w_f, mc)
-        x_flat = x.reshape(B * S, d)
+        gate_w_f = C.tp_copy(gate_w_f, mc)
+        if not mc.seq_split:    # (the gather's backward sums them)
+            x = C.tp_copy(x, mc)
+            x_flat = x.reshape(B * S, d)
     expert_ids = expert_ids_f.reshape(B, S, cfg.top_k)
     gate_w = gate_w_f.reshape(B, S, cfg.top_k)
 
@@ -283,6 +313,8 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig,
                         ).reshape(B, S, d)
     else:
         raise ValueError(cfg.moe_dispatch)
+    if mc.seq_split:
+        return C.seq_scatter(y, mc), aux
     return (C.tp_reduce(y, mc) if split else y), aux
 
 

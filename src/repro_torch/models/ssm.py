@@ -27,6 +27,11 @@ with ``grad_sum``).  The gated RMSNorm over ``d_in`` sums its squares over
 ``model``; ``out_proj`` is row-parallel.  The ``h`` cache holds the rank's
 heads; the conv cache is replicated (every channel's last ``K - 1``
 inputs, the new ``x`` channels gathered over ``model`` to write it).
+Weight-stationary (``MeshContext.ws``) ``in_proj`` contracts the rank's
+columns of ``d`` (summed over the FSDP axes), the recurrence runs on the
+batch rows whose states the rank holds (``MeshContext.span``; all of them
+where the batch does not split), its output is gathered over those rows
+and ``out_proj`` gives the rank's columns of ``d``.
 
 Plain PyTorch throughout: the reference computes these with einsums and a
 ``lax.scan`` outside any Pallas kernel.
@@ -42,7 +47,7 @@ from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..sharding import collectives as C
 from ..sharding.rules import ParamSpec, mesh_context
-from .layers import rms_norm
+from .layers import data_products, rms_norm
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -123,7 +128,7 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     cache is given and S == 1.  A given cache is written in place and
     returned.  On a mesh the rank's heads (module docstring)."""
     ct = cfg.compute_dtype
-    B, S, d = x.shape
+    S = x.shape[1]
     d_in, H, hd, N = _dims(cfg)
     mc = mesh_context()
     h0, h1 = mc.split(H)
@@ -145,7 +150,11 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         conv_w = _columns(conv_w, [x_cols, bc_cols])
         conv_b = _columns(conv_b, [x_cols, bc_cols])
     conv_w, conv_b = conv_w.to(ct), conv_b.to(ct)
-    proj = x @ w_in.to(ct)
+    proj = data_products(x, w_in.to(ct))[0]
+    rows = None if cache is None else mc.span(cache["h"])
+    if rows is not None:                     # the rank's batch rows
+        proj = proj[rows[1]:rows[2]]
+    B = proj.shape[0]
     z, xin, Bm, Cm, dt_raw = torch.split(proj, [dl, dl, N, N, Hl], dim=-1)
     conv_in = torch.cat([xin, Bm, Cm], dim=-1)
 
@@ -204,6 +213,8 @@ def mamba_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     y = y.reshape(B, S, dl).to(ct)
     y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps, cols=x_cols)
     y = y * F.silu(z)
+    if rows is not None:
+        y = C.data_gather(y, 0, rows[4])
     w_out = params["out_proj"].to(ct)
     if split or not mc.splits(spec["out_proj"], 0):
         y = y @ w_out

@@ -30,6 +30,13 @@ still row-parallel on the rank's rows.  sLSTM with ``R`` sharded over its
 gate columns (``xlstm_shard_recurrent``) runs the rank's slice of every
 head's units: the input projection is gathered over ``model`` once, the
 hidden state once a step (``R`` needs all of it), the output once.
+Weight-stationary (``MeshContext.ws``) the input projections contract the
+rank's columns of ``d`` (summed over the FSDP axes), the recurrence runs on
+the batch rows whose states the rank holds (``MeshContext.span``; all of
+them where the batch does not split), its output is gathered over those
+rows, and ``out_proj`` gives the rank's columns of ``d`` (sLSTM's, whose
+output dim is not split: its partial sums over the FSDP axes, then the
+rank's columns).
 
 Plain PyTorch throughout: the reference computes these outside any Pallas
 kernel.
@@ -46,7 +53,7 @@ from ..configs.base import ModelConfig
 from ..device import DeviceLike, resolve_device
 from ..sharding import collectives as C
 from ..sharding.rules import ParamSpec, mesh_context
-from .layers import rms_norm
+from .layers import data_products, rms_norm
 from .ssm import causal_conv, conv_step
 
 STATE_INIT = -1e30      # the stabilizer m before the first step
@@ -117,7 +124,7 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache: Optional[Dict[str, Any]] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     ct = cfg.compute_dtype
-    B, S, d = x.shape
+    S = x.shape[1]
     d_in, H, dk, dv = _mlstm_dims(cfg)
     mc = mesh_context()
     # sharded: the rank's columns of the inner dim; by_head: they are whole
@@ -131,11 +138,15 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     Hl = h1 - h0
     by_head = Hl != H
     xp = C.tp_copy(x, mc) if sharded else x
-    z = xp @ params["w_z"].to(ct)
-    q = xp @ params["w_q"].to(ct)
-    k = xp @ params["w_k"].to(ct)
-    v = xp @ params["w_v"].to(ct)
-    i_raw, f_raw = torch.chunk(x @ params["w_if"].to(ct), 2, dim=-1)
+    z, q, k, v = data_products(xp, *(params[n].to(ct) for n in (
+        "w_z", "w_q", "w_k", "w_v")))
+    gates, = data_products(x, params["w_if"].to(ct))
+    rows = None if cache is None else mc.span(cache["C"])
+    if rows is not None:                 # the rank's batch rows
+        z, q, k, v, gates = (t[rows[1]:rows[2]] for t in (z, q, k, v,
+                                                           gates))
+    B = z.shape[0]
+    i_raw, f_raw = torch.chunk(gates, 2, dim=-1)
     if by_head:         # the gates are replicated: the rank's heads of them
         i_raw = C.tp_copy(i_raw, mc)[..., h0:h1]
         f_raw = C.tp_copy(f_raw, mc)[..., h0:h1]
@@ -192,7 +203,10 @@ def mlstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     if gathered:        # the rank's rows of out_proj: its slice of y
         lo, hi = mc.shard(spec["out_proj"], 0)
         y = C.tp_copy(y, mc)[..., lo:hi]
-    y = (y * F.silu(z)) @ params["out_proj"].to(ct)
+    y = y * F.silu(z)
+    if rows is not None:
+        y = C.data_gather(y, 0, rows[4])
+    y = y @ params["out_proj"].to(ct)
     return (C.tp_reduce(y, mc) if sharded else y), cache
 
 
@@ -255,7 +269,7 @@ def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
                 cache: Optional[Dict[str, Any]] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     ct = cfg.compute_dtype
-    B, S, d = x.shape
+    S, d = x.shape[1], cfg.d_model
     H, dh = _slstm_dims(cfg)
     mc = mesh_context()
     spec = slstm_spec(cfg)
@@ -269,11 +283,16 @@ def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
     units, mine = u1 - u0, u1 - u0 != dh
     w_in = params["in_proj"]
     if mc.splits(spec["in_proj"], 1):    # the rank's columns: gathered
-        wx = C.tp_gather(C.tp_copy(x, mc) @ w_in.to(ct), -1, mc, mine)
+        wx = C.tp_gather(data_products(C.tp_copy(x, mc), w_in.to(ct))[0],
+                         -1, mc, mine)
     else:
-        wx = x @ w_in.to(ct)
+        wx = data_products(x, w_in.to(ct))[0]
         if mine:                         # read at the rank's units only
             wx = C.tp_copy(wx, mc)
+    rows = None if cache is None else mc.span(cache["c"])
+    if rows is not None:                 # the rank's batch rows
+        wx = wx[rows[1]:rows[2]]
+    B = wx.shape[0]
     wx = wx.float().reshape(B, S, H, dh, 4)
     if mine:
         wx = wx[:, :, :, u0:u1]
@@ -296,10 +315,17 @@ def slstm_apply(params, x: torch.Tensor, cfg: ModelConfig, *,
         _write(cache, dict(zip(("c", "n", "h", "m"), carry)))
     if mine:
         y = C.tp_gather(y, -1, mc)
+    if rows is not None:
+        y = C.data_gather(y, 0, rows[4])
 
-    y = y.reshape(B, S, d).to(ct)
+    y = y.reshape(y.shape[0], S, d).to(ct)
     y = rms_norm({"scale": params["norm"]}, y, cfg.norm_eps)
-    return y @ params["out_proj"].to(ct), cache
+    lo, hi = mc.embed_cols(d)
+    if (lo, hi) == (0, d):
+        return y @ params["out_proj"].to(ct), cache
+    # out_proj's rows are the rank's columns of d, its columns whole
+    return data_products(y[..., lo:hi], params["out_proj"].to(ct))[0][
+        ..., lo:hi], cache
 
 
 __all__ = ["mlstm_spec", "mlstm_apply", "init_mlstm_cache",

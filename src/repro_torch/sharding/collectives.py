@@ -1,8 +1,9 @@
 """The collectives of the port's multi-device tier, on any backend.
 
-Thin wrappers over ``torch.distributed`` for the five collectives the
-SPMD code uses — ``all_gather``, ``all_reduce``, ``broadcast``, a ring
-shift (the reference's ``ppermute``) and the gather of a sharded tensor —
+Thin wrappers over ``torch.distributed`` for the six collectives the
+SPMD code uses — ``all_gather``, ``all_reduce``, ``reduce_scatter``,
+``broadcast``, a ring shift (the reference's ``ppermute``) and the gather
+of a sharded tensor —
 that also run where the backend cannot take the tensors as they are:
 ``gloo`` moves CPU tensors only for most collectives (its CUDA support is
 ``broadcast`` and ``all_reduce``), so on a ``gloo`` world with tensors on a
@@ -26,13 +27,15 @@ Each function is a collective over ``group`` (default: the world): every
 rank of the group calls it in the same order.
 
 The tensor-parallel collectives (:func:`tp_copy`, :func:`tp_reduce`,
-:func:`tp_sum`, :func:`tp_gather`, :func:`tp_max`, :func:`batch_sum`) are
-autograd functions over the groups of a step's
-:class:`~repro_torch.sharding.rules.MeshContext`, built on the ones
-above, so every one of them is counted in ``moved`` as well.  A group of
-one rank (``tp == 1``, no batch axis) makes each of them the identity:
-nothing is called and nothing counted.  Low-precision tensors are reduced
-in float32 and rounded once.
+:func:`tp_sum`, :func:`tp_gather`, :func:`tp_max`, :func:`tp_grad_once`,
+:func:`batch_sum`), the sequence-parallel pair (:func:`seq_gather`,
+:func:`seq_scatter`) and the weight-stationary serving ones over the FSDP
+axes (:func:`data_sum`, :func:`data_gather`, :func:`lse_merge`) work over
+the groups of a step's :class:`~repro_torch.sharding.rules.MeshContext`,
+built on the ones above, so every one of them is counted in ``moved`` as
+well.  A group of one rank (``tp == 1``, no batch axis, no FSDP axis)
+makes each of them the identity: nothing is called and nothing counted.
+Low-precision tensors are reduced in float32 and rounded once.
 """
 from __future__ import annotations
 
@@ -112,6 +115,34 @@ def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
     return t
 
 
+def _group_rank(group=None) -> int:
+    return (dist.get_group_rank(group, dist.get_rank()) if group is not None
+            else dist.get_rank())
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """This rank's slice along ``dim`` (the group rank's of equal slices)
+    of ``t`` summed over the group; a new tensor.  ``gloo`` has no
+    reduce-scatter: there it is an all-reduce whose result each rank
+    slices — counted in ``moved`` as the reduce-scatter it stands for, with
+    a reduce-scatter's result bytes (the process group sees an
+    all-reduce)."""
+    n = dist.get_world_size(group)
+    moved("reduce_scatter", group, _nbytes(t) // n)
+    if dist.get_backend(group) == "gloo":
+        staged = stage(t, group)
+        h = _host(t) if staged else t.contiguous().clone()
+        dist.all_reduce(h, group=group)
+        full = h.to(t.device) if staged else h
+        return full.chunk(n, dim=dim)[_group_rank(group)].contiguous()
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    # ``reduce_scatter_single`` where this torch has it (the newer name)
+    fn = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    fn(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` from global rank ``src`` on every rank, in place."""
     moved("broadcast", group, _nbytes(t))
@@ -132,8 +163,7 @@ def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
     if n == 1:
         return t.clone()
     moved("ring_shift", group, _nbytes(t))
-    me = dist.get_group_rank(group, dist.get_rank()) if group is not None \
-        else dist.get_rank()
+    me = _group_rank(group)
 
     def glob(i):
         return dist.get_global_rank(group, i) if group is not None else i
@@ -291,6 +321,121 @@ def tp_max(x: torch.Tensor, mc) -> torch.Tensor:
                        op=dist.ReduceOp.MAX, group=mc.model_group)
 
 
+class _GradOnce(torch.autograd.Function):
+    """Forward: the identity.  Backward: the gradient on group rank 0, zero
+    on the others."""
+
+    @staticmethod
+    def forward(ctx, x, rank):
+        ctx.rank = rank
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.rank == 0 else torch.zeros_like(g)), None
+
+
+def tp_grad_once(x: torch.Tensor, mc) -> torch.Tensor:
+    """The input of a computation replicated over the ``model`` group
+    (each rank computes, and differentiates, the same thing) inside a
+    region whose input gradients are partial and summed over the group
+    (:func:`seq_gather`'s backward): the identity forward, the gradient
+    kept by ``model`` rank 0 only, so the sum counts it once."""
+    return _GradOnce.apply(x, mc.tp_rank) if mc.tp > 1 else x
+
+
+def _scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`reduce_scatter` in float32 for a low-precision ``x``, rounded
+    once."""
+    low = x.dtype in (torch.bfloat16, torch.float16)
+    out = reduce_scatter(x.float() if low else x, dim, group)
+    return out.to(x.dtype)
+
+
+class _SeqGather(torch.autograd.Function):
+    """Forward: the ``model`` ranks' slices along ``dim`` gathered.
+    Backward: the gradient reduce-scattered (each rank's is partial)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return torch.cat(all_gather(x.contiguous(), group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.dim, ctx.group), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Forward: the partial sums reduce-scattered along ``dim``.
+    Backward: the gradient's slices gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _scatter_sum(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(all_gather(g.contiguous(), ctx.group),
+                         dim=ctx.dim), None, None
+
+
+def seq_gather(x: torch.Tensor, mc, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism: the residual stream's ``model`` shards of the
+    sequence gathered before a column-parallel product (an all-gather), the
+    partial gradients reduce-scattered back (a reduce-scatter)."""
+    if mc.tp == 1:
+        return x
+    return _SeqGather.apply(x, dim % x.dim(), mc.model_group)
+
+
+def seq_scatter(x: torch.Tensor, mc, dim: int = 1) -> torch.Tensor:
+    """Sequence parallelism: a row-parallel product's partial sums added
+    over ``model`` and split along the sequence (a reduce-scatter: each
+    rank keeps its shard), the gradient's shards gathered back (an
+    all-gather)."""
+    if mc.tp == 1:
+        return x
+    return _SeqScatter.apply(x, dim % x.dim(), mc.model_group)
+
+
+def data_sum(x: torch.Tensor, mc) -> torch.Tensor:
+    """Weight-stationary serving: partial products of the rank's ``d``
+    shard summed over the FSDP axes (float32 for a low-precision ``x``,
+    rounded once).  Forward only: serving runs without autograd."""
+    groups = tuple(mc.data_groups)
+    return _sum_over(x, groups) if groups else x
+
+
+def data_gather(x: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim`` over ``groups`` (mesh order; the
+    innermost gathered first, as a tensor split over several mesh dims is
+    laid out).  Forward only."""
+    for g in reversed(tuple(groups)):
+        x = torch.cat(all_gather(x.contiguous(), g), dim=dim)
+    return x
+
+
+def lse_merge(out: torch.Tensor, lse: torch.Tensor, groups) -> torch.Tensor:
+    """Context parallelism: the attention over every rank's slot range
+    from each rank's ``out`` (..., Dh) and ``lse`` (...) — a max of the
+    log-sum-exps over ``groups``, then one sum of the weighted outputs and
+    their weights ``exp(lse - max)``, in float32, cast once to ``out``'s
+    dtype (``kernels/decode_attention.py:merge_partials`` on one rank).
+    Forward only."""
+    groups = tuple(groups)
+    if not groups:
+        return out
+    m = lse.float().contiguous().clone()
+    for g in groups:
+        all_reduce_(m, op=dist.ReduceOp.MAX, group=g)
+    w = torch.exp(lse.float() - m)
+    packed = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    packed = _sum_over(packed, groups)
+    return (packed[..., :-1] / packed[..., -1:]).to(out.dtype)
+
+
 def batch_sum(x: torch.Tensor, mc) -> torch.Tensor:
     """``x`` summed over the batch axes' groups, the gradient as it is
     backward: each rank's share of a statistic of the global batch (the
@@ -305,6 +450,7 @@ def batch_sum(x: torch.Tensor, mc) -> torch.Tensor:
 
 
 __all__ = ["stage", "group_name", "moved", "all_gather", "all_reduce_",
-           "broadcast_", "ring_shift", "full_tensor", "local_shard",
-           "tp_copy", "tp_reduce", "tp_sum", "tp_gather", "tp_max",
-           "batch_sum"]
+           "reduce_scatter", "broadcast_", "ring_shift", "full_tensor",
+           "local_shard", "tp_copy", "tp_reduce", "tp_sum", "tp_gather",
+           "tp_max", "tp_grad_once", "seq_gather", "seq_scatter", "data_sum",
+           "data_gather", "lse_merge", "batch_sum"]

@@ -32,7 +32,7 @@ Spec trees are nested ``dict``s and ``list``s with ``ParamSpec`` leaves.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -320,13 +320,32 @@ class MeshContext:
     ``model_group`` is the process group of this rank's ``model`` axis
     (``tp`` ranks, this one ``tp_rank`` among them; ``tp == 1``: no tensor
     parallelism, the default outside a mesh step).  Each parameter a block
-    reads is its ``model`` shard as ``rules`` place it on ``mesh``; a block
-    asks :meth:`shard` which slice that is, so the rules stay the one
-    owner of the decision.  ``batch_groups`` are the groups of the batch
-    axes of size above one (the MoE router's statistics are the global
-    batch's); ``real_rows`` (B_local,) marks the rank's real rows where a
-    microbatch was padded to split over the batch shards (``None``: every
-    row is real)."""
+    reads is its shard as ``rules`` place it on ``mesh`` (its ``model``
+    shard, and under ``ws`` its FSDP shard too); a block asks
+    :meth:`shard` which slice that is, so the rules stay the one owner of
+    the decision.  ``batch_groups`` are the groups of the batch axes of
+    size above one (the MoE router's statistics are the global batch's);
+    ``real_rows`` (B_local,) marks the rank's real rows where a microbatch
+    was padded to split over the batch shards (``None``: every row is
+    real).
+
+    ``ws``: weight-stationary serving (the reference's ``RULES_SERVE``):
+    no parameter is gathered, the activations hold the global batch and
+    the residual stream is this rank's columns of ``d`` (:meth:`embed_cols`)
+    — each product with a weight's ``embed`` dim on its input side is a
+    partial sum over ``data_groups`` (the groups of the FSDP axes of size
+    above one, mesh order), each with it on its output side gives the
+    rank's columns.  ``spans`` tells a block which part of a cache leaf
+    the rank holds, by the leaf's ``id``: ``(dim, start, stop, total,
+    groups)`` — dim 0, its batch rows (under ``ws``), or dim 1, its range
+    of slots (context parallelism), split over ``groups`` — or ``None``,
+    for every leaf of the cache view a serving step made from the caches'
+    placements (``launch/steps.py:_cache_ops``); ``None`` outside such a
+    step.
+
+    ``seq_split``: the blocks inside receive the rank's shard of the
+    sequence (set by ``models/model.py`` around its layers where
+    :meth:`seq_parallel` says)."""
     model_group: Any = None
     tp: int = 1
     tp_rank: int = 0
@@ -334,25 +353,49 @@ class MeshContext:
     real_rows: Optional[torch.Tensor] = None
     mesh: Any = None
     rules: Optional[ShardingRules] = None
+    ws: bool = False
+    data_groups: Tuple[Any, ...] = ()
+    spans: Optional[Dict[int, Optional[tuple]]] = field(
+        default=None, compare=False, hash=False)
+    seq_split: bool = False
+
+    def _axes(self, spec: ParamSpec, dim: int) -> Tuple[str, ...]:
+        """The mesh axes the rules split dim ``dim`` of ``spec`` over that
+        this rank's local tensor is split over (``model``, and the FSDP
+        axes under ``ws``), of size above one, in mesh order."""
+        if self.mesh is None:
+            return ()
+        m = self.rules.spec_for(spec.axes, self.mesh, spec.shape)[dim]
+        m = () if m is None else (m if isinstance(m, tuple) else (m,))
+        names, size = _mesh_axes(self.mesh)
+        return tuple(a for a in names if a in m and size[a] > 1 and
+                     (a == "model" or self.ws))
 
     def shard(self, spec: ParamSpec, dim: int) -> Tuple[int, int]:
         """``(start, stop)`` of this rank's slice of dim ``dim`` of a
-        parameter declared by ``spec``: the ``tp_rank``-th of ``tp`` equal
-        slices where the rules split that dim over ``model``, else the
-        whole dim."""
+        parameter declared by ``spec``: its equal slice where the rules
+        split that dim over ``model`` (or, under ``ws``, the FSDP axes;
+        a dim split over several mesh dims is split in the mesh's order,
+        as DTensor lays it out), else the whole dim."""
         n = spec.shape[dim]
-        if self.tp == 1:
+        if self.tp == 1 and not self.ws:
             return 0, n
-        m = self.rules.spec_for(spec.axes, self.mesh, spec.shape)[dim]
-        if m != "model" and not (isinstance(m, tuple) and "model" in m):
+        axes = self._axes(spec, dim)
+        if not axes:
             return 0, n
-        k = n // self.tp
-        return self.tp_rank * k, (self.tp_rank + 1) * k
+        names, size = _mesh_axes(self.mesh)
+        coord = dict(zip(names, self.mesh.get_coordinate()))
+        idx, parts = 0, 1
+        for a in axes:
+            idx, parts = idx * size[a] + coord[a], parts * size[a]
+        k = n // parts
+        return idx * k, (idx + 1) * k
 
     def splits(self, spec: ParamSpec, dim: int) -> bool:
         """Whether the rules split dim ``dim`` of ``spec`` over ``model``."""
-        lo, hi = self.shard(spec, dim)
-        return hi - lo != spec.shape[dim]
+        if self.tp == 1:
+            return False
+        return "model" in self._axes(spec, dim)
 
     def split(self, n: int) -> Tuple[int, int]:
         """``(start, stop)`` of this rank's share of ``n`` items (heads)
@@ -362,6 +405,39 @@ class MeshContext:
             return 0, n
         k = n // self.tp
         return self.tp_rank * k, (self.tp_rank + 1) * k
+
+    def embed_cols(self, d: int) -> Tuple[int, int]:
+        """``(start, stop)``: the columns of ``d`` the residual stream
+        holds on this rank (its FSDP shard under ``ws``, else all)."""
+        return self.shard(ParamSpec((d,), ("embed",)), 0) if self.ws \
+            else (0, d)
+
+    def span(self, t: torch.Tensor) -> Optional[tuple]:
+        """``(dim, start, stop, total, groups)`` of a cache leaf the rank
+        holds part of (see the class docstring), or ``None``: the leaf
+        is whole along its batch and slots (or no serving step placed the
+        caches).  Raises ``LookupError`` for a tensor that is not a leaf
+        of the step's cache view (a leaf cloned or rebuilt on its way to
+        the block would otherwise be read as whole)."""
+        if self.spans is None:
+            return None
+        if id(t) not in self.spans:
+            raise LookupError(
+                f"a cache leaf of shape {tuple(t.shape)} that is not one "
+                "the serving step placed: its batch rows or slot range "
+                "are unknown (pass the step's cache view to the blocks "
+                "as it is)")
+        return self.spans[id(t)]
+
+    def seq_parallel(self, use_seq_sp: bool, S: int) -> bool:
+        """Whether a sequence of ``S`` runs sequence-parallel: the config
+        asks for it (``use_seq_sp``) and the rules map ``seq_sp`` to
+        ``model`` for a dim of ``S`` (``spec_for`` drops an axis that does
+        not divide it, so a decode step's ``S = 1`` never shards)."""
+        if not (use_seq_sp and self.tp > 1):
+            return False
+        m = self.rules.spec_for(("seq_sp",), self.mesh, (S,))[0]
+        return m == "model"
 
 
 _NO_MESH = MeshContext()

@@ -440,16 +440,66 @@ def test_cuda_decode_attention_int8_custom_op_is_the_launch(cuda, q_dtype):
     before = count()
     via_op = K11.decode_attention_int8(*args, window=256, softcap=30.0)
     assert count() == before + 1
-    direct = K11._launch(*args, 256, 30.0)
+    direct, lse = K11._launch(*args, 256, 30.0)
     torch.cuda.synchronize()
     assert count() == before + 2
     assert torch.equal(via_op, direct)
+    assert lse.shape == direct.shape[:3] and lse.dtype == torch.float32
     with FakeTensorMode() as mode:
         out = K11.decode_attention_int8(*[mode.from_tensor(a) for a in args],
                                         window=256, softcap=30.0)
     assert (out.shape, out.dtype, out.device) == \
         (via_op.shape, via_op.dtype, via_op.device)
     assert count() == before + 2
+
+
+#: (label, B, S, KV, G, Dh): the served case (qwen3-1.7b's shape), a
+#: rank's KV heads on a model axis of 2 and of 16, and a context-parallel
+#: rank's range of slots that holds no valid slot yet
+K11_LSE_CASES = [("served", 8, 8192, 8, 2, 128), ("tp2", 8, 8192, 4, 2, 128),
+                 ("tp16", 8, 8192, 1, 1, 128),
+                 ("cp_empty_shard", 8, 4096, 8, 2, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("label,B,S,KV,G,Dh", K11_LSE_CASES)
+def test_cuda_decode_attention_int8_lse_matches_plain(cuda, label, B, S, KV,
+                                                      G, Dh, q_dtype):
+    """K11's ``(out, lse)`` against the plain version's: the output at
+    K11's rule, each row's log-sum-exp within 1e-5 of it (a row with no
+    valid slot: -1e30 on both)."""
+    from repro_torch.kernels import decode_attention as K11
+    args = k11_inputs(np.random.default_rng(45), B, S, KV, G, Dh, q_dtype)
+    if label == "cp_empty_shard":
+        args[5][:] = -1
+    out, lse = K11.decode_attention_int8(*[a.to(cuda) for a in args],
+                                         return_lse=True)
+    want, want_lse = K11.decode_attention_int8_plain(*args, return_lse=True)
+    assert lse.shape == (B, KV, G) and lse.dtype == torch.float32
+    assert_k11_close(out, want, q_dtype)
+    np.testing.assert_allclose(lse.cpu().numpy(), want_lse.numpy(),
+                               rtol=1e-5, atol=1e-4)
+    if label == "cp_empty_shard":
+        assert bool((lse == K11.NEG_INF).all())
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_int8_halves_merge_to_the_whole(cuda):
+    """Context parallelism on the card: K11 on each half of a cache's slots
+    (q widened to float32), merged by the log-sum-exps and rounded to
+    bfloat16 once, within one bfloat16 ulp of K11 over the whole cache."""
+    from repro_torch.kernels import decode_attention as K11
+    args = [a.to(cuda) for a in k11_inputs(np.random.default_rng(46), 8,
+                                           8192, 8, 2, 128, "bfloat16")]
+    whole = K11.decode_attention_int8(*args)
+    halves = [K11.decode_attention_int8(
+        args[0].float(), *(t[:, h * 4096:(h + 1) * 4096].contiguous()
+                           for t in args[1:6]), args[6], return_lse=True)
+        for h in range(2)]
+    got = K11.merge_partials([o for o, _ in halves],
+                             [l for _, l in halves]).to(torch.bfloat16)
+    assert_k11_close(got, whole, "bfloat16")
 
 
 @pytest.mark.cuda

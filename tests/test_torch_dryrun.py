@@ -297,9 +297,9 @@ def test_run_cell_records_the_references_keys(tmp_path, monkeypatch):
         assert json.load(f) == rec
     assert set(rec) == {"arch", "shape", "mesh", "status", "device",
                         "roofline", "memory", "timings", "collective_calls",
-                        "comm_counts", "k11_calls", "serve_weight_stationary",
-                        "serve_weight_stationary_note"}
-    assert rec["serve_weight_stationary"] is False
+                        "comm_counts", "k11_calls", "serve_weight_stationary"}
+    # the reference's default: a decode cell runs weight-stationary
+    assert rec["serve_weight_stationary"] is True
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                   "temp_bytes", "alias_bytes", "peak_bytes",
                                   "fits_80gb"}
@@ -426,11 +426,53 @@ def test_a_long_microbatch_loop_is_its_direct_trace():
                                              rel=LOOP_BYTES_RTOL)
 
 
+def _data_gathers(tr):
+    return tr.collective_bytes.get(("all_gather", "data"), 0)
+
+
 def test_serve_weight_stationary_raises_naming_the_mechanism():
+    """(Once a refusal; now the mechanism itself.)  A decode cell runs
+    weight-stationary by default, as the reference's does: on 2x2 its
+    trace is the one with ``serve_weight_stationary=True``, and the only
+    bytes it gathers over ``data`` are the attention outputs of the
+    rank's batch rows (B x the rank's heads x head_dim, float32, a layer)
+    — no parameter — where ``serve_weight_stationary=False`` gathers every
+    FSDP-sharded parameter; on one device the three are one step."""
+    cfg = smoke("qwen3-1.7b")
+    shape = ShapeConfig("d", 64, 4, "decode")
     for dims in ((1, 1), (2, 2)):
-        with pytest.raises(NotImplementedError, match="RULES_SERVE"):
-            trace(smoke("qwen3-1.7b"), ShapeConfig("d", 64, 4, "decode"),
-                  dims, serve_weight_stationary=True)
+        (dflt, dtr), (ws, wtr), (gat, gtr) = (
+            trace(cfg, shape, dims, **kw) for kw in (
+                {}, {"serve_weight_stationary": True},
+                {"serve_weight_stationary": False}))
+        assert dflt.traced_flops == ws.traced_flops
+        assert dtr.collective_bytes == wtr.collective_bytes
+        if dims == (1, 1):
+            assert dflt.traced_flops == gat.traced_flops
+            assert not dtr.collective_bytes and not gtr.collective_bytes
+            continue
+        rows = cfg.n_layers * 4 * (cfg.n_heads // 2) * cfg.head_dim * 4
+        assert _data_gathers(dtr) == rows
+        assert _data_gathers(gtr) > 10 * rows
+        assert dtr.ops[D.K11_OP] == cfg.n_layers
+
+
+def test_a_b1_decode_cell_reads_the_closed_forms_flops():
+    """B = 1 on a fake 4x2 world: the cache's sequence split over ``data``
+    (context parallelism, K11 on the rank's slots, the softmaxes merged by
+    their log-sum-exps), every product on the rank's ``d`` x ``model``
+    shard of its weights: rank 0 traces at most 1.3x the closed form's
+    FLOPs a device (the ranks no longer repeat the step), gathers nothing
+    over ``data``, and merges each attention layer's softmax there."""
+    from repro_torch.launch.analytic import analytic_costs
+    for arch in ("qwen3-1.7b", "gemma3-12b"):
+        cfg = smoke(arch).resolve_for_tp(2)
+        shape = ShapeConfig("d", 64, 1, "decode")
+        rl, tr = trace(cfg, shape, (4, 2))
+        ac = analytic_costs(cfg.replace(kv_quant=True), shape, 8, 4, 2)
+        assert rl.traced_flops <= 1.3 * ac.flops, arch
+        assert _data_gathers(tr) == 0, arch
+        assert tr.ops[D.K11_OP] == cfg.n_layers, arch
 
 
 def test_perf_variants_are_the_references():
@@ -454,6 +496,9 @@ def test_perf_variants_are_the_references():
 
 def test_perf_runs_a_variant_and_refuses_weight_stationary(tmp_path,
                                                             monkeypatch):
+    """(Once a refusal.)  A variant runs, and the ``serve_ws`` variants
+    run too: ``serve_ws`` is the default decode cell's trace,
+    ``serve_ws_bf16`` its bf16-cache one."""
     monkeypatch.setattr(P, "get_config",
                         lambda a: smoke_config(get_config(a)))
     monkeypatch.setitem(D.MESHES, False, ("16x16", (2, 2), ("data", "model")))
@@ -464,9 +509,15 @@ def test_perf_runs_a_variant_and_refuses_weight_stationary(tmp_path,
     assert rec["unrolled"]["traced_flops"] == rec["traced"]["traced_flops"]
     assert set(rec["analytic"]) == {"t_compute_ms", "t_memory_ms",
                                     "t_collective_ms"}
-    with pytest.raises(NotImplementedError, match="RULES_SERVE"):
-        P.run_variant("qwen3-1.7b", "decode_32k", "serve_ws", str(tmp_path),
-                      device="cpu")
+    base = P.run_variant("qwen3-1.7b", "decode_32k", "base", str(tmp_path),
+                         device="cpu")
+    ws = P.run_variant("qwen3-1.7b", "decode_32k", "serve_ws", str(tmp_path),
+                       device="cpu")
+    assert ws["traced"] == base["traced"]
+    bf16 = P.run_variant("qwen3-1.7b", "decode_32k", "serve_ws_bf16",
+                         str(tmp_path), device="cpu")
+    assert bf16["traced"]["collective_bytes"] == \
+        rec["traced"]["collective_bytes"]
 
 
 def test_the_dry_run_cli_writes_an_ok_record(tmp_path):

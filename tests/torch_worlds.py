@@ -12,7 +12,11 @@ of one; ``tests/test_torch_distributed.py``), ``mesh_train`` (4 ranks,
 ``tensor_parallel_serve`` (4 ranks: 1x4, 2x2 and 4x1 meshes;
 ``tests/test_torch_tensor_parallel.py``,
 ``tests/test_torch_tensor_parallel_families.py``,
-``tests/test_torch_tensor_parallel_serve.py``).  The tests run it as a
+``tests/test_torch_tensor_parallel_serve.py``), ``weight_stationary``
+(4 ranks: 2x2 and 4x1 meshes, ``tests/test_torch_weight_stationary.py``,
+``tests/test_torch_weight_stationary_families.py``)
+and ``seq_parallel`` (4 ranks: 1x4 and 2x2,
+``tests/test_torch_seq_parallel.py``).  The tests run it as a
 subprocess with a wall limit of their own and compare the results with
 the JAX package in their own process; this file imports neither ``jax`` nor
 ``repro``.
@@ -444,6 +448,12 @@ COLLECTIVES = {
                       False, lambda ls, r: torch.cat(ls)),
     "batch_sum": (lambda x, mc: _c().batch_sum(x, mc), False, False,
                   lambda ls, r: sum(ls)),
+    # sequence parallelism along dim 1: all-gather / reduce-scatter pairs
+    "seq_gather": (lambda x, mc: _c().seq_gather(x, mc), True, False,
+                   lambda ls, r: torch.cat(ls, dim=1)),
+    "seq_scatter": (lambda x, mc: _c().seq_scatter(x.repeat(1, 4), mc),
+                    True, False,
+                    lambda ls, r: sum(ls).repeat(1, 4)[:, 3 * r:3 * r + 3]),
 }
 
 
@@ -469,10 +479,6 @@ def tensor_parallel_rank(rank, inp, work):
     """One train step, float32 and mixed precision, of every case on its
     meshes (``jitted_step_for_cell``, one microbatch unless the case
     says), and the steps' whole parameters after it on rank 0."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.launch.steps import gather_full, jitted_step_for_cell
-    from repro_torch.optim import adamw
-    from repro_torch.sharding.rules import tree_leaves, tree_map
     from repro_torch.launch.steps import rank_context
     torch.set_num_threads(1)
     meshes = _meshes()
@@ -480,6 +486,18 @@ def tensor_parallel_rank(rank, inp, work):
     out = {"vocab": vocab_case(mc), "collectives": collectives_case(
         rank, type(mc)(model_group=mc.model_group, tp=mc.tp,
                        tp_rank=mc.tp_rank, batch_groups=(mc.model_group,)))}
+    train_cases(rank, inp, meshes, out)
+    return out
+
+
+def train_cases(rank, inp, meshes, out, moved=False):
+    """:func:`tensor_parallel_rank`'s train steps of every case into
+    ``out``; ``moved``: with each step's collective calls by (op, mesh
+    axis) (:func:`calls_since`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import gather_full, jitted_step_for_cell
+    from repro_torch.optim import adamw
+    from repro_torch.sharding.rules import tree_leaves, tree_map
     for key, case in inp["cases"].items():
         cfg = tp_config(case)
         batch = {k: torch.from_numpy(v).long() if v.dtype == np.int32
@@ -498,13 +516,17 @@ def tensor_parallel_rank(rank, inp, work):
                          else adamw.init(params))
                 if mixed:
                     params = tree_map(lambda t: t.to(torch.bfloat16), params)
+                before = calls_now()
                 params, state, m = fn(params, state, batch)
+                calls = calls_since(before, meshes[mesh_name])
                 kept = state.master if mixed else params
                 res = {"loss": float(m["loss"]),
                        "grad_norm": float(m["grad_norm"]),
                        "model_shards": _local_shapes_are_model_shards(
                            params),
                        **_replicas(meshes[mesh_name], kept, state.m)}
+                if moved:
+                    res["calls"] = calls
                 full = [_np(t.float()) for t in tree_leaves(gather_full(
                     kept))]
                 # the first moment after one step: (1 - b1) times the
@@ -513,6 +535,28 @@ def tensor_parallel_rank(rank, inp, work):
                 if rank == 0:
                     res["params"], res["moment"] = full, moment
                 out[key, mesh_name, "mixed" if mixed else "f32"] = res
+
+
+def calls_now():
+    """Every collective's calls and bytes so far, by (op, group name)."""
+    from repro_torch.sharding import collectives as C
+    return dict(C.moved.calls), dict(C.moved.bytes)
+
+
+def calls_since(before, mesh):
+    """``{"calls": ..., "bytes": ...}``: the collectives since
+    :func:`calls_now` gave ``before``, by (op, mesh axis name)."""
+    from repro_torch.sharding import collectives as C
+    axis = {mesh.get_group(n).group_name: n for n in mesh.mesh_dim_names}
+    out = {}
+    for kind, now, was in (("calls", C.moved.calls, before[0]),
+                           ("bytes", C.moved.bytes, before[1])):
+        got = {}
+        for (op, g), n in now.items():
+            if g in axis and n != was.get((op, g), 0):
+                got[op, axis[g]] = got.get((op, axis[g]), 0) + n - \
+                    was.get((op, g), 0)
+        out[kind] = got
     return out
 
 
@@ -557,12 +601,146 @@ def tensor_parallel_serve_rank(rank, inp, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# weight_stationary: a prefill, then a weight-stationary decode step
+# ---------------------------------------------------------------------------
+def _torch_inputs(arrays):
+    return {k: torch.from_numpy(v).long() if v.dtype == np.int32
+            else torch.from_numpy(v) for k, v in arrays.items()}
+
+
+def _decode_logits(cfg):
+    """A serve step that returns the next position's logits over the
+    whole vocabulary in place of the token."""
+    from repro_torch.models import model as M
+
+    @torch.no_grad()
+    def step(params, tokens, caches, cache_len):
+        logits, caches = M.decode_step(params, tokens, caches, cache_len,
+                                       cfg)
+        return M.full_vocab(logits, cfg)[:, -1], caches
+    return step
+
+
+def weight_stationary_rank(rank, inp, work):
+    """Per case and mesh: a prefill (``jitted_step_for_cell``'s prefill
+    cell at the caches' length, so its caches are placed as the decode
+    cell's; weight-stationary where the case says), then the decode
+    step's logits (the same step wiring, nothing donated) and the decode
+    step itself (weight-stationary by default): its token, its collectives
+    by (op, mesh axis), the shapes of every tensor it gathered over
+    ``data``, and on rank 0 the whole caches after it; under
+    ``"gathered"`` the same of the step with its parameters gathered
+    (``serve_weight_stationary=False``) from the same prefilled caches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import tree_leaves
+    torch.set_num_threads(1)
+    meshes = _meshes()
+    gathered = []
+    real_gather = C.all_gather
+
+    def recording(t, group=None):
+        gathered.append((C.group_name(group), tuple(t.shape)))
+        return real_gather(t, group)
+    C.all_gather = recording
+    out = {}
+    for key, case in inp["cases"].items():
+        cfg = tp_config(case).replace(kv_quant=case["kv_quant"])
+        prompt = _torch_inputs(case["prompt"])
+        B, SP = case["prompt"]["tokens"].shape
+        L = case["max_len"]
+        dshape = ShapeConfig("d", L, B, "decode")
+        for mesh_name in case["meshes"]:
+            mesh = meshes[mesh_name]
+            prefill, _ = S.jitted_step_for_cell(
+                cfg, ShapeConfig("p", L, B, "prefill"), mesh,
+                serve_weight_stationary=case["ws_prefill"],
+                kv_quant=case["kv_quant"])
+            decode, _ = S.jitted_step_for_cell(cfg, dshape, mesh,
+                                               kv_quant=case["kv_quant"])
+            gathered_decode, _ = S.jitted_step_for_cell(
+                cfg, dshape, mesh, serve_weight_stationary=False,
+                donate=False, kv_quant=case["kv_quant"])
+            caches = M.init_caches(cfg, B, L, torch.float32, device="cpu")
+            tok, caches = prefill(case["params"], prompt, caches)
+
+            def logits(ws):
+                return S._placing(S._mesh_serving(
+                    _decode_logits(cfg), mesh, S.batch_axes_for(B, mesh),
+                    donate=False, ws=ws), S.params_sharding(cfg, mesh),
+                    None, S.cache_sharding(cfg, dshape, mesh), None)(
+                        case["params"], tok, caches, SP)[0]
+            g_nxt, g_caches = gathered_decode(case["params"], tok, caches,
+                                              SP)
+            g_res = {"decode": _np(g_nxt), "logits": _np(logits(False))}
+            full = [_np(t.float()) for t in tree_leaves(
+                S.gather_full(g_caches))]
+            if rank == 0:
+                g_res["caches"] = full
+            lg = logits(True)
+            del gathered[:]
+            before = calls_now()
+            nxt, caches = decode(case["params"], tok, caches, SP)
+            data = mesh.get_group("data").group_name \
+                if mesh.size(0) > 1 else None
+            res = {"prefill": _np(tok), "decode": _np(nxt),
+                   "logits": _np(lg), **calls_since(before, mesh),
+                   "data_gathers": [shp for g, shp in gathered
+                                    if g == data],
+                   "placements": [str(t.placements)
+                                  for t in tree_leaves(caches)],
+                   "gathered": g_res}
+            full = [_np(t.float()) for t in tree_leaves(
+                S.gather_full(caches))]
+            if rank == 0:
+                res["caches"] = full
+            out[key, mesh_name] = res
+    C.all_gather = real_gather
+    return out
+
+
+# ---------------------------------------------------------------------------
+# seq_parallel: train steps and prefills with the residual stream sharded
+# over the sequence
+# ---------------------------------------------------------------------------
+def seq_parallel_rank(rank, inp, work):
+    """Every case's train step (:func:`train_cases`, with its collectives
+    by (op, mesh axis)) and a prefill of its batch's tokens (its token and
+    collectives)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import jitted_step_for_cell
+    from repro_torch.models import model as M
+    torch.set_num_threads(1)
+    meshes = _meshes()
+    out = {}
+    train_cases(rank, inp, meshes, out, moved=True)
+    for key, case in inp["cases"].items():
+        cfg = tp_config(case).replace(kv_quant=True)
+        prompt = {"tokens": torch.from_numpy(case["batch"]["tokens"]).long()}
+        B, SP = case["batch"]["tokens"].shape
+        for mesh_name in case["meshes"]:
+            prefill, _ = jitted_step_for_cell(
+                cfg, ShapeConfig("p", SP, B, "prefill"), meshes[mesh_name])
+            caches = M.init_caches(cfg, B, SP, torch.float32, device="cpu")
+            before = calls_now()
+            tok, _ = prefill(case["params"], prompt, caches)
+            out[key, mesh_name, "prefill"] = {
+                "token": _np(tok), **calls_since(before, meshes[mesh_name])}
+    return out
+
+
 RANKS = {"shard_map": (shard_map_rank, 8), "distributed":
          (distributed_rank, 8), "mesh_train": (mesh_train_rank, 4),
          "tensor_parallel": (tensor_parallel_rank, 4),
-         "tensor_parallel_serve": (tensor_parallel_serve_rank, 4)}
+         "tensor_parallel_serve": (tensor_parallel_serve_rank, 4),
+         "weight_stationary": (weight_stationary_rank, 4),
+         "seq_parallel": (seq_parallel_rank, 4)}
 #: a world's wall limit past ``WORLD_WALL_S``, in seconds
-WORLD_WALLS = {"tensor_parallel": 150.0, "tensor_parallel_serve": 150.0}
+WORLD_WALLS = {"tensor_parallel": 150.0, "tensor_parallel_serve": 150.0,
+               "weight_stationary": 150.0, "seq_parallel": 150.0}
 
 
 def inputs(work):
