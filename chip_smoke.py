@@ -20,7 +20,10 @@ then ``shard_map`` in a world of two ranks on the one card over ``gloo``,
 which also trains qwen3-1.7b at full width on a 2x1 mesh against one
 rank, serves its decode steps there weight-stationary and
 context-parallel, and trains and serves it sequence- and
-tensor-parallel on a 1x2 mesh); then serves one model of each LM family at full width (qwen3-1.7b,
+tensor-parallel on a 1x2 mesh); runs the user's entry points, the five
+``examples/torch_*.py`` (between the sharded tier's two phases; the
+paper's CG use case also at 2 097 152 rows, its run-time transform timed
+against the SpMVs it must save); then serves one model of each LM family at full width (qwen3-1.7b,
 zamba2-1.2b and xlstm-1.3b whole, dbrx-132b cut to 2 layers with the
 paper's dispatch rule on) and holds one decode step of each against the
 same step with the plain attention in the kernel's place; then trains
@@ -2385,6 +2388,160 @@ def phase_serve_sharded(base, dbs):
 
 
 # ---------------------------------------------------------------------------
+# phase: examples (the user's entry points, examples/torch_*.py)
+# ---------------------------------------------------------------------------
+#: the CG solver's second run: rows and band of the matrix (18.9 M entries,
+#: a 151 MB CSR, xenon2@x4's scale: past the card's 50 MB L2)
+CG_LARGE = (2_097_152, 9)
+#: CG iterations at most, and the generalized rule's expected iterations
+CG_ITERS = 150
+#: a CG solution's ||b - A x|| / ||b|| on the float64 product, at most (the
+#: band matrix is diagonally dominant: its condition number is about 2)
+CG_REL_RESIDUAL = 1e-5
+#: the train example's steps (its default is 200)
+EXAMPLE_TRAIN_STEPS = 20
+#: seconds the phase is meant to take (reported beside its own)
+EXAMPLES_BUDGET_S = 30
+
+
+def load_example(name):
+    """``examples/torch_<name>.py`` of this checkout as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def agreement(x, want):
+    """Largest ``|x - want| / (atol + rtol |want|)`` under the CG example's
+    own check (``rtol=1e-3``, ``atol=1e-4``): at most 1 where it holds."""
+    return float(((x - want).abs() / (1e-4 + 1e-3 * want.abs())).max())
+
+
+def cg_large(cg):
+    """The CG example at ``CG_LARGE``, its functions called with the card:
+    the off-line phase, then ``A x = 1`` solved three ways, each with its
+    transform inside the timed window — CRS, the generalized rule's choice
+    over ``CG_ITERS`` expected iterations, and ELL-Row forced — the three
+    solutions held together by the example's check and each against a
+    float64 product; then one SpMV of the CRS and of the ELL-Row operator
+    (CUDA events) beside the ELL transform's seconds."""
+    from repro_torch import MatrixStats
+    from repro_torch.device import default_device
+
+    dev = default_device()
+    db = cg.offline_db(dev)
+    t0 = time.perf_counter()
+    A = cg.spd_band_matrix(*CG_LARGE, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    stats = MatrixStats.of(A)
+    b = torch.ones(A.n_cols, dtype=torch.float32, device=dev)
+    solves = {"crs": cg.crs_solve(A, b, CG_ITERS),
+              "generalized": cg.tuned_solve(A, b, db, CG_ITERS),
+              "ell_row": cg.tuned_solve(A, b, db, CG_ITERS, fmt="ell_row")}
+    for way, s in solves.items():
+        if s.P.tiers["spmv"] != "kernel":
+            raise AssertionError(f"examples: CG {way} served by the "
+                                 f"{s.P.tiers['spmv']} tier")
+        if s.x.shape != (A.n_rows,) or not bool(torch.isfinite(s.x).all()):
+            raise AssertionError(f"examples: CG {way} gave a bad solution")
+    residual = {}
+    for way, s in solves.items():
+        ax, _ = oracle_f64(A, s.x)
+        residual[way] = float(torch.linalg.norm(ax - b.double()) /
+                              torch.linalg.norm(b.double()))
+        if residual[way] > CG_REL_RESIDUAL:
+            raise AssertionError(f"examples: CG {way} leaves a relative "
+                                 f"residual {residual[way]} > "
+                                 f"{CG_REL_RESIDUAL}")
+    crs = solves["crs"]
+    for way in ("generalized", "ell_row"):
+        cg.agree(crs.x, solves[way].x)
+    ell = solves["ell_row"]
+    t_spmv_crs = time_ms(lambda: crs.P @ b, reps=REPS) * 1e-3
+    t_spmv_ell = time_ms(lambda: ell.P @ b, reps=REPS) * 1e-3
+    t_trans_ell = ell.t_bind
+    return {
+        "n": stats.n, "nnz": stats.nnz, "d_mat": stats.d_mat,
+        "band": CG_LARGE[1], "t_build": t_build, "d_star": db.d_star,
+        "fmt": solves["generalized"].fmt,
+        "iterations": {w: s.iterations for w, s in solves.items()},
+        "t_solve": {w: s.seconds for w, s in solves.items()},
+        "t_plan": {w: s.t_plan for w, s in solves.items()},
+        "t_bind": {w: s.t_bind for w, s in solves.items()},
+        "cg_residual": {w: s.residual for w, s in solves.items()},
+        "rel_residual_f64": residual,
+        "agreement": {w: agreement(solves[w].x, crs.x)
+                      for w in ("generalized", "ell_row")},
+        "predicted": {f: db.predict(f, stats.d_mat) for f in db.d_star},
+        "expected_gain": solves["generalized"].P.plan.expected_gain,
+        "t_trans_ell": t_trans_ell, "t_spmv_crs": t_spmv_crs,
+        "t_spmv_ell": t_spmv_ell, "sp_ell": t_spmv_crs / t_spmv_ell,
+        "tt_in_crs_spmvs": t_trans_ell / t_spmv_crs,
+        "break_even_iters": (t_trans_ell / (t_spmv_crs - t_spmv_ell)
+                             if t_spmv_ell < t_spmv_crs else None)}
+
+
+
+def phase_examples(smi):
+    """The five examples on the card, in this process: quickstart,
+    moe_autotune and serve_lm at their defaults, train_lm at
+    ``EXAMPLE_TRAIN_STEPS`` steps (checkpoints in a temporary directory),
+    the CG solver at its defaults through its ``main`` and at ``CG_LARGE``
+    (``cg_large``).  Their printing goes to stderr; one ``examples`` line
+    with each example's seconds, what each returned, and the launches of
+    the phase (K1 and K2 must have launched)."""
+    import contextlib
+    import shutil
+    import tempfile
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    seconds, out = {}, {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        out[name] = res
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        for name in ("quickstart", "cg_solver", "moe_autotune", "serve_lm"):
+            run(name, load_example(name).main, [])
+        run("train_lm", load_example("train_lm").main,
+            ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", ckpt])
+        run("cg_solver_large", cg_large, load_example("cg_solver"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launched = {k: n for k, n in kernels.launch_counts().items() if n}
+    train = out["train_lm"]
+    if train["steps_run"] != EXAMPLE_TRAIN_STEPS or not np.isfinite(
+            train["loss_last"]):
+        raise AssertionError(f"examples: train_lm ran {train}")
+    serve = out["serve_lm"]
+    if serve["requests"] != 6 or serve["tokens"] != 6 * 12:
+        raise AssertionError(f"examples: serve_lm served {serve['requests']}"
+                             f" requests, {serve['tokens']} tokens")
+    emit("examples", card=smi, seconds=seconds,
+         seconds_total=sum(seconds.values()), budget_s=EXAMPLES_BUDGET_S,
+         quickstart=out["quickstart"], cg_default=out["cg_solver"],
+         cg_large=out["cg_solver_large"], moe_autotune=out["moe_autotune"],
+         serve_lm={k: v for k, v in serve.items() if k != "generated"},
+         train_lm=train, launches=launched)
+    idle = [k for k in ("ell_spmv", "csr_spmv") if not launched.get(k)]
+    if idle:
+        raise AssertionError(f"examples: the phase never launched {idle}")
+    return launched
+
+
+# ---------------------------------------------------------------------------
 # phase: serve_shard_map (the sharded tier's SPMD executor, ranks on a card)
 # ---------------------------------------------------------------------------
 #: ranks of the serve_shard_map world: two, both on the one card, over gloo
@@ -4077,6 +4234,8 @@ def main() -> int:
     kernels.reset_launch_counts()
     timed("serve_sharded", phase_serve_sharded, stream_base, dbs)
     sharded_path = kernels.launch_counts()
+    # the user's entry points (examples/torch_*.py), counted on their own
+    examples_path = timed("examples", phase_examples, smi)
     # the shard_map executor: each rank counts its own launches
     shard_map_path = timed("serve_shard_map", phase_serve_shard_map)
     if not all(shard_map_path.values()):
@@ -4104,7 +4263,7 @@ def main() -> int:
          spmm_path=spmm_path, hybrid_path=hybrid_path,
          service_path=service_path, stream_path=stream_path,
          sharded_path=sharded_path, shard_map_path=shard_map_path,
-         lm_paths=lm_paths, lm_steps=lm_steps,
+         examples_path=examples_path, lm_paths=lm_paths, lm_steps=lm_steps,
          train_path=train_path)
     idle = [k for k, v in launches.items() if v == 0]
     if idle:

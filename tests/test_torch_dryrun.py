@@ -475,6 +475,37 @@ def test_a_b1_decode_cell_reads_the_closed_forms_flops():
         assert tr.ops[D.K11_OP] == cfg.n_layers, arch
 
 
+@pytest.mark.parametrize("arch,layers", [("zamba2-1.2b", 6),
+                                         ("xlstm-1.3b", 8),
+                                         ("musicgen-medium", 2)])
+def test_weight_stationary_decode_data_bytes_are_under_the_closed_form(
+        arch, layers):
+    """The three small models whose weight-stationary decode moves only
+    7.1-8.4x fewer ``data`` bytes than a gathered step at 16x16: their
+    float32 partial sums are the design (``collectives.data_sum``), and the
+    bf16 closed form (``analytic_costs``: ``2 layers B d 2`` bytes over
+    ``data`` a step) bounds them all the same.  At full width, cut to one
+    period of the layer pattern, B = 128, on a fake 2x16 world (the cell's
+    ``model`` axis; the bytes a rank moves over ``data`` do not depend on
+    its size): rank 0's traced ``data`` bytes are at or under the closed
+    form's collective bytes, and its ``data`` all-gathers (batch rows, no
+    parameter) under a tenth of the parameters a rank holds on ``model``.
+    On a ``model`` axis of 2 the same step reads above the closed form: a
+    rank's partial sums there are half of each product, not a sixteenth."""
+    from repro_torch.launch.analytic import analytic_costs
+    from repro_torch.models.model import n_params
+    cfg = get_config(arch).replace(n_layers=layers).resolve_for_tp(16)
+    shape = ShapeConfig("d", 128, 128, "decode")
+    _, tr = trace(cfg, shape, (2, 16), memory=False)
+    ac = analytic_costs(cfg.replace(kv_quant=True), shape, 32, 2, 16)
+    data = sum(v for (op, axis), v in tr.collective_bytes.items()
+               if axis == "data")
+    assert 0 < data <= ac.collective_bytes
+    assert 10 * _data_gathers(tr) <= n_params(cfg) * 2 / 16
+    assert tr.ops.get(D.K11_OP, 0) == sum(
+        k in ("attn", "mamba_attn") for k in D.unrolled_cfg(cfg).layer_pattern)
+
+
 def test_perf_variants_are_the_references():
     """The same names, the same config transforms (the fields each
     changes) and the same step keywords."""
