@@ -337,8 +337,9 @@ class ExecutionPlan:
         path serves both shapes.  The container holds CPU tensors (host
         recipes)."""
         from ..partition.hybrid import (BlockDecision, HybridMatrix,
-                                        HybridReport, _on_host, slice_csr,
+                                        HybridReport, slice_csr,
                                         take_rows_csr)
+        from .transform import copy_out
         if not self.blocks:
             t0 = time.perf_counter()
             obj = self.transform.apply(csr)
@@ -362,7 +363,7 @@ class ExecutionPlan:
                 f"the matrix has {csr.n_rows}; re-plan for this matrix")
         sort_rows = bool(self.transform.params.get(
             "sort_rows", self.transform.params.get("strategy") == "variance"))
-        host = _on_host(csr)
+        host = copy_out(csr)
         t0 = time.perf_counter()
         if sort_rows:
             lens = host.row_lengths().astype(np.int64)
@@ -421,14 +422,21 @@ class ExecutionPlan:
         parity and ignored: PyTorch runs eagerly."""
         tier = tier or self.tier
         dev = resolve_device(device)
-        csr.validate()       # fail loudly here, not as garbage in a kernel
-        matched = (self.fingerprint is not None
-                   and self.fingerprint.matches(csr))
-        if self.is_hybrid:
-            return self._bind_hybrid(csr, matched, tier=tier, db=db,
-                                     device=dev, jit=jit, impls=impls,
-                                     spmm_impls=spmm_impls)
+        with _obs.get().span("plan.bind", fmt=self.fmt, tier=tier):
+            csr.validate()   # fail loudly here, not as garbage in a kernel
+            matched = (self.fingerprint is not None
+                       and self.fingerprint.matches(csr))
+            bind = self._bind_hybrid if self.is_hybrid else self._bind_leaf
+            return bind(csr, matched, tier=tier, db=db, device=dev, jit=jit,
+                        impls=impls, spmm_impls=spmm_impls)
 
+    def _bind_leaf(self, csr: CSR, matched: bool, *,
+                   tier: str, db: Optional[TuningDB],
+                   device: torch.device, jit: bool,
+                   impls: Optional[Dict[str, Callable]] = None,
+                   spmm_impls: Optional[Dict[str, Callable]] = None
+                   ) -> "PlannedMatrix":
+        tel = _obs.get()
         # reuse the object the tuner already materialized for this exact
         # source (identity-keyed: a same-structure matrix with different
         # values must still re-transform); consumed once so the plan never
@@ -439,7 +447,8 @@ class ExecutionPlan:
         # check the *transformed* container too: a buggy or bit-rotted
         # transform fails here, not as an out-of-bounds read inside a kernel
         validate_container(matrix)
-        matrix = matrix.to(dev)
+        with tel.span("bind.upload"):
+            matrix = matrix.to(device)
         d_mat_new: Optional[float] = None  # computed once, only if needed
         overrides = {"spmv": impls or {}, "spmm": spmm_impls or {}}
         fns: Dict[str, Callable] = {}
@@ -481,7 +490,8 @@ class ExecutionPlan:
             # CSR SpMM kernel's choice) is part of the transformation:
             # computed here, never in a product
             from ..kernels.ops import prepare
-            prepare(matrix)
+            with tel.span("bind.prepare"):
+                prepare(matrix)
         return PlannedMatrix(self, csr, matrix, fns, used, tiers,
                              fingerprint_matched=matched, jit=jit)
 
@@ -491,6 +501,7 @@ class ExecutionPlan:
                      impls: Optional[Dict[str, Callable]] = None,
                      spmm_impls: Optional[Dict[str, Callable]] = None
                      ) -> "PlannedMatrix":
+        tel = _obs.get()
         # the container the planner built for this exact source, consumed
         # once (as a leaf plan's tuned matrix is)
         cache = self.__dict__.pop("_mat_cache", None)
@@ -536,12 +547,14 @@ class ExecutionPlan:
             fns[op] = fn
             used[op] = per or None
             tiers[op] = found
-        hyb = hyb.to(device)
+        with tel.span("bind.upload"):
+            hyb = hyb.to(device)
         if "kernel" in tiers.values():
             # each block's kernel inputs (ELL extents, the CSR SpMM
             # kernel's choice): part of the transformation, never a product
             from ..kernels.ops import prepare
-            prepare(hyb)
+            with tel.span("bind.prepare"):
+                prepare(hyb)
         return PlannedMatrix(self, csr, hyb, fns, used, tiers,
                              fingerprint_matched=matched, report=report,
                              jit=jit)
@@ -644,18 +657,23 @@ class PlannedMatrix:
         return torch.as_tensor(x, device=self.device).contiguous()
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._x(x)
-        if x.ndim != 1:
-            raise ValueError(f"spmv expects x of shape ({self.n_cols},); "
-                             f"got {tuple(x.shape)}")
-        return self._fns["spmv"](self.matrix, x)
+        """``A @ x``; its ``matrix.spmv`` span times the launch path on the
+        host (what is enqueued, not the card's work)."""
+        with _obs.get().span("matrix.spmv"):
+            x = self._x(x)
+            if x.ndim != 1:
+                raise ValueError(f"spmv expects x of shape ({self.n_cols},)"
+                                 f"; got {tuple(x.shape)}")
+            return self._fns["spmv"](self.matrix, x)
 
     def spmm(self, x: torch.Tensor) -> torch.Tensor:
-        x = self._x(x)
-        if x.ndim != 2:
-            raise ValueError(f"spmm expects x of shape ({self.n_cols}, B); "
-                             f"got {tuple(x.shape)}")
-        return self._fns["spmm"](self.matrix, x)
+        """``A @ X``, timed on the host as ``matrix.spmm`` (as ``spmv``)."""
+        with _obs.get().span("matrix.spmm"):
+            x = self._x(x)
+            if x.ndim != 2:
+                raise ValueError(f"spmm expects x of shape ({self.n_cols}, "
+                                 f"B); got {tuple(x.shape)}")
+            return self._fns["spmm"](self.matrix, x)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         x = self._x(x)
@@ -1091,7 +1109,7 @@ class Planner:
         The result is a portable :class:`ShardedPlan`; bind it with
         :meth:`ShardedPlan.bind` (or hand it to ``SpMVService.register``)
         to serve it shard by shard."""
-        from ..partition.hybrid import _on_host
+        from .transform import copy_out
         n_shards = int(n_shards)
         strategy_kw = dict(strategy_kw or {})
         tel = _obs.get()
@@ -1099,7 +1117,7 @@ class Planner:
                       strategy=strategy, nnz=csr.nnz) as sp:
             b = shard_boundaries(csr, n_shards, axis=axis,
                                  strategy=strategy, **strategy_kw)
-            host = _on_host(csr)
+            host = copy_out(csr)
             shards: List[BlockPlan] = []
             for s, e in zip(b[:-1], b[1:]):
                 sub = slice_shard(host, int(s), int(e), axis=axis)

@@ -171,7 +171,6 @@ class PlanStore:
         tel = _obs.get()
         if tel.enabled:
             tel.counter("store.write").inc()
-            tel.event("store.write", key=key, path=path)
         # deterministic corruption hook: scribble over the entry we just
         # published so the *next* reader exercises checksum + quarantine
         from ..serve import faults as _faults
@@ -218,7 +217,6 @@ class PlanStore:
             removed += 1
             if tel.enabled:
                 tel.counter("store.evict").inc()
-                tel.event("store.evict", path=p)
         with self._lock:
             self.evictions += removed
         return removed
@@ -264,7 +262,6 @@ class PlanStore:
                     self.misses += 1
                 if tel.enabled:
                     tel.counter("store.miss").inc()
-                    tel.event("store.stale", key=key)
                 return None
         with self._lock:
             self.hits += 1
@@ -324,14 +321,12 @@ class PlanStore:
                 dest = os.path.join(bad_dir, f"{base}.{n}")
             os.replace(path, dest)
         except OSError:
-            dest = None                # raced another quarantine; fine
+            pass                       # raced another quarantine; fine
         with self._lock:
             self.quarantined += 1
         tel = _obs.get()
         if tel.enabled:
             tel.counter("store.quarantine", reason=reason).inc()
-            tel.event("store.quarantine", key=key, reason=reason,
-                      moved_to=dest)
         return None
 
     # -- observability -------------------------------------------------------

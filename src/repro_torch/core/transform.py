@@ -35,10 +35,21 @@ def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def copy_out(m: CSR) -> CSR:
+    """``m`` with its tensors on the host, one copy of each array (none
+    when they are there already), inside a ``transform.copy_out`` span:
+    the card-to-host leg of a host recipe (the copy to pageable memory
+    returns when it is done, so the host's clock times it)."""
+    with _obs.get().span("transform.copy_out", nnz=int(m.nnz)):
+        return m if m.device.type == "cpu" else m.to("cpu")
+
+
 def _traced(fmt: str):
     """Wrap a host conversion in a ``transform`` span carrying the target
     format, matrix size, and any simple keyword parameters — so t_trans
-    shows up per conversion in every trace, not just in offline records."""
+    shows up per conversion in every trace, not just in offline records.
+    The source is copied to the host once, before the recipe reads it
+    (:func:`copy_out`)."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(m, *a, **kw):
@@ -49,14 +60,14 @@ def _traced(fmt: str):
             _faults.maybe_raise("transform.raise")
             tel = _obs.get()
             if not tel.enabled:
-                return fn(m, *a, **kw)
+                return fn(copy_out(m), *a, **kw)
             attrs = {"fmt": fmt,
                      "n_rows": int(getattr(m, "n_rows", 0) or 0),
                      "nnz": int(getattr(m, "nnz", 0) or 0)}
             attrs.update((k, v) for k, v in kw.items()
                          if isinstance(v, (bool, int, float, str)))
             with tel.span("transform", **attrs):
-                return fn(m, *a, **kw)
+                return fn(copy_out(m), *a, **kw)
         return wrapper
     return deco
 
@@ -638,7 +649,7 @@ TRANSFORMS_HOST = {
 }
 
 __all__ = [
-    "pad_to_multiple", "csr_from_dense", "csr_from_rows",
+    "pad_to_multiple", "copy_out", "csr_from_dense", "csr_from_rows",
     "csr_row_bounds", "csr_first_match", "csr_append_rows",
     "csr_set_values", "csr_splice",
     "host_csr_to_coo_row", "host_csr_to_ccs_paper", "host_csr_to_ccs",

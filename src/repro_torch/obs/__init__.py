@@ -11,10 +11,19 @@ reports into:
   the rule that fired, so every decision is a replayable point on the
   paper's D_mat–R graph;
 * ``transform`` — a span per CRS→{COO,ELL,SELL,BCSR,CCS,hybrid} host
-  conversion;
+  conversion, its card-to-host copy (``transform.copy_out``) inside;
+* ``ExecutionPlan.bind`` / ``PlannedMatrix`` — ``plan.bind`` with its
+  upload and ``prepare``, and a span a product's launch path;
 * ``dispatch`` — kernel-tier vs reference-tier resolution counters;
 * ``SpMVService`` — per-key query-latency histograms, queue-depth
-  gauges, flush-cause counters, plan-replay hit/miss.
+  gauges, flush-cause counters, plan-replay hit/miss, and a flush's
+  steps on the card (the panel's stack, each hybrid block's product, the
+  guard's probe, the answers' copy) as device spans.
+
+Work the card does is timed there (``span(name, on=tensor)``: CUDA
+timing events, read after the caller's own synchronize); while telemetry
+is on, every span is also a ``torch.profiler.record_function`` range of
+its name.
 
 Telemetry is **off by default** — the hot path pays one flag check.
 Enable programmatically::
@@ -104,8 +113,8 @@ def enabled() -> bool:
 
 
 # -- delegating conveniences (what instrumented modules call) ---------------
-def span(name: str, **attrs: Any):
-    return get().span(name, **attrs)
+def span(name: str, on: Any = None, **attrs: Any):
+    return get().span(name, on, **attrs)
 
 
 def event(name: str, **attrs: Any) -> Optional[Dict[str, Any]]:

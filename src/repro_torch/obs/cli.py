@@ -116,7 +116,7 @@ def summarize(path: str, out=None) -> int:
              for e in winners], out)
 
     # -- serving ------------------------------------------------------------
-    flushes = [e for e in events if e["name"] == "service.flush"]
+    flushes = [s for s in spans if s["name"] == "service.flush"]
     if flushes:
         causes: Dict[str, int] = defaultdict(int)
         vectors: Dict[str, int] = defaultdict(int)

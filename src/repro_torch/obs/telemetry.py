@@ -25,8 +25,10 @@ Design points:
 from __future__ import annotations
 
 import bisect
+import collections
 import itertools
 import math
+import sys
 import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -184,6 +186,9 @@ class Telemetry:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._ids = itertools.count(1)
+        # finished spans not yet handed to the sinks, oldest first
+        self._unsent: collections.deque = collections.deque()
+        self._send_lock = threading.Lock()
 
     # -- metrics -------------------------------------------------------------
     def _metric(self, kind: str, cls: type, name: str,
@@ -241,12 +246,25 @@ class Telemetry:
         return out
 
     # -- spans + events ------------------------------------------------------
-    def span(self, name: str, **attrs: Any):
+    def span(self, name: str, on: Any = None, **attrs: Any):
         """Context manager timing a region; no-op when disabled.  The
-        yielded :class:`Span` accepts ``.set(**attrs)``."""
+        yielded :class:`Span` accepts ``.set(**attrs)``.
+
+        With ``on`` (a tensor or a device) the span is over work the card
+        does for it, timed by two CUDA timing events on the device's
+        current stream: ``dur`` is the card's time from the work enqueued
+        before the span to the last work enqueued inside it, resolved when
+        first read.  Nothing synchronizes and nothing is launched.  On a
+        CPU tensor, or with a :class:`FakeClock`, it is a host span."""
         if not self.enabled:
             return NOOP_SPAN
-        return SpanContext(self, name, attrs)
+        dev = getattr(on, "device", on)
+        if getattr(dev, "type", None) != "cuda" \
+                or isinstance(self.clock, FakeClock):
+            return SpanContext(self, name, attrs)
+        # a CUDA device exists only where the program has loaded torch
+        cuda = sys.modules["torch"].cuda
+        return SpanContext(self, name, attrs, cuda.current_stream(dev))
 
     def event(self, name: str, **attrs: Any) -> Optional[Dict[str, Any]]:
         """Point event (a tune winner, a plan decision, a flush), parented
@@ -273,7 +291,17 @@ class Telemetry:
     def _finish_span(self, sp: Span) -> None:
         self._append(self.spans, sp)
         if self.sinks:
-            self._emit(sp.to_record())
+            with self._send_lock:
+                self._unsent.append(sp)
+                self._send(wait=False)
+
+    def _send(self, wait: bool) -> None:
+        """Hand finished spans to the sinks in the order they finished, a
+        device span once the card has passed its end (``wait``: every one,
+        waiting for the card)."""
+        q = self._unsent
+        while q and (wait or q[0].ready()):
+            self._emit(q.popleft().to_record())
 
     def _append(self, buf: List[Any], item: Any) -> None:
         if len(buf) >= self.max_records:
@@ -303,6 +331,8 @@ class Telemetry:
         self.sink_errors = 0
 
     def close(self) -> None:
+        with self._send_lock:
+            self._send(wait=True)
         for s in self.sinks:
             close = getattr(s, "close", None)
             if callable(close):

@@ -29,13 +29,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..core import dispatch as _dispatch
 from ..core.autotune import (MachineModel, TuningDB, decide_cost_model,
                              decide_generalized, decide_paper)
 from ..core.formats import (CSR, MatrixStats, MatrixValidationError,
                             _TensorContainer, _np, memory_bytes)
 from ..core.policy import MemoryPolicy
-from ..core.transform import TRANSFORMS_HOST, _t, pad_to_multiple
+from ..core.transform import (TRANSFORMS_HOST, _t, copy_out,
+                              pad_to_multiple)
 
 from .strategies import PARTITIONERS
 
@@ -152,12 +154,6 @@ class HybridMatrix(_TensorContainer):
 # ---------------------------------------------------------------------------
 # CSR row-slicing (host)
 # ---------------------------------------------------------------------------
-def _on_host(m: CSR) -> CSR:
-    """``m`` with its tensors on the host: slicing a matrix on the card
-    block by block would copy the whole of it back once a block."""
-    return m if m.device.type == "cpu" else m.to("cpu")
-
-
 def take_rows_csr(m: CSR, rows: np.ndarray, pad: int = 8) -> CSR:
     """Sub-CSR over an arbitrary (ordered) row subset; full column space."""
     ip = _np(m.indptr)
@@ -319,7 +315,7 @@ def build_hybrid(m: CSR,
                        f"one of {sorted(PARTITIONERS)}")
     if sort_rows is None:
         sort_rows = strategy == "variance"
-    m = _on_host(m)
+    m = copy_out(m)      # one copy, not one a block
     lens = m.row_lengths().astype(np.int64)
 
     t0 = time.perf_counter()
@@ -392,6 +388,24 @@ def _block_impl(fmt: str, op: str,
     return fn if fn is not None else _dispatch.get_impl(fmt, op)
 
 
+def _block_products(m: HybridMatrix, op: str,
+                    impls: Optional[Dict[str, Callable]],
+                    x: torch.Tensor) -> List[torch.Tensor]:
+    """Each block's product, in block order; with telemetry on, each in a
+    ``hybrid.block`` span timed on the card."""
+    tel = _obs.get()
+    outs = []
+    for fmt, b in zip(m.formats, m.blocks):
+        fn = _block_impl(fmt, op, impls)
+        if tel.enabled:
+            with tel.span("hybrid.block", on=x, fmt=fmt,
+                          rows=int(b.shape[0]), nnz=int(b.nnz)):
+                outs.append(fn(b, x))
+        else:
+            outs.append(fn(b, x))
+    return outs
+
+
 def _reassemble(m: HybridMatrix, outs: List[torch.Tensor]) -> torch.Tensor:
     """The blocks' outputs in permuted row order -> ``A @ x`` rows: one
     concatenation in the promoted dtype of the blocks' outputs (SELL blocks
@@ -412,16 +426,14 @@ def spmv_hybrid(m: HybridMatrix, x: torch.Tensor,
     ``impls`` maps format name -> callable(block, x) (e.g. the kernel-tier
     wrappers in ``kernels/ops.py``); formats not overridden resolve to the
     reference tier of the ``core/dispatch`` registry."""
-    return _reassemble(m, [_block_impl(fmt, "spmv", impls)(b, x)
-                           for fmt, b in zip(m.formats, m.blocks)])
+    return _reassemble(m, _block_products(m, "spmv", impls, x))
 
 
 def spmm_hybrid(m: HybridMatrix, x: torch.Tensor,
                 impls: Optional[Dict[str, Callable]] = None) -> torch.Tensor:
     """Multi-vector RHS: x (n_cols, B) -> (n_rows, B) — each block's own
     SpMM, reassembling the (rows, B) panels through the row permutation."""
-    return _reassemble(m, [_block_impl(fmt, "spmm", impls)(b, x)
-                           for fmt, b in zip(m.formats, m.blocks)])
+    return _reassemble(m, _block_products(m, "spmm", impls, x))
 
 
 # the hybrid container is a first-class format: one registration here is

@@ -213,7 +213,9 @@ class GuardedImpl:
     # -- failure detection ---------------------------------------------------
     def _finite(self, y: Any) -> bool:
         # one device-to-host sync: the card finishes the rung's work first
-        return bool(torch.isfinite(y).all().item())
+        with _obs.get().span("guard.probe", on=y):
+            ok = torch.isfinite(y).all()
+        return bool(ok.item())
 
     def _fail(self, rung: Rung, reason: str, tel) -> None:
         k = f"{rung.name}/{reason}"

@@ -1072,12 +1072,14 @@ class SpMVService:
                 panel = entry.max_batch or self.max_batch
                 if self.pad_batches and b < panel:
                     xs += [xs[0].new_zeros(xs[0].shape)] * (panel - b)
-                X = torch.stack(xs, dim=1)          # (n, panel): one copy
+                with tel.span("service.stack", on=xs[0]):
+                    X = torch.stack(xs, dim=1)      # (n, panel): one copy
                 t0 = self._now()
                 Y = self._run(entry, "spmm", X)
                 # each future gets its own tensor: the panel's columns in
                 # one fresh row-major copy whose rows do not overlap
-                results = Y[:, :b].t().contiguous().unbind(0)
+                with tel.span("service.unstack", on=Y):
+                    results = Y[:, :b].t().contiguous().unbind(0)
             except Exception as e:
                 # never strand a future: the whole panel fails together
                 for fut, _, _ in batch:
@@ -1088,8 +1090,6 @@ class SpMVService:
             tel.counter("service.flush", key=key, cause=cause).inc()
             tel.gauge("service.queue_depth", key=key).set(0)
             tel.histogram("service.flush_latency_s", key=key).observe(dt)
-            tel.event("service.flush", key=key, cause=cause, batch=b,
-                      t_spmm=dt)
         with entry.lock:
             entry.n_spmm_calls += 1
             entry.n_spmm_cols += b

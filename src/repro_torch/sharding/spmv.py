@@ -82,8 +82,8 @@ MODES = ("auto", "shard_map", "dispatch", "single")
 def _slice_for(csr: CSR, boundaries: np.ndarray, axis: str) -> List[CSR]:
     """The slabs of ``csr`` between ``boundaries``, cut from one host copy
     (host CSRs)."""
-    from ..partition.hybrid import _on_host
-    host = _on_host(csr)
+    from ..core.transform import copy_out
+    host = copy_out(csr)
     return [slice_shard(host, int(s), int(e), axis=axis)
             for s, e in zip(boundaries[:-1], boundaries[1:])]
 

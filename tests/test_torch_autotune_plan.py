@@ -564,7 +564,12 @@ def test_telemetry_names_match_reference(both_dbs, matrix):
         names[key] = sorted({(r.get("type"), r.get("name"))
                              for r in sink.records})
         assert ("span", "plan.plan") in names[key]
-    assert names["port"] == names["ref"]
+    # the port's own spans inside the bind (docs/observability.md), and
+    # every name of the reference's
+    port_only = {("span", n) for n in ("plan.bind", "transform.copy_out",
+                                       "bind.upload", "bind.prepare")}
+    assert ("span", "plan.bind") in names["port"]
+    assert [n for n in names["port"] if n not in port_only] == names["ref"]
 
 
 def test_api_reexports_under_the_reference_names():

@@ -337,10 +337,13 @@ def test_service_emits_counters_histograms_and_flush_causes(
     assert snap["histograms"][
         "service.query_latency_s{key=m,op=spmm}"]["count"] == 1
     assert snap["gauges"]["service.queue_depth{key=m}"] == 0.0
+    # the flush's causes are on its span (the port emits no flush event)
     causes = {e["attrs"]["cause"]
               for e in sink_of(tel).named("service.flush")
-              if e["type"] == "event"}
+              if e["type"] == "span"}
     assert causes == {"max_batch", "deadline", "explicit"}
+    assert not [e for e in sink_of(tel).named("service.flush")
+                if e["type"] == "event"]
     # stats() folds this key's telemetry slice in
     st = svc.stats()["m"]
     assert st["telemetry"]["service.flush{cause=explicit}"] == 1.0
@@ -445,7 +448,8 @@ def trace_files(tmp_path):
             d_star=1.1)
     t.event("tune.winner", fmt="ell_row", op="spmv", batch=1, t_best=4e-5,
             t_default=6e-5, speedup=1.5, geometry={"block_rows": 8})
-    t.event("service.flush", cause="deadline", key="m1", batch=4)
+    with t.span("service.flush", cause="deadline", key="m1", batch=4):
+        pass
     t.event("service.plan_replay", key="m1", hit=True)
     t.close()
     trace = str(tmp_path / "run.trace.json")

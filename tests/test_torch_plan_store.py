@@ -207,9 +207,8 @@ def test_each_corruption_class_quarantines(problem, tmp_path, raw, reason,
     bad = os.listdir(os.path.join(str(tmp_path), BAD_DIR))
     assert len(bad) == 1 and reason in bad[0]
     assert store.stats()["quarantined"] == 1
-    events = [e for e in tel.sinks[0].named("store.quarantine")
-              if e["type"] == "event"]
-    assert events and events[0]["attrs"]["reason"] == reason
+    counters = tel.snapshot()["counters"]
+    assert counters[f"store.quarantine{{reason={reason}}}"] == 1.0
     # the slot is reusable after quarantine
     store.put(key, make_plan(csr))
     assert store.get(key) is not None
@@ -273,7 +272,7 @@ def test_sharded_entry_is_a_miss_left_on_disk(problem, ref_csr, rng,
                       RPL.ShardedPlan)
     assert store.stats()["quarantined"] == 0
     assert store.stats()["hits"] == 1
-    assert not tel.sinks[0].named("store.stale")
+    assert "store.miss" not in tel.snapshot()["counters"]   # none stale
 
     def no_tuning(thunk, geometry):
         raise AssertionError("a replayed sharded plan tuned")
@@ -424,9 +423,8 @@ def test_service_survives_corrupted_store_entry(problem, rng, tmp_path,
     x = rng.normal(size=140).astype(np.float32)
     np.testing.assert_allclose(svc2.spmv("b", x).numpy(), dense @ x,
                                rtol=2e-4, atol=2e-4)
-    events = [e for e in tel.sinks[0].named("store.quarantine")
-              if e["type"] == "event"]
-    assert events
+    assert any(k.startswith("store.quarantine{")
+               for k in tel.snapshot()["counters"])
     # the re-tuned plan was written back over the quarantined slot
     assert PlanStore(root).get(key) is not None
 
